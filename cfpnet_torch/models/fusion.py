@@ -1,0 +1,116 @@
+"""TransformerFusion: per-scale fusion of image features with zone histogram
+features.
+
+Port of ``cfpnet_tpu/models/fusion.py::TransformerFusion`` (reference
+src/models/fusion.py:12-188) for the layer names ``hist2image``,
+``combine1`` and ``image``; ``new_cross``, ``combine_N`` and ``cvxt_N``
+are not ported yet and raise.
+
+- All zone geometry arrives as a static ``ScaleGeometry``, so every slice,
+  pad and reshape has a fixed shape.
+- The ``hist2image`` write-back is a static-rectangle slice assignment.
+- The train-time positional-encoding crop draws from an explicit
+  ``torch.Generator``; without one (eval) the crop is centered.
+- Invalid zones are zeroed after cross-attention by a per-zone multiply.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..data.geometry import ScaleGeometry
+from ..ops.interp import resize_bilinear_align_corners
+from .transformer import Combine1, LoFTREncoderLayer, TwinsTransformer, twins_window_size
+
+
+class TransformerFusion(nn.Module):
+    def __init__(self, embedding_dim: int, max_resolution: Tuple[int, int],
+                 layer_names: Sequence[str], num_heads: int = 4, large_kernel: int = 7,
+                 zone_sample_num: int = 16, change_embedding: bool = False,
+                 no_skip_inside: bool = False):
+        super().__init__()
+        self.max_resolution = tuple(max_resolution)
+        self.layer_names = tuple(layer_names)
+        self.zone_sample_num = zone_sample_num
+        self.change_embedding = change_embedding
+        self.no_skip_inside = no_skip_inside
+        maxH, maxW = self.max_resolution
+        # reference layout: [H*W, D] and [n, D]
+        self.positional_encodings = nn.Parameter(0.2 * torch.randn(maxH * maxW, embedding_dim))
+        self.positional_encodings2 = nn.Parameter(0.2 * torch.randn(zone_sample_num,
+                                                                    embedding_dim))
+        ws = twins_window_size(maxH, maxW)
+        layers = []
+        for name in self.layer_names:
+            if name == "image":
+                layers.append(TwinsTransformer(embedding_dim, ws))
+            elif name == "hist2image":
+                layers.append(LoFTREncoderLayer(embedding_dim, num_heads))
+            elif name == "combine1":
+                layers.append(Combine1(embedding_dim, num_heads, large_kernel))
+            else:
+                raise NotImplementedError(f"attention layer '{name}' is not ported yet")
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor, feat1: torch.Tensor, hist_mask: torch.Tensor,
+                geom: ScaleGeometry, generator: Optional[torch.Generator] = None):
+        """x: [B, H, W, C] image features; feat1: [B, Z, n, C] histogram
+        features; hist_mask: [B, Z] zones with signal. Returns [B, H, W, C]."""
+        B, H, W, C = x.shape
+        maxH, maxW = self.max_resolution
+        zn, p1, p2 = geom.zone_num, geom.p1, geom.p2
+        Z = zn * zn
+
+        pos = self.positional_encodings.reshape(maxH, maxW, C).to(x.dtype)
+        pos2 = self.positional_encodings2.to(x.dtype)
+        # random crop of the 2D positional encoding (reference :88-96), or a
+        # centered one when no generator is given
+        if H < maxH or W < maxW:
+            if generator is not None:
+                off_y = int(torch.randint(0, maxH - H + 1, (), generator=generator))
+                off_x = int(torch.randint(0, maxW - W + 1, (), generator=generator))
+            else:
+                off_y, off_x = (maxH - H) // 2, (maxW - W) // 2
+            pos = pos[off_y:off_y + H, off_x:off_x + W]
+        embeddings = x + pos[None]
+        feat0 = embeddings.reshape(B, H * W, C)
+
+        # histogram tokens (reference :123-125)
+        feat1_tokens = (feat1 + pos2[None, None]).reshape(B * Z, self.zone_sample_num, C)
+        zone_valid = hist_mask.reshape(B * Z, 1, 1).to(x.dtype)
+        rect = (geom.zy0, geom.zy1, geom.zx0, geom.zx1)
+
+        for name, layer in zip(self.layer_names, self.layers):
+            if name == "image":
+                feat0 = layer(feat0, (H, W))
+            elif name == "hist2image":
+                src2d = feat0.reshape(B, H, W, C) if self.change_embedding else embeddings
+                padded = F.pad(src2d, (0, 0, geom.pad_w, geom.pad_w, geom.pad_h, geom.pad_h))
+                zone = padded[:, geom.sy:geom.ey, geom.sx:geom.ex, :]
+                if geom.interpolate:
+                    zone = resize_bilinear_align_corners(zone, zn * p1, zn * p2)
+                tokens = (zone.reshape(B, zn, p1, zn, p2, C).permute(0, 1, 3, 2, 4, 5)
+                          .reshape(B * Z, p1 * p2, C))
+                tokens = layer(tokens, feat1_tokens) * zone_valid  # reference :144
+                zone_out = (tokens.reshape(B, zn, zn, p1, p2, C).permute(0, 1, 3, 2, 4, 5)
+                            .reshape(B, zn * p1, zn * p2, C))
+                if geom.interpolate:
+                    zone_out = resize_bilinear_align_corners(zone_out, geom.tzh, geom.tzw)
+                # static-rectangle write-back (reference :154-157)
+                oy0 = max(0, -geom.sy_wo)
+                ox0 = max(0, -geom.sx_wo)
+                block = zone_out[:, oy0:oy0 + (geom.zy1 - geom.zy0),
+                                 ox0:ox0 + (geom.zx1 - geom.zx0), :]
+                f2d = feat0.reshape(B, H, W, C).clone()
+                region = f2d[:, geom.zy0:geom.zy1, geom.zx0:geom.zx1, :]
+                f2d[:, geom.zy0:geom.zy1, geom.zx0:geom.zx1, :] = (
+                    block if self.no_skip_inside else region + block)
+                feat0 = f2d.reshape(B, H * W, C)
+            else:  # combine1
+                feat0 = layer(feat0, rect, H, W)
+
+        return feat0.reshape(B, H, W, C)
