@@ -4,9 +4,9 @@ One module per kernel: its wrapper, its launch count and its plain twin.
 Nothing is built or loaded when this package is imported.
 """
 
-from . import dwconv, linear_attention
+from . import dwconv, fused_loftr, linear_attention
 
-KERNELS = (linear_attention, dwconv)
+KERNELS = (linear_attention, dwconv, fused_loftr)
 
 
 def reset_launches() -> None:

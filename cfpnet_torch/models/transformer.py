@@ -4,9 +4,18 @@ propagation.
 Port of ``cfpnet_tpu/models/transformer.py`` (``LoFTREncoderLayer``,
 ``LocallyGroupedAttn``, ``GlobalSubSampleAttn``, ``TwinsTransformer``,
 ``LoFTRNewCross9``, ``Combine1``, ``twins_window_size``). Tokens are
-[B, H·W, C] as in the JAX package. Every attention call goes through
-``ops.dispatch.attention``: the CUDA kernel on the card.
+[B, H·W, C] as in the JAX package.
 
+- An unmasked ``LoFTREncoderLayer`` (hist2image, and the LSA and GSA halves
+  of ``TwinsTransformer``) goes through ``ops.dispatch.loftr_layer``: on the
+  card the whole layer is one call of the fused LoFTR kernel, on the CPU its
+  plain version ``ops/loftr.py::loftr_apply``. A masked one runs through its
+  modules (CPU only). The JAX model never reaches its own fused kernel
+  (``cfpnet_tpu/ops/pallas_loftr.py:26-28`` says its eval path does;
+  ``tests/test_pallas_loftr.py:7-8`` and ``cfpnet_tpu/ops/dispatch.py`` say
+  nothing does, which is what its code does).
+- ``LoFTRNewCross9``'s attention goes through ``ops.dispatch.attention``: the
+  attention kernel on the card.
 - ``LoFTRNewCross9`` keeps the dense static-rectangle form: attention runs
   for every token against the inside-zone keys, and the message is zeroed
   on the inside rectangle afterwards. Linear attention is per-query, so this
@@ -24,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.dispatch import attention
+from ..ops.dispatch import attention, loftr_layer
+from ..ops.loftr import LoFTRParams
 from .convnext import Block14
 from .layers import BatchNorm
 
@@ -56,6 +66,21 @@ class LoFTREncoderLayer(nn.Module):
 
     def forward(self, x, source, x_mask=None, source_mask=None):
         # x: [N, L, C]; source: [N, S, C]
+        return loftr_layer(x, source, self, x_mask, source_mask)
+
+    def loftr_params(self) -> LoFTRParams:
+        """The layer's weights for ``ops/loftr.py``, without a copy: each
+        matrix is its ``nn.Linear`` weight's ``.t()``, [in, out] as in flax."""
+        return LoFTRParams(
+            wq=self.q_proj.weight.t(), wk=self.k_proj.weight.t(), wv=self.v_proj.weight.t(),
+            wm=self.merge.weight.t(), g1=self.norm1.weight, b1=self.norm1.bias,
+            w0=self.mlp[0].weight.t(), w1=self.mlp[2].weight.t(),
+            g2=self.norm2.weight, b2=self.norm2.bias)
+
+    def modules_forward(self, x, source, x_mask=None, source_mask=None):
+        """The layer through its modules, one op at a time (cuBLAS linears,
+        ``dispatch.attention``, torch LayerNorm): the masked path on the CPU,
+        and on the card the unfused yardstick of the fused kernel."""
         bs = x.shape[0]
         dim = self.d_model // self.nhead
         q = self.q_proj(x).reshape(bs, -1, self.nhead, dim)

@@ -8,6 +8,8 @@ reference torch graph's, so
 
 - ``from_flax(params, batch_stats, config)`` turns flax trees of numpy
   arrays into the port's ``state_dict``;
+- ``loftr_params_from_flax(tree)`` turns one flax ``LoFTREncoderLayer``
+  param dict into the fused LoFTR op's ``LoFTRParams``;
 - ``flax_param_spec(config)`` lists every flax leaf (collection, path,
   shape in flax layout) of the model, without JAX, so that weights defined
   on flax paths can be rebuilt here (``deterministic_state_dict``);
@@ -30,6 +32,7 @@ import torch
 
 from .models.deltar import make_model
 from .models.efficientnetv2 import V2_B3_STAGES, V2_TINY_STAGES
+from .ops.loftr import LoFTRParams
 
 # kind: "conv" | "dwconv" | "dense" | "conv1d" | "raw" | ("pos", h, w)
 Entry = Tuple[Tuple[str, ...], object, str]  # (flax path, kind, collection)
@@ -77,6 +80,20 @@ def _loftr_entries():
     e.append(("mlp.0.weight", ("mlp_0", "kernel"), "dense", "params"))
     e.append(("mlp.2.weight", ("mlp_1", "kernel"), "dense", "params"))
     return e + _ln("norm1", "norm1") + _ln("norm2", "norm2")
+
+
+def loftr_params_from_flax(tree) -> LoFTRParams:
+    """A flax ``LoFTREncoderLayer`` param dict (numpy arrays) -> the
+    ``LoFTRParams`` that ``LoFTREncoderLayer.loftr_params`` gives once the
+    same tree is loaded through ``from_flax``: [in, out] views of [out, in]
+    storage, which the CUDA kernel takes as they are."""
+    sd = {tkey: torch.from_numpy(np.ascontiguousarray(_to_torch_layout(
+        np.asarray(tree[fpath[0]][fpath[1]]), kind))) for tkey, fpath, kind, _ in _loftr_entries()}
+    return LoFTRParams(
+        wq=sd["q_proj.weight"].t(), wk=sd["k_proj.weight"].t(), wv=sd["v_proj.weight"].t(),
+        wm=sd["merge.weight"].t(), g1=sd["norm1.weight"], b1=sd["norm1.bias"],
+        w0=sd["mlp.0.weight"].t(), w1=sd["mlp.2.weight"].t(),
+        g2=sd["norm2.weight"], b2=sd["norm2.bias"])
 
 
 def _block14_entries():

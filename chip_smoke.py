@@ -13,16 +13,23 @@ line:
    holds the kernel against its plain PyTorch version on the same inputs
    (f32, TF32 off; max |kernel - plain| <= 1e-4 * max |plain|, the sums run
    in another order) and times kernel, plain version, the library call
-   where one exists, against the card's bound for the same work.
+   where one exists, against the card's bound for the same work. The fused
+   LoFTR layer is checked at its nine shapes on numpy-seeded inputs and
+   weights (std 0.1, as tests/test_pallas_loftr.py) and also timed as the
+   layer ran before it existed (``unfused_ms``: the module path with cuBLAS
+   linears, the attention kernel and torch LayerNorm). Attention is still
+   checked at all twelve shapes; nine of them now run inside the fused
+   layer, so they count no calls per forward.
 4. slice: the production model (configs/train_cfpnet_combine1.txt
    topology) at 480x640, bs=1, with the golden tests' deterministic
    weights, against ``tests/golden/full_forward.npz`` at that test's
    tolerance (rtol 5e-4, atol 5e-5); the launch counts of that forward must
-   be 24 attention and 6 depthwise-conv launches.
+   be 6 attention, 6 depthwise-conv and 18 fused-LoFTR launches.
 5. entry: ``cfpnet_torch.evaluate`` on 4 synthetic images at bs=1 and
    bs=2; metrics must be finite; prints the bs=1 latency.
-6. profile: device time of one bs=1 forward by kernel (torch.profiler) and
-   the device's busy share of the forward's latency.
+6. profile: device time of one bs=1 forward by kernel (torch.profiler),
+   its kernel launches, and the device's busy share of the forward's
+   latency.
 
 Then the kernel table as one JSON line, and last the ``ok`` line.
 """
@@ -82,14 +89,20 @@ def bound_fields(nbytes: float, flops: float):
 
 
 def main_path_shapes(config, geoms, batch: int = 1):
-    """(attention shapes, dwconv shapes) of one eval forward, with the number
-    of calls at each: attention (N, L, S, H, D), dwconv (B, H, W, C, k)."""
+    """(attention, dwconv, LoFTR layer) shapes of one eval forward, with the
+    number of calls at each: attention (N, L, S, H, D), dwconv (B, H, W, C,
+    k), LoFTR layer (N, L, S, C, H). The attention inside a LoFTR layer is
+    listed with 0 calls: the fused kernel computes it."""
     from cfpnet_torch.models.transformer import twins_window_size
 
-    att, dw = {}, {}
+    att, dw, loftr = {}, {}, {}
 
     def add(d, key, n=1):
         d[key] = d.get(key, 0) + n
+
+    def add_loftr(N, L, S, C, H):
+        add(loftr, (N, L, S, C, H))
+        add(att, (N, L, S, H, C // H), 0)
 
     nh, nw = config.native_height, config.native_width
     for scale, C, k in ((16, 128, 7), (8, 64, 15), (4, 32, 31)):
@@ -98,16 +111,16 @@ def main_path_shapes(config, geoms, batch: int = 1):
         ws = twins_window_size(H, W)
         for name in config.attention_layer:
             if name == "hist2image":
-                add(att, (batch * g.zone_num ** 2, g.p1 * g.p2, config.zone_sample_num, 4, C // 4))
+                add_loftr(batch * g.zone_num ** 2, g.p1 * g.p2, config.zone_sample_num, C, 4)
             elif name == "combine1":
                 add(att, (batch, H * W, g.num_inside, 4, C // 4))
                 add(dw, (batch, H, W, C, k))
             elif name == "image":
-                add(att, (batch * -(-H // ws) * -(-W // ws), ws * ws, ws * ws, 8, C // 8))
-                add(att, (batch, H * W, (H // ws) * (W // ws), 8, C // 8))
+                add_loftr(batch * -(-H // ws) * -(-W // ws), ws * ws, ws * ws, C, 8)
+                add_loftr(batch, H * W, (H // ws) * (W // ws), C, 8)
             else:
                 raise NotImplementedError(name)
-    return att, dw
+    return att, dw, loftr
 
 
 def check_kernels(config, geoms):
@@ -115,11 +128,13 @@ def check_kernels(config, geoms):
     version; returns the per-kernel rows of the kernel table."""
     import torch.nn.functional as F
 
-    from cfpnet_torch.kernels import dwconv, linear_attention
+    from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
+    from cfpnet_torch.models.transformer import LoFTREncoderLayer
     from cfpnet_torch.ops.attention import linear_attention as att_plain
     from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
+    from cfpnet_torch.ops.loftr import loftr_apply
 
-    att_shapes, dw_shapes = main_path_shapes(config, geoms)
+    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape):
@@ -165,6 +180,37 @@ def check_kernels(config, geoms):
             plain_ms=device_ms(lambda: dw_plain(x, w, bias), reps=2, trials=3),
             library_ms=device_ms(lambda: F.conv2d(x_nchw, w, bias, padding=kk // 2, groups=C)),
             **bound_fields(nbytes, flops)))
+    rng = np.random.default_rng(SEED)
+    for (N, L, S, C, H), calls in sorted(loftr_shapes.items()):
+        def normal(*shape, mean=0.0, std=1.0):
+            a = (mean + std * rng.standard_normal(shape)).astype(np.float32)
+            return torch.from_numpy(a).cuda()
+
+        x, src = normal(N, L, C), normal(N, S, C)
+        layer = LoFTREncoderLayer(C, H).cuda()
+        for name, w in layer.named_parameters():
+            w.data.copy_(normal(*w.shape, mean=1.0 if name.endswith("norm1.weight")
+                                or name.endswith("norm2.weight") else 0.0, std=0.1))
+        p = layer.loftr_params()
+        with torch.no_grad():
+            got = fused_loftr.fused_loftr(x, src, p, H)
+            ref = loftr_apply(x, src, p, H)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not (err <= TOL * scale):
+                raise AssertionError(f"fused_loftr {(N, L, S, C, H)}: max err {err} > "
+                                     f"{TOL} * {scale}")
+            D = C // H
+            nbytes = 4 * (2 * N * L * C + N * S * C + 10 * C * C + 4 * C)
+            flops = 2 * (N * L * 8 * C * C + N * S * 2 * C * C + N * H * (S + L) * D * D)
+            per_shape.append(dict(
+                kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H), calls=calls,
+                max_abs_err=err, max_abs_plain=scale,
+                ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
+                plain_ms=device_ms(lambda: loftr_apply(x, src, p, H)),
+                unfused_ms=device_ms(lambda: layer.modules_forward(x, src)),
+                library_ms=None, **bound_fields(nbytes, flops)))
     for r in per_shape:
         emit(dict(phase="kernel_shape", **r))
 
@@ -172,6 +218,8 @@ def check_kernels(config, geoms):
         "linear_attention": ("cfpnet_torch/csrc/linear_attention.cu",
                              "cfpnet_tpu/ops/pallas_attention.py:109"),
         "dwconv": ("cfpnet_torch/csrc/dwconv.cu", "cfpnet_tpu/ops/pallas_dwconv.py:41"),
+        "fused_loftr": ("cfpnet_torch/csrc/fused_loftr.cu",
+                        "cfpnet_tpu/ops/pallas_loftr.py:156"),
     }
     for name, (source, replaces) in meta.items():
         mine = [r for r in per_shape if r["kernel"] == name]
@@ -181,6 +229,7 @@ def check_kernels(config, geoms):
                 return None
             return sum(r["calls"] * r[key] for r in mine)
 
+        extra = dict(unfused_ms=per_forward("unfused_ms")) if name == "fused_loftr" else {}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=None,
             max_abs_err=max(r["max_abs_err"] for r in mine),
@@ -188,7 +237,7 @@ def check_kernels(config, geoms):
             bound_ms=per_forward("bound_ms"),
             bound_by="bytes" if per_forward("bytes_ms") >= per_forward("ops_ms") else "operations",
             library_ms=per_forward("library_ms"),
-            calls_per_forward=sum(r["calls"] for r in mine)))
+            calls_per_forward=sum(r["calls"] for r in mine), **extra))
     return rows
 
 
@@ -265,9 +314,9 @@ def main() -> int:
         bin_edges, pred, prob, _ = model(img, hist, mask, geoms)
     torch.cuda.synchronize()
     launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
-    if launches != {"linear_attention": 24, "dwconv": 6}:
-        raise AssertionError(f"main path launched {launches}, expected 24 attention and "
-                             "6 dwconv launches")
+    if launches != {"linear_attention": 6, "dwconv": 6, "fused_loftr": 18}:
+        raise AssertionError(f"main path launched {launches}, expected 6 attention, "
+                             "6 dwconv and 18 fused LoFTR launches")
     for r in rows:
         r["launches"] = launches[r["name"]]
     if tuple(pred.shape) != (1, 240, 320, 1) or tuple(prob.shape) != (1, 240, 320, 256):

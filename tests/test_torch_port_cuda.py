@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from cfpnet_torch import kernels
-from cfpnet_torch.kernels import dwconv, linear_attention
+from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
 from cfpnet_torch.ops.attention import linear_attention as attention_plain
 from cfpnet_torch.ops.dwconv import depthwise_conv2d as dwconv_plain
+from cfpnet_torch.ops.loftr import LoFTRParams, loftr_apply
 
 pytestmark = pytest.mark.gpu
 
@@ -77,3 +78,61 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         dwconv.depthwise_conv2d(x, _randn(gen, 4, 1, 9, 9))
     with pytest.raises(ValueError):
         dwconv.depthwise_conv2d(x.permute(0, 2, 1, 3), _randn(gen, 4, 1, 7, 7))
+
+
+def _loftr_params(gen, C, requires_grad=False):
+    """Weights at the scale of tests/test_pallas_loftr.py::make_params, stored
+    as nn.Linear stores them ([out, in]) and handed over as .t() views."""
+    def leaf(*shape, mean=0.0):
+        return (mean + 0.1 * _randn(gen, *shape)).requires_grad_(requires_grad)
+
+    stored = dict(wq=leaf(C, C), wk=leaf(C, C), wv=leaf(C, C), wm=leaf(C, C), g1=leaf(C, mean=1.0),
+                  b1=leaf(C), w0=leaf(2 * C, 2 * C), w1=leaf(C, 2 * C), g2=leaf(C, mean=1.0),
+                  b2=leaf(C))
+    return stored, LoFTRParams(**{k: v.t() if v.dim() == 2 else v for k, v in stored.items()})
+
+
+@pytest.mark.parametrize("N,L,S,C,H", [(1, 1, 1, 32, 4), (3, 37, 5, 32, 8), (5, 1, 9, 64, 4),
+                                       (7, 19, 1, 64, 8), (13, 23, 17, 128, 8),
+                                       (1, 4097, 130, 32, 8), (2, 4097, 130, 128, 4),
+                                       (3, 50, 200, 128, 8)])
+def test_fused_loftr_kernel(gen, N, L, S, C, H):
+    x, src = _randn(gen, N, L, C), _randn(gen, N, S, C)
+    _, p = _loftr_params(gen, C)
+    kernels.reset_launches()
+    got = fused_loftr.fused_loftr(x, src, p, H)
+    torch.cuda.synchronize()
+    assert fused_loftr.launches == 1
+    _assert_close(got, loftr_apply(x, src, p, H))
+
+
+def test_fused_loftr_backward(gen):
+    """Gradients through the autograd.Function (kernel forward) equal plain
+    autograd of loftr_apply on the card, for x, source and every weight."""
+    N, L, S, C, H = 3, 20, 11, 64, 8
+    x0, src0, g = _randn(gen, N, L, C), _randn(gen, N, S, C), _randn(gen, N, L, C)
+    grads = []
+    for fn in (fused_loftr.fused_loftr, loftr_apply):
+        gen.manual_seed(5)
+        stored, p = _loftr_params(gen, C, requires_grad=True)
+        x, src = x0.clone().requires_grad_(), src0.clone().requires_grad_()
+        fn(x, src, p, H).backward(g)
+        grads.append([x.grad, src.grad] + [w.grad for w in stored.values()])
+    for got, ref in zip(*grads):
+        _assert_close(got, ref)
+
+
+def test_fused_loftr_refuses_what_it_does_not_take(gen):
+    x, src = _randn(gen, 2, 8, 32), _randn(gen, 2, 5, 32)
+    _, p = _loftr_params(gen, 32)
+    with pytest.raises(TypeError):
+        fused_loftr.fused_loftr(x.double(), src.double(), LoFTRParams(*(w.double() for w in p)), 4)
+    with pytest.raises(ValueError):
+        fused_loftr.fused_loftr(_randn(gen, 2, 32, 8).transpose(1, 2), src, p, 4)
+    with pytest.raises(ValueError):
+        fused_loftr.fused_loftr(x, src, p._replace(wq=p.wq.contiguous()), 4)
+    _, p48 = _loftr_params(gen, 48)
+    with pytest.raises(ValueError):
+        fused_loftr.fused_loftr(_randn(gen, 2, 8, 48), _randn(gen, 2, 5, 48), p48, 4)
+    with pytest.raises(ValueError):
+        fused_loftr.fused_loftr(x, src, p, 2)
