@@ -3,8 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries go into ``cfpnet_torch/_build/`` at first
-use, named by a digest of the source and the flags, so a changed source is
-rebuilt and a stale library is never loaded. ``build()`` starts one ``nvcc``
+use, named by a digest of the source, the headers of ``csrc/`` it includes
+(``#include "..."``, followed through headers that include others) and the
+flags, so a changed source or header is rebuilt and a stale library is
+never loaded. ``build()`` starts one ``nvcc``
 per source, all at once.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,10 +43,27 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME)")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Dict[Path, bytes]) -> None:
+    """``path`` and the files of ``csrc/`` it includes, depth first, once each."""
+    if path in seen:
+        return
+    text = seen[path] = path.read_bytes()
+    for name in _LOCAL_INCLUDE.findall(text):
+        header = path.parent / name.decode()
+        if header.is_file():
+            _sources(header.resolve(), seen)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    seen: Dict[Path, bytes] = {}
+    _sources((CSRC_DIR / f"{name}.cu").resolve(), seen)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for text in seen.values():
+        h.update(text)
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:

@@ -13,8 +13,9 @@ the ``nn.Linear`` weights as they are stored). A CPU tensor goes through the
 plain version; a CUDA tensor goes through the kernel or raises.
 
 One wrapper call is two kernel launches on the card (the per-group KV
-summary, then the row pass); ``launches`` counts wrapper calls that
-launched. The gradient is that of the plain version, recomputed from the
+summary, then the row pass, which starts before the summary ends by
+programmatic dependent launch and waits for it only where it reads the
+summary); ``launches`` counts wrapper calls that launched. The gradient is that of the plain version, recomputed from the
 saved inputs, as the JAX package's custom VJP takes the VJP of
 ``loftr_apply_xla``.
 """

@@ -17,7 +17,11 @@ line:
    LoFTR layer is checked at its nine shapes on numpy-seeded inputs and
    weights (std 0.1, as tests/test_pallas_loftr.py) and also timed as the
    layer ran before it existed (``unfused_ms``: the module path with cuBLAS
-   linears, the attention kernel and torch LayerNorm). Attention is still
+   linears, the attention kernel and torch LayerNorm), split by pass
+   (``summary_ms``, ``rows_ms``: torch.profiler over back-to-back calls, by
+   device kernel name; the row pass starts before the summary pass ends, so
+   the two overlap) and held against a second bound, its operations at the
+   3xTF32 tensor-core rate (``bound_tc_ms``, 495/3 TFLOP/s). Attention is still
    checked at all twelve shapes; nine of them now run inside the fused
    layer, so they count no calls per forward.
 4. slice: the production model (configs/train_cfpnet_combine1.txt
@@ -50,9 +54,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_FULL = os.path.join(ROOT, "tests", "golden", "full_forward.npz")
 PROD_CONFIG = os.path.join(ROOT, "configs", "train_cfpnet_combine1.txt")
 TOL = 1e-4  # max |kernel - plain| / max |plain|
-# published H100 SXM peaks: HBM bytes/s and f32 flop/s outside the tensor cores
+# published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
+# and the TF32 tensor-core rate over three (a 3xTF32 product is three TF32 ones)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32_3X = 495e12 / 3
 SEED = 117010053
 
 
@@ -86,6 +92,44 @@ def bound_fields(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def pass_split(fn, calls: int = 10, attempts: int = 3):
+    """Device ms per call of the fused LoFTR layer's two device kernels
+    (``summary_kernel``, ``rows_kernel``), from torch.profiler (CUPTI) over
+    ``calls`` back-to-back calls of ``fn``, keyed by kernel name. A profiler
+    session now and then records no device event at all; such a session is
+    run again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = dict(summary_ms=0.0, rows_ms=0.0)
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for key in split:
+                if key.replace("_ms", "_kernel") in e.key:
+                    split[key] += e.self_device_time_total / 1e3 / calls
+        if all(split.values()):
+            return split
+    raise AssertionError(f"the profiler saw no summary or row kernel in {attempts} sessions: "
+                         f"{split}")
+
+
+def production_config():
+    """The production model (configs/train_cfpnet_combine1.txt topology), as
+    tests/test_golden.py::test_golden_forward_production_size builds it."""
+    from cfpnet_torch.config import Config
+
+    return Config(n_bins=256, attention_layer=["hist2image", "combine1", "image",
+                                               "hist2image", "combine1", "image"],
+                  change_embedding=True, sample_uniform=True)
 
 
 def main_path_shapes(config, geoms, batch: int = 1):
@@ -208,9 +252,11 @@ def check_kernels(config, geoms):
                 kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H), calls=calls,
                 max_abs_err=err, max_abs_plain=scale,
                 ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
+                **pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H)),
                 plain_ms=device_ms(lambda: loftr_apply(x, src, p, H)),
                 unfused_ms=device_ms(lambda: layer.modules_forward(x, src)),
-                library_ms=None, **bound_fields(nbytes, flops)))
+                library_ms=None, **bound_fields(nbytes, flops),
+                bound_tc_ms=max(nbytes / PEAK_BYTES, flops / PEAK_TF32_3X) * 1e3))
     for r in per_shape:
         emit(dict(phase="kernel_shape", **r))
 
@@ -229,7 +275,10 @@ def check_kernels(config, geoms):
                 return None
             return sum(r["calls"] * r[key] for r in mine)
 
-        extra = dict(unfused_ms=per_forward("unfused_ms")) if name == "fused_loftr" else {}
+        extra = {}
+        if name == "fused_loftr":
+            extra = {key: per_forward(key)
+                     for key in ("summary_ms", "rows_ms", "unfused_ms", "bound_tc_ms")}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=None,
             max_abs_err=max(r["max_abs_err"] for r in mine),
@@ -272,7 +321,6 @@ def main() -> int:
         return 2
 
     from cfpnet_torch import evaluate, kernels, weights
-    from cfpnet_torch.config import Config
     from cfpnet_torch.kernels import build
     from cfpnet_torch.models.deltar import make_model, model_geometries
 
@@ -297,9 +345,7 @@ def main() -> int:
 
     # 3. kernels at every main-path shape; the configuration and inputs of
     # tests/test_golden.py::test_golden_forward_production_size
-    config = Config(n_bins=256, attention_layer=["hist2image", "combine1", "image",
-                                                 "hist2image", "combine1", "image"],
-                    change_embedding=True, sample_uniform=True)
+    config = production_config()
     geoms = model_geometries(config, "online_eval")
     rows = check_kernels(config, geoms)
 

@@ -11,8 +11,10 @@ need not have; this file uses none of its fixtures.)
 import pytest
 import torch
 
+from chip_smoke import main_path_shapes, production_config
 from cfpnet_torch import kernels
 from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
+from cfpnet_torch.models.deltar import model_geometries
 from cfpnet_torch.ops.attention import linear_attention as attention_plain
 from cfpnet_torch.ops.dwconv import depthwise_conv2d as dwconv_plain
 from cfpnet_torch.ops.loftr import LoFTRParams, loftr_apply
@@ -92,10 +94,20 @@ def _loftr_params(gen, C, requires_grad=False):
     return stored, LoFTRParams(**{k: v.t() if v.dim() == 2 else v for k, v in stored.items()})
 
 
-@pytest.mark.parametrize("N,L,S,C,H", [(1, 1, 1, 32, 4), (3, 37, 5, 32, 8), (5, 1, 9, 64, 4),
-                                       (7, 19, 1, 64, 8), (13, 23, 17, 128, 8),
-                                       (1, 4097, 130, 32, 8), (2, 4097, 130, 128, 4),
-                                       (3, 50, 200, 128, 8)])
+# the nine LoFTR-layer shapes of the 480x640 forward
+MAIN_PATH_LOFTR = sorted(main_path_shapes(production_config(),
+                                          model_geometries(production_config(), "online_eval"))[2])
+
+
+@pytest.mark.parametrize("N,L,S,C,H", [
+    (1, 1, 1, 32, 4), (3, 37, 5, 32, 8), (5, 1, 9, 64, 4), (7, 19, 1, 64, 8), (13, 23, 17, 128, 8),
+    (1, 4097, 130, 32, 8), (2, 4097, 130, 128, 4), (3, 50, 200, 128, 8),
+    # fewer row tiles than resident clusters at C = 128 (N*L = 1 and 17)
+    (1, 1, 5, 128, 8), (1, 17, 9, 128, 4),
+    # row tiles that do not divide among the resident clusters or blocks
+    (3, 1111, 40, 128, 8), (1, 4321, 7, 64, 4), (2, 9001, 3, 32, 8),
+    # group boundaries inside a row tile, at every C
+    (9, 7, 3, 128, 8), (6, 13, 11, 64, 4), (11, 21, 7, 32, 8)] + MAIN_PATH_LOFTR)
 def test_fused_loftr_kernel(gen, N, L, S, C, H):
     x, src = _randn(gen, N, L, C), _randn(gen, N, S, C)
     _, p = _loftr_params(gen, C)
@@ -104,6 +116,24 @@ def test_fused_loftr_kernel(gen, N, L, S, C, H):
     torch.cuda.synchronize()
     assert fused_loftr.launches == 1
     _assert_close(got, loftr_apply(x, src, p, H))
+
+
+def test_fused_loftr_back_to_back(gen):
+    """Twenty calls on one stream with distinct inputs and no sync between
+    them, each checked afterwards: the row pass reads kv only after the
+    summary pass has ended, and scratch that the caching allocator hands
+    from one call to the next is never read stale."""
+    calls = []
+    for i in range(20):
+        N, L, S, C, H = [(1, 1200, 30, 128, 8), (35, 36, 36, 128, 8), (64, 49, 16, 64, 4),
+                         (1, 4800, 48, 64, 8), (140, 144, 144, 32, 8)][i % 5]
+        _, p = _loftr_params(gen, C)
+        calls.append((_randn(gen, N, L, C), _randn(gen, N, S, C), p, H))
+    torch.cuda.synchronize()
+    outs = [fused_loftr.fused_loftr(x, src, p, H) for x, src, p, H in calls]
+    torch.cuda.synchronize()
+    for (x, src, p, H), got in zip(calls, outs):
+        _assert_close(got, loftr_apply(x, src, p, H))
 
 
 def test_fused_loftr_backward(gen):

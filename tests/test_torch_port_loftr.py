@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cfpnet_torch import weights
 from cfpnet_torch.kernels import fused_loftr as loftr_kernel
 from cfpnet_torch.models import transformer as pt_tr
+from cfpnet_torch.models.deltar import model_geometries
 from cfpnet_torch.ops import dispatch
+from cfpnet_torch.ops.attention import linear_attention
 from cfpnet_torch.ops.loftr import LoFTRParams, layernorm_f32, loftr_apply
 from cfpnet_tpu.models import transformer as jx_tr
 from cfpnet_tpu.ops import pallas_loftr
@@ -183,3 +186,67 @@ def test_loftr_layer_dispatch_rules():
         dispatch.loftr_layer(x, x, layer, x_mask=mask, source_mask=mask)
     with pytest.raises(NotImplementedError):
         layer(x, x, x_mask=mask)
+
+
+# the nine LoFTR-layer shapes of the 480x640 forward, (N, L, S, C, H)
+MAIN_PATH = sorted(chip_smoke.main_path_shapes(
+    chip_smoke.production_config(),
+    model_geometries(chip_smoke.production_config(), "online_eval"))[2])
+
+
+def _tf32(a):
+    """Round f32 to TF32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, as cvt.rna.tf32.f32 does: add half a unit to the bits and
+    clear the 13 low ones."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, w):
+    """a @ w as the CUDA kernel takes every product: each operand split into
+    TF32 hi + lo, hi*hi + (lo*hi + hi*lo) summed in f32."""
+    ah, wh = _tf32(a), _tf32(w)
+    al, wl = _tf32(a - ah), _tf32(w - wh)
+    return ah @ wh + (al @ wh + ah @ wl)
+
+
+def _mm_tf32(a, w):
+    """a @ w in one pass of TF32, for comparison."""
+    return _tf32(a) @ _tf32(w)
+
+
+def _loftr_emulated(x, src, p, nhead, mm, eps=1e-6):
+    """``loftr_apply`` in f32 with its six products through ``mm``, as the
+    kernel computes them; the attention's sums stay in f32."""
+    N, L, C = x.shape
+    S = src.shape[1]
+    q = mm(x, p.wq).reshape(N, L, nhead, C // nhead)
+    k = mm(src, p.wk).reshape(N, S, nhead, C // nhead)
+    v = mm(src, p.wv).reshape(N, S, nhead, C // nhead)
+    msg = linear_attention(q, k, v, eps=eps).reshape(N, L, C)
+    msg = layernorm_f32(mm(msg, p.wm), p.g1, p.b1)
+    h = torch.relu(mm(torch.cat([x, msg], dim=-1), p.w0))
+    return layernorm_f32(mm(h, p.w1), p.g2, p.b2) + x
+
+
+@pytest.mark.parametrize("N,L,S,C,H", MAIN_PATH)
+def test_3xtf32_products_meet_the_card_tolerance(N, L, S, C, H):
+    """The kernel's arithmetic (every product in 3xTF32), emulated on the
+    CPU, against the JAX composite in f32 at the card's tolerance, on inputs
+    and std-0.1 weights made as chip_smoke.py makes them; one pass of TF32
+    is at least 20 times further off, which is why the kernel pays for three
+    products."""
+    rng = np.random.default_rng(chip_smoke.SEED + C * L)
+    x = rng.standard_normal((N, L, C)).astype(np.float32)
+    src = rng.standard_normal((N, S, C)).astype(np.float32)
+    tree = _tree(C, seed=C + H, dtype=np.float32)
+    ref = np.asarray(pallas_loftr.loftr_apply_xla(
+        jnp.asarray(x), jnp.asarray(src), jax.tree_util.tree_map(jnp.asarray, _jax_params(tree)),
+        H))
+    p = weights.loftr_params_from_flax(tree)
+    scale = np.abs(ref).max()
+    err3 = np.abs(_loftr_emulated(t(x), t(src), p, H, _mm_3xtf32).numpy() - ref).max()
+    err1 = np.abs(_loftr_emulated(t(x), t(src), p, H, _mm_tf32).numpy() - ref).max()
+    print(f"N={N} L={L} S={S} C={C} H={H}: max|JAX| {scale:.3f}, 3xTF32 {err3:.3g}, "
+          f"1xTF32 {err1:.3g}")
+    assert err3 <= 1e-4 * scale
+    assert err1 >= 20 * err3
