@@ -10,129 +10,303 @@
 // Bound on the H100: the operations. At k=31, bs=1 the call does
 // 2*31^2*120*160*32 = 1.18 GFLOP of f32 FMA on 4.9 MB of data, ~18 us at
 // 67 TFLOP/s (f32 outside the tensor cores) against ~1.5 us of memory time.
+// At k=7 both are under 0.4 us, so there the launch and one round trip to
+// memory are the cost.
 //
-// Design. The TPU kernel keeps the whole padded image (3.6 MB at k=31) in
-// VMEM; a block here has at most 227 KB of shared memory. So the output is
-// tiled: a block owns a kTH x kTW output tile of kCB channels, and stages
-// that tile's input with its k-1 halo, channel-major so that neighbouring
-// threads read neighbouring words, plus the kCB k*k weights (61 KB at
-// k=31). Each thread computes kRX outputs along a row: per kernel row it
-// loads a window of k+kRX-1 inputs into registers once and reuses every
-// weight it loads kRX times, which keeps shared-memory traffic under the
-// FMA rate. Accumulation is f32, taps in (dy, dx) order, bias last: the
-// order of the plain version (cfpnet_torch/ops/dwconv.py).
+// Design. A block owns a TH x TW output tile (TW = 4 RX, TH = TY RY) of CB
+// channels (a multiple of 4) and stages that tile's input with its k-1 halo
+// in shared memory, one plane per channel, plus the CB k x k weights. The
+// tiling is kernels/dwconv.py::TILING, chosen per k so that all blocks are
+// resident at once, the busiest SM runs a multiple of 4 warps (one share
+// for each of its four schedulers: at 10 warps two of them run 3 and the
+// SM takes as long as 12), and little of the tile lies outside the map. Its
+// fixed part (RX, RY, NS, D, MAXT, F4) is compiled in: kernels/build.py
+// passes it as -DCFP_DWCONV_<NAME>_<k>. Each launch passes the rest (TY, CB
+// and the shared-memory pitches) from kernels/dwconv.py::launch_plan.
+//
+// Staging: 16-byte loads of whole 4-channel groups of the NHWC input (C % 4
+// == 0), each scattered into its four channel planes, and of the block's
+// weights, F4 loads a thread in flight at a time, so that a block waits for
+// one or two round trips to memory and not one per element. Several blocks
+// an SM (k=15, k=7) stage while others compute; at k=31 (one block an SM)
+// the staging is exposed.
+//
+// Taps: a thread computes RY rows x RX columns of one channel, over all k
+// kernel columns (NS=1) or over one of two column splits [0, D), [D, k)
+// (NS=2; the block then has twice the threads, which gives the SM 20 warps
+// at k=31 and k=15, and the second split's sums are added to the first's at
+// the end). Per input row a thread loads its window of RX+len-1 inputs
+// (rounded up to whole float4s) once with 16-byte shared loads, and for each
+// of its RY output rows that the input row reaches, that kernel row's len
+// weights (float4 loads of one address for all lanes of a channel), then
+// does len*RX FMAs. At k=31 (RX=8, RY=2, two splits of 16 and 15 columns) a
+// warp runs 6 + 2*4 shared loads per 2*128 FFMAs: 6*4 wavefronts for the
+// windows and 2*4 or 2*8 for the weights (a warp spans one or two channels),
+// 0.13 to 0.16 wavefronts per FFMA, under the 0.25 at which the shared-memory
+// pipe (1 wavefront a cycle) would set the pace of the four FMA pipes of an
+// SM.
+//
+// Bank arithmetic. Thread t is (lx, ly, cc) = (t % 4, t / 4 % TY, t / 4TY)
+// within its split, with TY even, so a quarter warp (the 8 lanes one 16-byte
+// shared load serves per wavefront) is 4 lx x 2 consecutive ly of one channel
+// and one split. Input row y starts at float y*pitch + swz*((y / RY) % 2):
+// every other band of RY rows is shifted by swz (0 or 4) floats. Lane
+// (lx, ly) reads float4 number lx*RX/4 + ly*RY*pitch/4 + (shift of its
+// row)/4 + j (j and the split's start the same for all lanes), whose bank
+// group is that number mod 8. RX=8: the lx terms are {0,2,4,6}; with RY odd
+// an odd pitch/4 puts the other ly on {1,3,5,7}; with RY even
+// ly*RY*pitch/4 is even, and the one-float4 shift, which differs between the
+// two ly, makes it odd. RX=4: the lx terms are {0,1,2,3}, and RY*pitch/4 = 4
+// mod 8 puts the other ly on {4,5,6,7}. Either way 8 distinct bank groups: no
+// conflict. launch_plan picks pitch and swz; tests/test_torch_port_dwconv.py
+// checks the arithmetic. A channel plane holds an odd number of float4s, so
+// the staging stores of two 4-channel groups fall 16 banks apart.
+//
+// Output: the tile goes back through shared memory, so that the stores are
+// 16-byte groups of 4 channels, as the input was read.
+//
+// Order of the sums: each output adds its taps in (dy, dx) order, bias last,
+// as the plain version (cfpnet_torch/ops/dwconv.py) does; with two column
+// splits (k=31, k=15) it adds the sum over dx >= D to the sum over dx < D,
+// then the bias.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTH = 16;                   // output rows per block
-constexpr int kTW = 32;                   // output columns per block
-constexpr int kRX = 8;                    // outputs per thread along a row
-constexpr int kCB = 4;                    // channels per block
-constexpr int kThreadsX = kTW / kRX;      // 4
-constexpr int kThreads = kThreadsX * kTH * kCB;  // 256
+constexpr int kMaxDevices = 64;
 
-template <int K>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kCB) * (kTH + K - 1) * (kTW + K - 1) + kCB * K * K);
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+struct Plan {
+  int ty;      // thread rows a channel, even; TH = ty * RY
+  int cb;      // channels a block, a power of two >= 4
+  int pitch;   // floats a staged input row
+  int swz;     // floats every other band of RY rows is shifted by (0 or 4)
+  int plane;   // floats a channel's staged input
+  int wplane;  // floats a channel's staged weights
+  int tiles_x;
+};
+
+// The taps of kernel columns [D0, D0 + LEN) for a thread's RY x RX outputs:
+// per input row, its window of RX+LEN-1 inputs by float4 loads, then for
+// each output row the input row reaches, that kernel row's LEN weights and
+// LEN*RX FMAs, in (dy, dx) order.
+template <int K, int RX, int RY, int D0, int LEN>
+__device__ __forceinline__ void tap_rows(const float* in_t, const float* w_t, int pitch, int swz,
+                                         int ly, float (&acc)[RY][RX]) {
+  constexpr int WIN = round4(RX + LEN - 1);
+  constexpr int KP = round4(K);
+#pragma unroll 1
+  for (int r = 0; r < RY + K - 1; ++r) {
+    const int row = ly * RY + r;
+    const float4* src =
+        reinterpret_cast<const float4*>(in_t + row * pitch + ((row / RY) & 1) * swz + D0);
+    float win[WIN];
+#pragma unroll
+    for (int j = 0; j < WIN / 4; ++j) {
+      const float4 v = src[j];
+      win[4 * j] = v.x;
+      win[4 * j + 1] = v.y;
+      win[4 * j + 2] = v.z;
+      win[4 * j + 3] = v.w;
+    }
+#pragma unroll
+    for (int oy = 0; oy < RY; ++oy) {
+      const int dy = r - oy;
+      if (dy < 0 || dy >= K) continue;
+      float wr[round4(LEN)];
+      const float4* wrow = reinterpret_cast<const float4*>(w_t + dy * KP + D0);
+#pragma unroll
+      for (int j = 0; j < round4(LEN) / 4; ++j) {
+        const float4 v = wrow[j];
+        wr[4 * j] = v.x;
+        wr[4 * j + 1] = v.y;
+        wr[4 * j + 2] = v.z;
+        wr[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int dx = 0; dx < LEN; ++dx)
+#pragma unroll
+        for (int i = 0; i < RX; ++i) acc[oy][i] = fmaf(win[dx + i], wr[dx], acc[oy][i]);
+    }
+  }
 }
 
-// grid (tiles_y * tiles_x, ceil(C / kCB), B). x, out: [B, H, W, C];
-// w: [C, 1, K, K] (torch depthwise layout); b: [C] or null.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-dwconv_kernel(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
-              float* __restrict__ out, int H, int W, int C) {
+// grid (tiles_x * tiles_y, ceil(C / cb), B), NS * 4 * ty * cb threads.
+// x, out: [B, H, W, C], C % 4 == 0, 16-byte aligned; w: [C, 1, K, K] (torch
+// depthwise layout), 16-byte aligned; b: [C] or null.
+// D: the kernel columns of the first split (K when NS == 1); MAXT: the most
+// threads a block may have; F4: the float4 loads a thread keeps in flight
+// while staging.
+template <int K, int RX, int RY, int NS, int D, int MAXT, int F4>
+__global__ void __launch_bounds__(MAXT)
+dwconv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ b, float* __restrict__ out, int H, int W, int C,
+              Plan p) {
   constexpr int P = (K - 1) / 2;
-  constexpr int SH = kTH + K - 1;
-  constexpr int SW = kTW + K - 1;
-  extern __shared__ float smem[];
-  float* s_in = smem;                    // [kCB][SH][SW]
-  float* s_w = smem + kCB * SH * SW;     // [kCB][K*K]
+  constexpr int TW = 4 * RX;
+  constexpr int SW = TW + K - 1;           // staged columns
+  constexpr int KP = round4(K);            // floats a staged weight row
+  extern __shared__ __align__(16) float smem[];
+  float* s_in = smem;                      // [cb][plane]
+  float* s_w = smem + p.cb * p.plane;      // [cb][wplane]: K rows of KP floats
 
-  const int tiles_x = (W + kTW - 1) / kTW;
-  const int tx0 = (blockIdx.x % tiles_x) * kTW;
-  const int ty0 = (blockIdx.x / tiles_x) * kTH;
-  const int c0 = blockIdx.y * kCB;
+  const int tid = threadIdx.x;
+  const int nthreads = NS * 4 * p.ty * p.cb;
+  const int th = p.ty * RY;
+  const int sh = th + K - 1;               // staged rows
+  const int tx0 = (blockIdx.x % p.tiles_x) * TW;
+  const int ty0 = (blockIdx.x / p.tiles_x) * th;
+  const int c0 = blockIdx.y * p.cb;
+  const int ng_log2 = __ffs(p.cb) - 3;     // log2 of the 4-channel groups a block
   const float* xb = x + static_cast<size_t>(blockIdx.z) * H * W * C;
   float* ob = out + static_cast<size_t>(blockIdx.z) * H * W * C;
 
-  // stage the input tile with its halo; channel fastest in the global read
-  for (int i = threadIdx.x; i < SH * SW * kCB; i += kThreads) {
-    const int cc = i % kCB;
-    const int t = i / kCB;
-    const int xx = t % SW, yy = t / SW;
-    const int gy = ty0 + yy - P, gx = tx0 + xx - P, gc = c0 + cc;
-    float val = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C)
-      val = xb[(static_cast<size_t>(gy) * W + gx) * C + gc];
-    s_in[(cc * SH + yy) * SW + xx] = val;
-  }
-  for (int i = threadIdx.x; i < kCB * K * K; i += kThreads) {
-    const int gc = c0 + i / (K * K);
-    s_w[i] = gc < C ? w[static_cast<size_t>(gc) * K * K + i % (K * K)] : 0.f;
+  auto row_off = [&](int row) { return row * p.pitch + ((row / RY) & 1) * p.swz; };
+  // float4 q < nw: the block's weights, cb*K*K contiguous floats from channel
+  // c0 (c0*K*K is a multiple of 4), each scattered to [cc][dy][dx]; then the
+  // input, 4-channel group fastest, then column, then row
+  const float4* wsrc = reinterpret_cast<const float4*>(w + static_cast<size_t>(c0) * K * K);
+  const int nw = (min(p.cb, C - c0) * K * K) / 4;
+  const int n = nw + ((sh * SW) << ng_log2);
+  auto load = [&](int q) {
+    if (q < nw) return __ldg(wsrc + q);
+    q -= nw;
+    const int cg = q & ((1 << ng_log2) - 1), t = q >> ng_log2;
+    const int gy = ty0 + t / SW - P, gx = tx0 + t % SW - P, gc = c0 + 4 * cg;
+    if (gy < 0 || gy >= H || gx < 0 || gx >= W || gc >= C) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return __ldg(reinterpret_cast<const float4*>(xb + (static_cast<size_t>(gy) * W + gx) * C + gc));
+  };
+  auto store = [&](int q, float4 v) {
+    if (q < nw) {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int f = 4 * q + i, cc = f / (K * K), t = f % (K * K);
+        s_w[cc * p.wplane + t / K * KP + t % K] = e[i];
+      }
+      return;
+    }
+    q -= nw;
+    const int cg = q & ((1 << ng_log2) - 1), t = q >> ng_log2;
+    float* d = s_in + 4 * cg * p.plane + row_off(t / SW) + t % SW;
+    d[0] = v.x;
+    d[p.plane] = v.y;
+    d[2 * p.plane] = v.z;
+    d[3 * p.plane] = v.w;
+  };
+  for (int base = 0; base < n; base += F4 * nthreads) {
+    float4 v[F4];
+#pragma unroll
+    for (int j = 0; j < F4; ++j)
+      if (base + j * nthreads + tid < n) v[j] = load(base + j * nthreads + tid);
+#pragma unroll
+    for (int j = 0; j < F4; ++j)
+      if (base + j * nthreads + tid < n) store(base + j * nthreads + tid, v[j]);
   }
   __syncthreads();
 
-  const int lx = threadIdx.x % kThreadsX;
-  const int ly = (threadIdx.x / kThreadsX) % kTH;
-  const int cc = threadIdx.x / (kThreadsX * kTH);
-  const float* in_c = s_in + (cc * SH + ly) * SW + lx * kRX;
-  const float* w_c = s_w + cc * K * K;
+  const int tl = tid % (4 * p.ty * p.cb);
+  const int split = tid / (4 * p.ty * p.cb);  // which kernel columns: [0, D) or [D, K)
+  const int lx = tl & 3;
+  const int ly = (tl >> 2) % p.ty;
+  const int cc = (tl >> 2) / p.ty;
+  const float* in_t = s_in + cc * p.plane + lx * RX;
+  const float* w_t = s_w + cc * p.wplane;
 
-  float acc[kRX];
+  float acc[RY][RX];
 #pragma unroll
-  for (int r = 0; r < kRX; ++r) acc[r] = 0.f;
-
-#pragma unroll 1
-  for (int dy = 0; dy < K; ++dy) {
-    float win[K + kRX - 1];
+  for (int oy = 0; oy < RY; ++oy)
 #pragma unroll
-    for (int i = 0; i < K + kRX - 1; ++i) win[i] = in_c[dy * SW + i];
-#pragma unroll
-    for (int dx = 0; dx < K; ++dx) {
-      const float wv = w_c[dy * K + dx];
-#pragma unroll
-      for (int r = 0; r < kRX; ++r) acc[r] = fmaf(win[dx + r], wv, acc[r]);
-    }
+    for (int i = 0; i < RX; ++i) acc[oy][i] = 0.f;
+  if constexpr (NS == 1) {
+    tap_rows<K, RX, RY, 0, K>(in_t, w_t, p.pitch, p.swz, ly, acc);
+  } else if (split == 0) {
+    tap_rows<K, RX, RY, 0, D>(in_t, w_t, p.pitch, p.swz, ly, acc);
+  } else {
+    tap_rows<K, RX, RY, D, K - D>(in_t, w_t, p.pitch, p.swz, ly, acc);
   }
 
-  const int gc = c0 + cc, gy = ty0 + ly;
-  if (gc >= C || gy >= H) return;
-  const float bias = b != nullptr ? b[gc] : 0.f;
+  // the tile through shared memory, [cb][th][TW], then out in 4-channel
+  // groups; with two splits the second's sums are added to the first's,
+  // then the bias
+  const float bias = b != nullptr && c0 + cc < C ? b[c0 + cc] : 0.f;
+  const int oplane = th * TW + 4;
+  float* o_t = s_in + cc * oplane + ly * RY * TW + lx * RX;
+  __syncthreads();
+  if (NS == 2 && split == 1) {
 #pragma unroll
-  for (int r = 0; r < kRX; ++r) {
-    const int gx = tx0 + lx * kRX + r;
-    if (gx < W) ob[(static_cast<size_t>(gy) * W + gx) * C + gc] = acc[r] + bias;
+    for (int oy = 0; oy < RY; ++oy)
+#pragma unroll
+      for (int i = 0; i < RX; ++i) o_t[oy * TW + i] = acc[oy][i];
+  }
+  if (NS == 2) __syncthreads();
+  if (split == 0) {
+#pragma unroll
+    for (int oy = 0; oy < RY; ++oy)
+#pragma unroll
+      for (int i = 0; i < RX; ++i)
+        o_t[oy * TW + i] = (NS == 2 ? acc[oy][i] + o_t[oy * TW + i] : acc[oy][i]) + bias;
+  }
+  __syncthreads();
+  const int nq = (th * TW) << ng_log2;
+  for (int q = tid; q < nq; q += nthreads) {
+    const int cg = q & ((1 << ng_log2) - 1), pix = q >> ng_log2;
+    const int gy = ty0 + pix / TW, gx = tx0 + pix % TW, gc = c0 + 4 * cg;
+    if (gy >= H || gx >= W || gc >= C) continue;
+    const float* s = s_in + 4 * cg * oplane + pix;
+    *reinterpret_cast<float4*>(ob + (static_cast<size_t>(gy) * W + gx) * C + gc) =
+        make_float4(s[0], s[oplane], s[2 * oplane], s[3 * oplane]);
   }
 }
 
-template <int K>
-int launch(const float* x, const float* w, const float* b, float* out, int B, int H, int W, int C,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<K>();
-  cudaError_t err = cudaFuncSetAttribute(dwconv_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int K, int RX, int RY, int NS, int D, int MAXT, int F4>
+int launch(const float* x, const float* w, const float* b, float* out, int B, int H, int W,
+           int C, Plan p, cudaStream_t stream) {
+  // the largest dynamic shared memory a block may ask for, set once per device
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  dwconv_kernel<K><<<dim3(tiles, (C + kCB - 1) / kCB, B), kThreads, smem, stream>>>(x, w, b, out,
-                                                                                   H, W, C);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev]) {
+    int max_smem = 0;
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(dwconv_kernel<K, RX, RY, NS, D, MAXT, F4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[dev] = true;
+  }
+  const int th = p.ty * RY;
+  const int threads = NS * 4 * p.ty * p.cb;
+  const size_t smem = sizeof(float) * static_cast<size_t>(p.cb) * (p.plane + p.wplane);
+  p.tiles_x = (W + 4 * RX - 1) / (4 * RX);
+  const int tiles_y = (H + th - 1) / th;
+  const dim3 grid(p.tiles_x * tiles_y, (C + p.cb - 1) / p.cb, B);
+  dwconv_kernel<K, RX, RY, NS, D, MAXT, F4><<<grid, threads, smem, stream>>>(x, w, b, out, H, W,
+                                                                           C, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Built for the large kernels of Block14 (K = 7, 15, 31).
-// Returns the cudaError_t of the launch (0 = success).
+// Returns the cudaError_t of the launch (0 = success); cudaErrorInvalidValue
+// for a K this library was not built for. ty, cb, pitch, swz, plane and
+// wplane come from kernels/dwconv.py::launch_plan.
 extern "C" int cfp_dwconv2d_f32(const float* x, const float* w, const float* b, float* out, int B,
-                                int H, int W, int C, int K, void* stream) {
+                                int H, int W, int C, int K, int ty, int cb, int pitch, int swz,
+                                int plane, int wplane, void* stream) {
+  const Plan p{ty, cb, pitch, swz, plane, wplane, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 7: return launch<7>(x, w, b, out, B, H, W, C, st);
-    case 15: return launch<15>(x, w, b, out, B, H, W, C, st);
-    case 31: return launch<31>(x, w, b, out, B, H, W, C, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define CFP_DWCONV_CASE(k)                                                                   \
+  if (K == k)                                                                                \
+    return launch<k, CFP_DWCONV_RX_##k, CFP_DWCONV_RY_##k, CFP_DWCONV_NS_##k, CFP_DWCONV_D_##k, \
+                  CFP_DWCONV_MAXT_##k, CFP_DWCONV_F4_##k>(x, w, b, out, B, H, W, C, p, st);
+  CFP_DWCONV_CASE(31)
+  CFP_DWCONV_CASE(15)
+  CFP_DWCONV_CASE(7)
+#undef CFP_DWCONV_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -57,10 +57,20 @@ def _sources(path: Path, seen: Dict[Path, bytes]) -> None:
             _sources(header.resolve(), seen)
 
 
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    """The flags ``csrc/<name>.cu`` is built with: NVCC_FLAGS, and for the
+    depthwise conv the tiling of ``kernels/dwconv.py::TILING``."""
+    if name == "dwconv":
+        from .dwconv import nvcc_defines
+
+        return NVCC_FLAGS + nvcc_defines()
+    return NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
     seen: Dict[Path, bytes] = {}
     _sources((CSRC_DIR / f"{name}.cu").resolve(), seen)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for text in seen.values():
         h.update(text)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -81,7 +91,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
     failed = []

@@ -2,10 +2,13 @@
 
 Port of ``cfpnet_tpu/ops/dwconv.py::depthwise_conv2d`` (SAME-padded,
 stride 1, plus bias) in NHWC. It is written as the k·k shifted
-multiply-adds that the CUDA kernel (``kernels/dwconv.py``) performs, in the
-same tap order, so that it is the kernel's plain twin: the CPU path and the
-version the kernel is held against on the card. It is no yardstick of
-speed; ``F.conv2d(groups=C)`` is, and the port never calls it.
+multiply-adds that the CUDA kernel (``kernels/dwconv.py``) performs, so
+that it is the kernel's plain twin: the CPU path and the version the kernel
+is held against on the card. At k=7 the kernel adds the taps in this
+order, (dy, dx) then the bias; at k=15 and k=31 it sums two halves of the
+kernel columns apart and adds the second half's sum to the first's, then
+the bias (the tolerance note of ``chip_smoke.py`` covers that). It is no
+yardstick of speed; ``F.conv2d(groups=C)`` is, and the port never calls it.
 """
 
 from __future__ import annotations

@@ -21,7 +21,10 @@ line:
    (``summary_ms``, ``rows_ms``: torch.profiler over back-to-back calls, by
    device kernel name; the row pass starts before the summary pass ends, so
    the two overlap) and held against a second bound, its operations at the
-   3xTF32 tensor-core rate (``bound_tc_ms``, 495/3 TFLOP/s). Attention is still
+   3xTF32 tensor-core rate (``bound_tc_ms``, 495/3 TFLOP/s). Each dwconv
+   line carries its launch plan (``kernels/dwconv.py::launch_plan``: tile,
+   threads, blocks, blocks resident an SM, waves of the grid over the 132
+   SMs, shared bytes a block). Attention is still
    checked at all twelve shapes; nine of them now run inside the fused
    layer, so they count no calls per forward.
 4. slice: the production model (configs/train_cfpnet_combine1.txt
@@ -217,8 +220,11 @@ def check_kernels(config, geoms):
         nbytes = 4 * (2 * B * H * W * C + C * kk * kk + C)
         flops = 2 * kk * kk * B * H * W * C
         x_nchw = x.permute(0, 3, 1, 2)  # the same memory, as cuDNN's channels-last input
+        plan = dwconv.launch_plan(B, H, W, C, kk)
         per_shape.append(dict(
             kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=kk), calls=calls,
+            plan={key: plan[key] for key in ("tile", "threads", "blocks", "blocks_per_sm",
+                                             "waves", "smem_bytes")},
             max_abs_err=err, max_abs_plain=scale,
             ms=device_ms(lambda: dwconv.depthwise_conv2d(x, w, bias)),
             plain_ms=device_ms(lambda: dw_plain(x, w, bias), reps=2, trials=3),

@@ -53,8 +53,14 @@ def test_linear_attention_kernel(gen, N, L, S, H, D):
     _assert_close(got, attention_plain(q, k, v))
 
 
-@pytest.mark.parametrize("B,H,W,C,k", [(1, 30, 40, 128, 7), (2, 17, 33, 12, 15),
-                                       (1, 5, 70, 32, 31), (1, 120, 160, 32, 31)])
+@pytest.mark.parametrize("B,H,W,C,k", [
+    (1, 30, 40, 128, 7), (2, 17, 33, 12, 15), (1, 5, 70, 32, 31), (1, 120, 160, 32, 31),
+    # maps that are no multiple of the tile, at each k
+    (1, 61, 83, 32, 31), (1, 59, 81, 64, 15), (1, 31, 45, 128, 7), (1, 1, 3, 8, 31),
+    # C no multiple of the channels a block (12 and 36 channels)
+    (1, 23, 37, 36, 31), (2, 13, 19, 36, 7), (1, 60, 80, 12, 15),
+    # the bs=2 entry point at the k=31 main-path shape
+    (2, 120, 160, 32, 31)])
 def test_dwconv_kernel(gen, B, H, W, C, k):
     x, w, b = _randn(gen, B, H, W, C), 0.05 * _randn(gen, C, 1, k, k), _randn(gen, C)
     kernels.reset_launches()
@@ -63,6 +69,28 @@ def test_dwconv_kernel(gen, B, H, W, C, k):
     assert dwconv.launches == 1
     _assert_close(got, dwconv_plain(x, w, b))
     _assert_close(dwconv.depthwise_conv2d(x, w), dwconv_plain(x, w))
+
+
+def test_dwconv_back_to_back(gen):
+    """Twenty calls at the three main-path shapes on one stream, with
+    distinct inputs and no sync between them, each checked afterwards."""
+    calls = []
+    for i in range(20):
+        B, H, W, C, k = [(1, 120, 160, 32, 31), (1, 60, 80, 64, 15), (1, 30, 40, 128, 7)][i % 3]
+        calls.append((_randn(gen, B, H, W, C), 0.05 * _randn(gen, C, 1, k, k), _randn(gen, C)))
+    torch.cuda.synchronize()
+    outs = [dwconv.depthwise_conv2d(x, w, b) for x, w, b in calls]
+    torch.cuda.synchronize()
+    for (x, w, b), got in zip(calls, outs):
+        _assert_close(got, dwconv_plain(x, w, b))
+
+
+def test_dwconv_refuses_channels_not_a_multiple_of_4(gen):
+    """The kernel reads 16-byte groups of 4 channels; other C raise."""
+    for C in (6, 33):
+        x, w = _randn(gen, 1, 9, 10, C), _randn(gen, C, 1, 7, 7)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            dwconv.depthwise_conv2d(x, w)
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):
