@@ -24,9 +24,13 @@ line:
    3xTF32 tensor-core rate (``bound_tc_ms``, 495/3 TFLOP/s). Each dwconv
    line carries its launch plan (``kernels/dwconv.py::launch_plan``: tile,
    threads, blocks, blocks resident an SM, waves of the grid over the 132
-   SMs, shared bytes a block). Attention is still
-   checked at all twelve shapes; nine of them now run inside the fused
-   layer, so they count no calls per forward.
+   SMs, shared bytes a block). Each attention line carries its launch plan
+   (``kernels/linear_attention.py::launch_plan``: cluster size, cluster sums
+   g, key tile, keys and slices a summary block, query tile, blocks and
+   waves of each pass, shared bytes) and the device kernels of one call by
+   name (torch.profiler). Attention is still checked at all twelve shapes;
+   nine of them now run inside the fused layer, so they count no calls per
+   forward.
 4. slice: the production model (configs/train_cfpnet_combine1.txt
    topology) at 480x640, bs=1, with the golden tests' deterministic
    weights, against ``tests/golden/full_forward.npz`` at that test's
@@ -97,12 +101,12 @@ def bound_fields(nbytes: float, flops: float):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def pass_split(fn, calls: int = 10, attempts: int = 3):
-    """Device ms per call of the fused LoFTR layer's two device kernels
-    (``summary_kernel``, ``rows_kernel``), from torch.profiler (CUPTI) over
-    ``calls`` back-to-back calls of ``fn``, keyed by kernel name. A profiler
-    session now and then records no device event at all; such a session is
-    run again, up to ``attempts`` times."""
+def kernel_split(fn, calls: int = 10, attempts: int = 3):
+    """The device kernels of one ``fn()`` call by name: ``{name: {"launches":
+    per call, "ms": device ms per call}}``, from torch.profiler (CUPTI) over
+    ``calls`` back-to-back calls of ``fn``. A profiler session now and then
+    records no device event at all; such a session is run again, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -112,17 +116,25 @@ def pass_split(fn, calls: int = 10, attempts: int = 3):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        split = dict(summary_ms=0.0, rows_ms=0.0)
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            for key in split:
-                if key.replace("_ms", "_kernel") in e.key:
-                    split[key] += e.self_device_time_total / 1e3 / calls
-        if all(split.values()):
+        split = {e.key: dict(launches=e.count / calls, ms=e.self_device_time_total / 1e3 / calls)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
+        if split:
             return split
-    raise AssertionError(f"the profiler saw no summary or row kernel in {attempts} sessions: "
-                         f"{split}")
+    raise AssertionError(f"the profiler saw no device kernel in {attempts} sessions")
+
+
+def pass_split(fn):
+    """Device ms per call of the fused LoFTR layer's two device kernels
+    (``summary_kernel``, ``rows_kernel``), by kernel name."""
+    split = dict(summary_ms=0.0, rows_ms=0.0)
+    for name, k in kernel_split(fn).items():
+        for key in split:
+            if key.replace("_ms", "_kernel") in name:
+                split[key] += k["ms"]
+    if not all(split.values()):
+        raise AssertionError(f"the profiler saw no summary or row kernel: {split}")
+    return split
 
 
 def production_config():
@@ -202,8 +214,17 @@ def check_kernels(config, geoms):
         C = H * D
         nbytes = 4 * (2 * N * L * C + 2 * N * S * C)
         flops = N * H * (2 * S * D * D + S * D + 2 * L * D * D + 2 * L * D)
+        plan = linear_attention.launch_plan(N, L, S, H, D)
+        split = kernel_split(lambda: linear_attention.linear_attention(q, k, v))
         per_shape.append(dict(
             kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D), calls=calls,
+            plan={key: plan[key] for key in (
+                "cl", "g", "tk", "chunk", "slices", "sum_threads", "sum_blocks", "sum_smem",
+                "tl", "apply_threads", "apply_blocks", "apply_blocks_per_sm", "apply_waves",
+                "apply_smem")},
+            device_kernels_a_call=sum(s["launches"] for s in split.values()),
+            device_kernels={name.replace("(anonymous namespace)::", "").split("(")[0]: s
+                            for name, s in split.items()},
             max_abs_err=err, max_abs_plain=scale,
             ms=device_ms(lambda: linear_attention.linear_attention(q, k, v)),
             plain_ms=device_ms(lambda: att_plain(q, k, v)),

@@ -42,8 +42,15 @@ def _assert_close(got, ref):
     assert err <= TOL * float(ref.abs().max()), err
 
 
+ATTENTION_CALLED = [(1, 1200, 784, 4, 32), (1, 4800, 3136, 4, 16), (1, 19200, 12544, 4, 8)]
+
+
 @pytest.mark.parametrize("N,L,S,H,D", [(3, 37, 5, 4, 4), (2, 70, 300, 8, 8), (1, 129, 1000, 4, 16),
-                                       (5, 3, 2, 4, 32), (1, 4097, 9001, 4, 8)])
+                                       (5, 3, 2, 4, 32), (1, 4097, 9001, 4, 8)] + ATTENTION_CALLED + [
+    # two rows with several cluster sums each; the most rows of the fused layer
+    (2, 4800, 12544, 4, 8), (140, 144, 144, 8, 4),
+    # one query, one key
+    (1, 1, 1, 4, 8), (2, 1, 7, 4, 32), (3, 9, 1, 8, 16)])
 def test_linear_attention_kernel(gen, N, L, S, H, D):
     q, k, v = _randn(gen, N, L, H, D), _randn(gen, N, S, H, D), _randn(gen, N, S, H, D)
     kernels.reset_launches()
@@ -51,6 +58,51 @@ def test_linear_attention_kernel(gen, N, L, S, H, D):
     torch.cuda.synchronize()
     assert linear_attention.launches == 1
     _assert_close(got, attention_plain(q, k, v))
+
+
+def test_linear_attention_unaligned_views(gen):
+    """Contiguous views that start 4 bytes into their storage are copied to
+    16-byte alignment, not read across it."""
+    shape = (1, 300, 4, 8)
+    q, k, v = (_randn(gen, 9600 + 1)[1:].view(shape) for _ in range(3))
+    assert q.data_ptr() % 16 != 0
+    _assert_close(linear_attention.linear_attention(q, k, v), attention_plain(q, k, v))
+
+
+def test_linear_attention_repeats_bitwise(gen):
+    """Fixed-order sums, no atomics: two calls on the same inputs are equal
+    to the bit, at each main-path shape."""
+    for N, L, S, H, D in ATTENTION_CALLED:
+        q, k, v = _randn(gen, N, L, H, D), _randn(gen, N, S, H, D), _randn(gen, N, S, H, D)
+        a = linear_attention.linear_attention(q, k, v)
+        b = linear_attention.linear_attention(q, k, v)
+        assert torch.equal(a, b)
+
+
+def test_linear_attention_back_to_back(gen):
+    """Twenty calls on one stream with distinct inputs and no sync between
+    them, each checked afterwards: an apply pass, started early, reads the
+    cluster sums only after its own summary pass has ended."""
+    calls = []
+    for i in range(20):
+        N, L, S, H, D = (ATTENTION_CALLED + [(140, 144, 144, 8, 4), (2, 70, 300, 8, 8)])[i % 5]
+        calls.append((_randn(gen, N, L, H, D), _randn(gen, N, S, H, D), _randn(gen, N, S, H, D)))
+    torch.cuda.synchronize()
+    outs = [linear_attention.linear_attention(q, k, v) for q, k, v in calls]
+    torch.cuda.synchronize()
+    for (q, k, v), got in zip(calls, outs):
+        _assert_close(got, attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("N,L,S,H,D", ATTENTION_CALLED + [(140, 144, 144, 8, 4)])
+def test_linear_attention_two_device_kernels_a_call(gen, N, L, S, H, D):
+    """At most two device kernels a call, by name (torch.profiler)."""
+    from chip_smoke import kernel_split
+
+    q, k, v = _randn(gen, N, L, H, D), _randn(gen, N, S, H, D), _randn(gen, N, S, H, D)
+    split = kernel_split(lambda: linear_attention.linear_attention(q, k, v))
+    assert sum(s["launches"] for s in split.values()) <= 2, split
+    assert all("attention_" in name for name in split), split
 
 
 @pytest.mark.parametrize("B,H,W,C,k", [

@@ -112,9 +112,3 @@ def test_nothing_off_the_cpu_falls_back():
     x = torch.empty(1, 8, 8, 4, device="meta")
     with pytest.raises(ValueError):
         dispatch.dwconv2d(x, torch.empty(4, 1, 7, 7, device="meta"))
-
-
-def test_attention_chunking_covers_every_key():
-    for N, H, S in [(1, 4, 12544), (1, 8, 130), (64, 4, 16), (140, 8, 144), (1, 4, 1)]:
-        nchunk, chunk = attention_kernel.chunking(N, H, S)
-        assert nchunk >= 1 and nchunk * chunk >= S and (nchunk - 1) * chunk < S
