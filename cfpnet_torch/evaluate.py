@@ -7,10 +7,14 @@
 Port of the ``evaluate_all.py`` protocol (``make_eval_step`` /
 ``make_metric_step`` with protocol 'evaluate_all', per-image metrics
 averaged image-weighted) over the dataset that ``--dataset`` names, at the
-native resolution, plus the bs=1 latency of ``evaluate_time.py``: a warmup,
-then ``--time_iters`` forwards each timed with CUDA events, reported as the
-trimmed mean ``sorted[1:-2]`` (evaluate_time.py:150-164). Latency is
-measured on the card only; on the CPU it is reported as not measured.
+native resolution, plus the bs=1 latency of ``evaluate_time.py``, twice:
+``latency_ms_bs1`` of the forward captured in a CUDA graph (replays between
+CUDA events, ``evaluate_time.graphed_latency_ms``) and beside it
+``latency_ms_bs1_eager``, ``--time_iters`` eager forwards each timed with
+CUDA events, trimmed mean ``sorted[1:-2]``
+(``evaluate_time.eager_latency_ms``). Latency is measured on the card only;
+on the CPU it is reported as not measured. The metrics run eagerly: their
+last batch may be partial.
 
 Weights: ``--weight_path`` is a reference-trained ``Deltar`` checkpoint
 (``weights.load_reference_checkpoint``). Without it the model carries the
@@ -28,35 +32,16 @@ import json
 import sys
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from . import weights
 from .config import parse_config
 from .data.datasets import collate, make_dataset
+from .evaluate_time import eager_latency_ms, graphed_latency_ms
 from .models.deltar import make_model, model_geometries
 from .train.steps import batch_to_device, evaluate
 
 METRICS = ["a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel"]
-
-
-def timed_forward(model, batch, geoms, iters: int, warmup: int = 5) -> float:
-    """Trimmed-mean milliseconds of one forward on ``batch``, CUDA events
-    around each call."""
-    times = []
-    with torch.no_grad():
-        for i in range(warmup + iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            model(batch["image"], batch["hist_data"], batch["mask"], geoms)
-            end.record()
-            end.synchronize()
-            if i >= warmup:
-                times.append(start.elapsed_time(end))
-    times.sort()
-    trimmed = times[1:-2] if len(times) > 3 else times
-    return float(np.mean(trimmed))
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
@@ -89,11 +74,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
     if device.type == "cuda" and args.time_iters > 0:
         batch = batch_to_device(collate([dataset[0]]), device)
-        ms = timed_forward(model, batch, geoms, args.time_iters)
-        out["latency_ms_bs1"] = ms
+        inputs = (batch["image"], batch["hist_data"], batch["mask"])
+        out["latency_ms_bs1"] = graphed_latency_ms(model, inputs, geoms, config,
+                                                   args.time_iters)
+        out["latency_ms_bs1_eager"] = eager_latency_ms(model, inputs, geoms, args.time_iters)
         out["gpu"] = torch.cuda.get_device_name(device)
-        print(f"bs=1 forward: {ms:.3f} ms ({out['gpu']}, trimmed mean of "
-              f"{args.time_iters} CUDA-event timings)")
+        print(f"bs=1 forward: {out['latency_ms_bs1']:.3f} ms in a CUDA graph, "
+              f"{out['latency_ms_bs1_eager']:.3f} ms eager ({out['gpu']}, "
+              f"{args.time_iters} timed forwards each)")
     else:
         why = "no CUDA device" if device.type != "cuda" else "--time_iters 0"
         print(f"bs=1 forward latency: not measured ({why})")

@@ -121,7 +121,10 @@ class LocallyGroupedAttn(nn.Module):
         x = x.reshape(B, _h, _w, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(B, Hp, Wp, C)
         if pad_r or pad_b:
-            x = x[:, :H, :W, :]
+            # contiguous: where only rows were padded, the crop reshapes to a
+            # view whose rows lie Hp*Wp apart, which the fused LoFTR kernel
+            # of the GSA half that reads it refuses
+            x = x[:, :H, :W, :].contiguous()
         return x.reshape(B, H * W, C)
 
 

@@ -6,6 +6,11 @@ The resize is two small dense products with static interpolation matrices
 built on the host, exactly as in the JAX package, so the two agree to the
 last bit of the matrix entries (``F.interpolate`` computes its weights in
 another order and would not).
+
+Each matrix is copied to its device once, per (in size, out size, dtype,
+device), and kept there: a copy from the host on every call would make the
+forward wait for the card at each resize (a copy from pageable memory
+synchronizes the stream) and could not be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -38,9 +43,16 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _device_matrix(in_size: int, out_size: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """``_interp_matrix`` cast once to ``dtype`` on ``device``; shared by
+    every call, never written."""
+    return torch.as_tensor(_interp_matrix(in_size, out_size), dtype=dtype, device=device)
+
+
 def _matrix(in_size: int, out_size: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(_interp_matrix(in_size, out_size), dtype=like.dtype,
-                           device=like.device)
+    return _device_matrix(in_size, out_size, like.dtype, like.device)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

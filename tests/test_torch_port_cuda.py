@@ -246,3 +246,88 @@ def test_fused_loftr_refuses_what_it_does_not_take(gen):
         fused_loftr.fused_loftr(_randn(gen, 2, 8, 48), _randn(gen, 2, 5, 48), p48, 4)
     with pytest.raises(ValueError):
         fused_loftr.fused_loftr(x, src, p, 2)
+
+
+def _captured_model():
+    """The production-width model (C = 128 / 64 / 32, which the kernels take;
+    the tiny model's 16 and 8 they do not) at the tiny test config's 64x96
+    geometry, on the golden tests' deterministic weights, and sample inputs
+    at bs=8."""
+    from cfpnet_torch.bench import smoke_config
+    from cfpnet_torch.evaluate_time import load_model
+
+    config = smoke_config().replace(tiny_model=False)
+    model = load_model(config)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    Z = config.eval_zone_num ** 2
+    inputs = (torch.randn(8, 64, 96, 3, device="cuda", generator=gen),
+              2.0 * torch.rand(8, Z, config.zone_sample_num, device="cuda", generator=gen),
+              torch.rand(8, Z, device="cuda", generator=gen) > 0.25)
+    return config, model, model_geometries(config, "online_eval"), inputs
+
+
+def _eager(model, inputs, geoms):
+    with torch.no_grad():
+        return model(*inputs, geoms)[:3]
+
+
+def _assert_equal(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), float((a - b).abs().max())
+
+
+def test_captured_forward_replays_the_eager_forward(gen):
+    """The replay equals the eager forward bit for bit; new inputs after the
+    capture give new outputs, again equal to their eager forward."""
+    from cfpnet_torch.graphs import CapturedForward
+
+    config, model, geoms, inputs = _captured_model()
+    captured = CapturedForward(model, geoms, 1, config)
+    first = [t.clone() for t in captured(*(a[:1] for a in inputs))[:3]]
+    _assert_equal(first, _eager(model, [a[:1] for a in inputs], geoms))
+    second = captured(*(a[1:2] for a in inputs))[:3]
+    assert not torch.equal(first[1], second[1])
+    _assert_equal(second, _eager(model, [a[1:2] for a in inputs], geoms))
+
+
+def test_captured_forward_is_bitwise_stable(gen):
+    """100 replays on the same inputs give the same bits."""
+    from cfpnet_torch.graphs import CapturedForward
+
+    config, model, geoms, inputs = _captured_model()
+    captured = CapturedForward(model, geoms, 1, config)
+    want = [t.clone() for t in captured(*(a[:1] for a in inputs))[:3]]
+    for _ in range(100):
+        got = captured.replay()[:3]
+    _assert_equal(got, want)
+
+
+def test_captured_forward_rows_match_bs1(gen):
+    """At bs=8 the eager pass launches 6/6/18 and each row of the replay
+    matches the bs=1 forward of its sample (rtol 5e-4, atol 5e-5, the
+    golden's tolerance: the convolutions' sums change with the batch)."""
+    from cfpnet_torch.graphs import CapturedForward
+
+    config, model, geoms, inputs = _captured_model()
+    kernels.reset_launches()
+    _eager(model, inputs, geoms)
+    assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 3, 9)
+    captured = CapturedForward(model, geoms, 8, config)
+    got = captured(*inputs)[:3]
+    for i in range(8):
+        for a, b in zip(got, _eager(model, [x[i:i + 1] for x in inputs], geoms)):
+            torch.testing.assert_close(a[i:i + 1], b, rtol=5e-4, atol=5e-5)
+
+
+def test_captured_forward_refuses(gen):
+    """Inputs of other shapes or dtypes raise; so does a model on the CPU."""
+    from cfpnet_torch.graphs import CapturedForward
+
+    config, model, geoms, inputs = _captured_model()
+    captured = CapturedForward(model, geoms, 1, config)
+    with pytest.raises(ValueError):
+        captured(*inputs)
+    with pytest.raises(ValueError):
+        captured(inputs[0][:1].double(), inputs[1][:1], inputs[2][:1])
+    with pytest.raises(ValueError):
+        CapturedForward(model.cpu(), geoms, 1, config)

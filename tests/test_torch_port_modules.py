@@ -69,7 +69,9 @@ def _encoder_layer_entries():
             for k, fp, kind, col in weights._loftr_entries()]
 
 
-@pytest.mark.parametrize("H,W,ws", [(12, 13, 5), (10, 10, 5)])
+# (4, 6, 3) pads rows only: the output must still be contiguous at B > 1,
+# since the GSA half's fused LoFTR kernel reads it
+@pytest.mark.parametrize("H,W,ws", [(12, 13, 5), (10, 10, 5), (4, 6, 3)])
 def test_locally_grouped_attn(H, W, ws):
     x = _randn(5, 2, H * W, 32)
     fx = jx_tr.LocallyGroupedAttn(32, ws)
@@ -78,7 +80,9 @@ def test_locally_grouped_attn(H, W, ws):
         ref = _apply(fx, params, None, jnp.asarray(x), (H, W))
     port = load(pt_tr.LocallyGroupedAttn(32, ws), _encoder_layer_entries(), params)
     with torch.no_grad():
-        close(port(t(x), (H, W)).numpy(), ref)
+        out = port(t(x), (H, W))
+    close(out.numpy(), ref)
+    assert out.is_contiguous()
 
 
 def test_global_subsample_attn():
