@@ -19,6 +19,12 @@ Port of the root ``bench.py``'s f32 keys. Prints ONE JSON line:
   ``mfu_bs8_f32`` against the card's dense bf16 peak (``peak_bf16_tflops``,
   as the root ``bench.py::peak_bf16_tflops`` takes the TPU's), from
   ``PEAK_BF16_TFLOPS`` by the name torch reports or ``--peak_tflops``.
+- The train step (``evaluate_time.timed_train_step`` at
+  ``evaluate_time.train_config``: bs 16 at 416x544, ``--train_iters``
+  steps, eager), as the root ``bench.py``'s train keys:
+  ``train_ms_bs16``, ``train_img_s``, ``flops_g_train_step``
+  (``evaluate_time.flops_train``), ``tfps_train``, ``mfu_train`` and
+  ``train_dtype`` ("float32").
 - ``gpu`` and ``power_limit`` from ``nvidia-smi``, ``iters``, ``timing``.
 - ``skipped``: what the port cannot measure yet.
 
@@ -48,8 +54,7 @@ from .models.deltar import model_geometries
 # data sheets, without sparsity)
 PEAK_BF16_TFLOPS = {"H100 80GB HBM3": 989.4, "H100 SXM": 989.4, "H100 PCIe": 756.5}
 THROUGHPUT_BS = 8
-SKIPPED = ["train_step (not ported: ROADMAP.md §A item 2)",
-           "bf16 keys (not ported: ROADMAP.md §A item 4)",
+SKIPPED = ["bf16 keys (not ported: ROADMAP.md §A item 4)",
            "CPU anchor (the reference model on the same host; not ported)"]
 
 
@@ -89,6 +94,8 @@ def smoke_main(iters: int) -> dict:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=500)
+    ap.add_argument("--train_iters", type=int, default=40,
+                    help="timed train steps (the root BENCH_TRAIN_ITERS)")
     ap.add_argument("--peak_tflops", type=float, default=None,
                     help="the card's dense bf16 peak, where PEAK_BF16_TFLOPS lacks it")
     ap.add_argument("--smoke", action="store_true")
@@ -123,19 +130,27 @@ def main(argv: Optional[List[str]] = None) -> int:
            f"throughput_fps_bs{THROUGHPUT_BS}_f32": fps8, "flops_g_fwd": flops / 1e9,
            "tfps_bs1_f32": flops / ms1 / 1e9,
            f"tfps_bs{THROUGHPUT_BS}_f32": flops * fps8 / 1e12}
+    tcfg = evaluate_time.train_config(config)
+    ms_t = evaluate_time.timed_train_step(tcfg, niters=args.train_iters)
+    flops_t = evaluate_time.flops_train(tcfg)
+    out.update({f"train_ms_bs{tcfg.bs}": ms_t, "train_img_s": tcfg.bs * 1000.0 / ms_t,
+                "train_dtype": "float32", "flops_g_train_step": flops_t / 1e9,
+                "tfps_train": flops_t / ms_t / 1e9})
     skipped = list(SKIPPED)
     peak = args.peak_tflops or peak_bf16_tflops(torch.cuda.get_device_name(0))
     if peak:
         out["peak_bf16_tflops"] = peak
         out["mfu_bs1_f32"] = out["tfps_bs1_f32"] / peak
         out[f"mfu_bs{THROUGHPUT_BS}_f32"] = out[f"tfps_bs{THROUGHPUT_BS}_f32"] / peak
+        out["mfu_train"] = out["tfps_train"] / peak
     else:
         skipped.append(f"mfu (no bf16 peak known for {gpu}; pass --peak_tflops)")
     out.update(gpu=gpu, power_limit=power_limit, dtype="float32",
-               iters=dict(bs1=args.iters, bs8=bs8_iters),
+               iters=dict(bs1=args.iters, bs8=bs8_iters, train=args.train_iters),
                timing=("CUDA graph: K replays between CUDA events, trimmed mean over "
                        "repetitions (evaluate_time.graphed_latency_ms); eager: CUDA events "
-                       "around each forward, trimmed mean sorted[1:-2]"),
+                       "around each forward, trimmed mean sorted[1:-2]; train: K eager steps "
+                       "between CUDA events (evaluate_time.timed_train_step)"),
                skipped=skipped)
     print(json.dumps(out), flush=True)
     return 0

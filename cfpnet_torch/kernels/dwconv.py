@@ -8,7 +8,10 @@ its plain version is ``cfpnet_torch/ops/dwconv.py::depthwise_conv2d``.
 ``depthwise_conv2d(x, weight, bias)`` takes x [B, H, W, C] (NHWC, the
 fusion path's token layout, so no permute), weight [C, 1, k, k] (torch
 depthwise layout) and bias [C]. A CPU tensor goes through the plain
-version; a CUDA tensor goes through the kernel or raises.
+version; a CUDA tensor goes through the kernel or raises. The gradient
+(``_DepthwiseConv2d``) takes dx from the same kernel on the rotated taps and
+dW from one PyTorch call (its depthwise weight-gradient kernel) on NCHW
+copies.
 
 ``TILING`` holds the one choice of tiling per k; ``kernels/build.py``
 compiles its fixed part into the kernel (``nvcc_defines``), and
@@ -64,7 +67,10 @@ TILING = {31: Tiling(8, 2, 10, 8, 2, 640, 16), 15: Tiling(4, 2, 10, 8, 2, 640, 8
           7: Tiling(4, 1, 6, 8, 1, 512, 8)}
 SUPPORTED_K = tuple(TILING)
 
-launches = 0  # kernel launches since the last reset_launches()
+# kernel launches since the last reset_launches(): a forward call launches
+# once, and its backward once more for dx (the flipped taps), so a train step
+# of the production model launches 6 times for the outputs and 6 for dx
+launches = 0
 
 
 def reset_launches() -> None:
@@ -165,9 +171,59 @@ def _kernel():
 
 def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """SAME-padded stride-1 depthwise conv plus bias, NHWC."""
+    """SAME-padded stride-1 depthwise conv plus bias, NHWC; differentiable
+    in x, weight and bias."""
+    return _DepthwiseConv2d.apply(x, weight, bias)
+
+
+def _conv(x, weight, bias):
+    """The forward conv: the plain version for a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
         return depthwise_conv2d_plain(x, weight, bias)
+    return _launch(x, weight, bias)
+
+
+class _DepthwiseConv2d(torch.autograd.Function):
+    """The conv and its gradient, as the JAX package's XLA path takes it (the
+    TPU kernel has no VJP):
+
+    - dx: the same conv of dy with the taps rotated by 180 degrees and no
+      bias: for odd k and symmetric SAME padding the transpose of a
+      correlation is the correlation with the rotated taps, so the forward
+      kernel computes it (a second launch a call on the card);
+    - dW: one PyTorch call, ``torch.nn.grad.conv2d_weight``, where XLA
+      computes it in the JAX package, on NCHW copies of x and dy: PyTorch
+      then runs its own depthwise weight-gradient kernel, while on the
+      channels-last views it hands the call to cuDNN, 13 times slower at
+      k = 31 on the train step's maps (PERF.md, per-call train table); the
+      plain twin's autograd would be k*k full-size passes;
+    - db: dy summed over batch, rows and columns.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        return _conv(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        gy = gy.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv(gy, weight.flip(-1, -2), None)
+        if ctx.needs_input_grad[1]:
+            k, C = weight.shape[-1], weight.shape[0]
+            dw = torch.nn.grad.conv2d_weight(
+                x.permute(0, 3, 1, 2).contiguous(), weight.shape,
+                gy.permute(0, 3, 1, 2).contiguous(), padding=k // 2, groups=C)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = gy.sum((0, 1, 2))
+        return dx, dw, db
+
+
+def _launch(x, weight, bias):
     _check(x, weight, bias)
     global launches
     B, H, W, C = x.shape
@@ -192,9 +248,6 @@ def _check(x, weight, bias):
             raise TypeError(f"dwconv: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"dwconv: {name} must be contiguous")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError("dwconv: the CUDA kernel has no backward yet; "
-                                      "run the forward under torch.no_grad()")
     if x.dim() != 4:
         raise ValueError(f"dwconv: x must be [B, H, W, C], got {tuple(x.shape)}")
     C = x.shape[-1]

@@ -8,7 +8,10 @@ is ``cfpnet_torch/csrc/linear_attention.cu``; its plain version is
 
 ``linear_attention(q, k, v)`` takes the JAX layout [N, L, H, D] (which is
 [N, L, C] in memory, C = H*D). A CPU tensor goes through the plain version;
-a CUDA tensor goes through the kernel or raises.
+a CUDA tensor goes through the kernel or raises. On the card the gradient
+is autograd of the plain version, recomputed from the saved inputs, as
+``kernels/fused_loftr.py`` takes its own: the TPU kernel has no backward
+kernel to port.
 
 ``launch_plan(N, L, S, H, D)`` owns the geometry of a call's two device
 kernels (the summary pass's head groups, clusters, cluster sums, key tiles
@@ -161,9 +164,33 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      eps: float = 1e-6) -> torch.Tensor:
     """Unmasked multi-head elu+1 linear attention. q: [N, L, H, D];
-    k, v: [N, S, H, D]. Returns [N, L, H, D]."""
+    k, v: [N, S, H, D]. Returns [N, L, H, D]; differentiable in q, k and v."""
     if q.device.type == "cpu":
         return linear_attention_plain(q, k, v, eps=eps)
+    return _LinearAttention.apply(q, k, v, eps)
+
+
+class _LinearAttention(torch.autograd.Function):
+    """The kernel forward; the backward is autograd of the plain version,
+    recomputed from the saved q, k, v (the TPU kernel has no VJP; the JAX
+    train step differentiates the XLA path)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, eps):
+        ctx.save_for_backward(q, k, v)
+        ctx.eps = eps
+        return _launch(q, k, v, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = linear_attention_plain(*saved, eps=ctx.eps)
+            grads = torch.autograd.grad(out, saved, grad)
+        return (*grads, None)
+
+
+def _launch(q, k, v, eps):
     _check(q, k, v)
     global launches
     N, L, H, D = q.shape
@@ -194,9 +221,6 @@ def _check(q, k, v):
             raise ValueError(f"linear_attention: {name} must be [N, *, H, D], got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"linear_attention: {name} must be contiguous")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("linear_attention: the CUDA kernel has no backward yet; "
-                                  "run the forward under torch.no_grad()")
     N, L, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != N or k.shape[2:] != (H, D):
         raise ValueError(f"linear_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "

@@ -6,10 +6,14 @@ Port of ``cfpnet_tpu/models/deltar.py`` (``Deltar``, ``make_model``,
 ``Deltar.forward`` takes and returns the JAX package's layouts: rgb
 [B, H, W, 3] ImageNet-normalized, hist_data [B, Z, n], hist_mask [B, Z] and
 the static per-scale geometry in; ``(bin_edges [B, n_bins+1], pred
-[B, h, w, 1], prob [B, h, w, n_bins], None)`` out, with
-``pred = Σ softmax_prob · bin_centers``. Inside, the backbone and decoder
-run NCHW and the fusion path on NHWC tokens. The train-mode forward comes
-with the train step.
+[B, h, w, 1], prob [B, h, w, n_bins], None)`` out in eval mode and
+``(bin_edges, pred)`` in training mode (``cfpnet_tpu/models/deltar.py:116-117``),
+with ``pred = Σ softmax_prob · bin_centers``. Inside, the backbone and decoder
+run NCHW and the fusion path on NHWC tokens. In training mode BatchNorm uses
+and updates batch statistics (``models/layers.py``) and the fusion layers
+crop their positional encodings at offsets drawn from ``generator``
+(``models/fusion.py``); ``make_model`` returns the model in eval mode and
+the train step switches it (``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ class Deltar(nn.Module):
         bin_edges = torch.cumsum(bin_widths, dim=1)
         centers = 0.5 * (bin_edges[:, :-1] + bin_edges[:, 1:])
         pred = torch.sum(prob * centers[:, :, None, None], dim=1, keepdim=True)
+        if self.training:
+            return bin_edges, pred.permute(0, 2, 3, 1)
         return bin_edges, pred.permute(0, 2, 3, 1), prob.permute(0, 2, 3, 1), None
 
 

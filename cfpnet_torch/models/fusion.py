@@ -9,8 +9,9 @@ are not ported yet and raise.
 - All zone geometry arrives as a static ``ScaleGeometry``, so every slice,
   pad and reshape has a fixed shape.
 - The ``hist2image`` write-back is a static-rectangle slice assignment.
-- The train-time positional-encoding crop draws from an explicit
-  ``torch.Generator``; without one (eval) the crop is centered.
+- The train-time positional-encoding crop draws from an explicit CPU
+  ``torch.Generator`` (``crop_offsets``); without one (eval) the crop is
+  centered.
 - Invalid zones are zeroed after cross-attention by a per-zone multiply.
 """
 
@@ -25,6 +26,23 @@ from torch import nn
 from ..data.geometry import ScaleGeometry
 from ..ops.interp import resize_bilinear_align_corners
 from .transformer import Combine1, LoFTREncoderLayer, TwinsTransformer, twins_window_size
+
+
+def crop_offsets(H: int, W: int, maxH: int, maxW: int,
+                 generator: Optional[torch.Generator] = None) -> Tuple[int, int]:
+    """Top-left corner of the H x W crop of the maxH x maxW positional
+    encoding: uniform over every position (``cfpnet_tpu/models/fusion.py:80-93``,
+    ``jax.random.randint`` from the 'fusion' RNG), or centered without a
+    generator. ``generator`` is a CPU ``torch.Generator`` on the host: the
+    draws are Python ints that slice the encoding, so a CUDA generator would
+    cost a stream sync a layer. The train step seeds one a step
+    (``train/steps.py::step_generator``). The JAX package's draws cannot be
+    matched bit for bit; the tests pin both sides to the same offsets."""
+    if generator is None:
+        return (maxH - H) // 2, (maxW - W) // 2
+    off_y = int(torch.randint(0, maxH - H + 1, (), generator=generator))
+    off_x = int(torch.randint(0, maxW - W + 1, (), generator=generator))
+    return off_y, off_x
 
 
 class TransformerFusion(nn.Module):
@@ -70,11 +88,7 @@ class TransformerFusion(nn.Module):
         # random crop of the 2D positional encoding (reference :88-96), or a
         # centered one when no generator is given
         if H < maxH or W < maxW:
-            if generator is not None:
-                off_y = int(torch.randint(0, maxH - H + 1, (), generator=generator))
-                off_x = int(torch.randint(0, maxW - W + 1, (), generator=generator))
-            else:
-                off_y, off_x = (maxH - H) // 2, (maxW - W) // 2
+            off_y, off_x = crop_offsets(H, W, maxH, maxW, generator)
             pos = pos[off_y:off_y + H, off_x:off_x + W]
         embeddings = x + pos[None]
         feat0 = embeddings.reshape(B, H * W, C)

@@ -1,17 +1,38 @@
-"""Depth metric suite.
+"""SILog loss and the depth metric suite.
 
-Port of ``cfpnet_tpu/train/losses.py`` (``compute_errors``,
-``RunningAverage``, ``RunningAverageDict``; reference
-src/utils/metrics.py:4-24 and src/utils/utils.py:14-41). ``compute_errors``
-takes a validity mask and masked means, as the JAX version does, instead of
-boolean indexing. ``silog_loss`` comes with the train step.
+Port of ``cfpnet_tpu/train/losses.py`` (``silog_loss``, ``compute_errors``,
+``RunningAverage``, ``RunningAverageDict``; reference src/loss.py:4-19,
+src/utils/metrics.py:4-24 and src/utils/utils.py:14-41). Both take a
+validity mask and masked means, as the JAX version does, instead of boolean
+indexing, so the shapes stay fixed.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+from ..ops.interp import resize_bilinear_align_corners
+
+
+def silog_loss(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None,
+               interpolate: bool = True) -> torch.Tensor:
+    """Scale-invariant log loss ``10 * sqrt(var(g) + 0.15 * mean(g)^2)`` of
+    ``g = log(pred) - log(target)`` over the masked pixels, with the unbiased
+    (n - 1) variance of torch's ``var``. pred [B, h, w, 1] is first
+    upsampled align-corners to target's [B, H, W, 1] where ``interpolate``;
+    mask [B, H, W, 1] bool, all pixels when None."""
+    if interpolate:
+        pred = resize_bilinear_align_corners(pred, target.shape[1], target.shape[2])
+    g = torch.log(pred) - torch.log(target)
+    if mask is None:
+        mask = torch.ones_like(g, dtype=torch.bool)
+    n = mask.to(g.dtype).sum()
+    g = torch.where(mask, g, 0.0)
+    mean = g.sum() / n
+    var = torch.where(mask, (g - mean) ** 2, 0.0).sum() / (n - 1.0)
+    return 10.0 * torch.sqrt(var + 0.15 * mean ** 2)
 
 
 def compute_errors(gt: torch.Tensor, pred: torch.Tensor,

@@ -30,32 +30,53 @@ line:
    waves of each pass, shared bytes) and the device kernels of one call by
    name (torch.profiler). Attention is still checked at all twelve shapes;
    nine of them now run inside the fused layer, so they count no calls per
-   forward. Then again at every shape of the bs=8 forward, where only the
+   forward. Then again at every shape of the bs=8 forward and of the bs=16
+   train step's forward at 416x544 (``mode`` "train"), where only the
    kernel is timed (its error within the same bound).
-4. slice: the production model (configs/train_cfpnet_combine1.txt
+4. gradients: at the train step's shapes, each kernel's gradients against
+   autograd of its plain version within the same bound (``check_gradients``:
+   dq, dk, dv; dwconv's dx, dW, db, at one batch row where k = 31; the fused
+   layer's dx, dsource, wq, w1), with the backward's time: dwconv's dx (the
+   forward kernel on the rotated taps), dW (PyTorch's call, from NCHW
+   copies as the port makes it, and on the channels-last views, which
+   PyTorch hands to cuDNN) and db apart; the attention and
+   LoFTR backwards (autograd of the plain version, recomputed).
+5. slice: the production model (configs/train_cfpnet_combine1.txt
    topology) at 480x640, bs=1, with the golden tests' deterministic
    weights, against ``tests/golden/full_forward.npz`` at that test's
    tolerance (rtol 5e-4, atol 5e-5); the launch counts of that forward must
    be 6 attention, 6 depthwise-conv and 18 fused-LoFTR launches.
-5. graph: the forward captured in a CUDA graph (``cfpnet_torch.graphs``).
+6. graph: the forward captured in a CUDA graph (``cfpnet_torch.graphs``).
    At bs=1 the replay equals the eager forward bit for bit and matches the
    golden, and 20 replays on changed inputs each equal their eager forward;
    at bs=8, on 8 synthetic samples, an eager pass launches 6/6/18, the
    replay equals the eager forward bit for bit and each row matches the
    bs=1 forward of its sample (rtol 5e-4, atol 5e-5).
-6. entry: ``cfpnet_torch.evaluate`` on 4 synthetic images at bs=1 and
+7. entry: ``cfpnet_torch.evaluate`` on 4 synthetic images at bs=1 and
    bs=2; metrics must be finite; prints the bs=1 latency in a CUDA graph
    and eager.
-7. profile: device time of one bs=1 forward by kernel (torch.profiler),
+8. profile: device time of one bs=1 forward by kernel (torch.profiler),
    eager and replayed, its kernel launches and the device's busy share of
    each latency; the host-to-device copies and ``cudaStreamSynchronize``
-   calls of one warmed eager forward, which must be 0 and 0; then
-   ``cfpnet_torch.bench`` at ``BENCH_ITERS`` iterations prints its line.
+   calls of one warmed eager forward, which must be 0 and 0.
+9. train: one production train step at bs 2 (416x544, the deterministic
+   weights, ``golden_train_batch``) against the JAX package's step in
+   ``tests/golden/torch_port_train_step.npz`` (``train_golden_errors``,
+   within ``TRAIN_GOLDEN_TOL``), launching 6 attention, 6 + 6 dwconv and 18
+   fused-LoFTR kernels; then the production step at bs 16
+   (``train_step_phase``): falling losses over 10 steps on one batch, the
+   launch counts of a step, ms a step and images/s, peak memory, and one
+   profiled step by kernel and by kind with the device's busy share.
+10. bench: ``cfpnet_torch.bench`` at ``BENCH_ITERS`` forward and
+    ``BENCH_TRAIN_ITERS`` train iterations prints its line.
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
-at bs=8: ``ms_bs8``, ``bound_ms_bs8``, ``max_rel_err_bs8``), and last the
-``ok`` line.
+at bs=8: ``ms_bs8``, ``bound_ms_bs8``, ``max_rel_err_bs8``; in the train
+step's forward: ``ms_train``, ``bound_ms_train``, ``max_rel_err_train``; its
+backward: ``backward_ms_train``, ``grad_max_rel_err_train``, for dwconv
+``dx_ms_train``, ``dw_library_ms_train``; and its launches in one train
+step, ``launches_train_step``), and last the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -72,6 +93,24 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_FULL = os.path.join(ROOT, "tests", "golden", "full_forward.npz")
+# one production train step of the JAX package in float64 on the CPU, bs 2 at
+# 416x544 (tests/test_torch_port_train.py::write_train_golden)
+GOLDEN_TRAIN = os.path.join(ROOT, "tests", "golden", "torch_port_train_step.npz")
+GOLDEN_TRAIN_BS = 2
+GOLDEN_TRAIN_SEED = 5  # the step's seed: its crop offsets
+GOLDEN_TRAIN_TOTAL_STEPS = 1000  # the OneCycle length (the root timed_train_step's)
+# golden_errors' limits: 4 times the larger error of the same comparison on
+# the CPU in float32, the port's step and the JAX package's own float32 step
+# against the float64 golden (``python tests/test_torch_port_train.py
+# --tolerance``). On the deterministic weights at bs 2 the step is
+# ill-conditioned in float32 upstream of the BatchNorms (flax's fast
+# variance cancels where a channel's mean dwarfs its spread): the JAX
+# package's own float32 gradients are 15% off in norm there ("trunk"), while
+# the loss, the head and the running statistics hold to 1e-7..1e-2.
+TRAIN_GOLDEN_TOL = dict(loss=9.6e-7, stat=0.023, zero_grad_norm=1.3e-6,
+                        head_grad_norm=1.5e-5, head_grad_sum=2.5e-6, head_grad_at=4.2e-4,
+                        head_param_at=5.1e-4, trunk_grad_norm=0.59, trunk_grad_sum=0.15,
+                        trunk_grad_at=2.6, trunk_param_at=0.29)
 PROD_CONFIG = os.path.join(ROOT, "configs", "train_cfpnet_combine1.txt")
 TOL = 1e-4  # max |kernel - plain| / max |plain|
 # published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
@@ -80,7 +119,8 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_TF32_3X = 495e12 / 3
 SEED = 117010053
-BENCH_ITERS = 40  # cfpnet_torch.bench --iters in phase 7 (its default is 500)
+BENCH_ITERS = 40  # cfpnet_torch.bench --iters in phase 10 (its default is 500)
+BENCH_TRAIN_ITERS = 10  # and its --train_iters (its default is 40)
 
 
 def emit(obj) -> None:
@@ -160,11 +200,13 @@ def production_config():
     return production_config()
 
 
-def main_path_shapes(config, geoms, batch: int = 1):
-    """(attention, dwconv, LoFTR layer) shapes of one eval forward, with the
+def main_path_shapes(config, geoms, batch: int = 1, mode: str = "online_eval"):
+    """(attention, dwconv, LoFTR layer) shapes of one forward in ``mode``
+    ("online_eval": the native size; "train": the input size), with the
     number of calls at each: attention (N, L, S, H, D), dwconv (B, H, W, C,
     k), LoFTR layer (N, L, S, C, H). The attention inside a LoFTR layer is
-    listed with 0 calls: the fused kernel computes it."""
+    listed with 0 calls: the fused kernel computes it. The Twins window
+    follows the native size at every mode (``models/fusion.py``)."""
     from cfpnet_torch.models.transformer import twins_window_size
 
     att, dw, loftr = {}, {}, {}
@@ -176,11 +218,11 @@ def main_path_shapes(config, geoms, batch: int = 1):
         add(loftr, (N, L, S, C, H))
         add(att, (N, L, S, H, C // H), 0)
 
-    nh, nw = config.native_height, config.native_width
+    nh, nw = config.image_size_for(mode)
     for scale, C, k in ((16, 128, 7), (8, 64, 15), (4, 32, 31)):
         g = geoms[scale]
         H, W = nh // scale, nw // scale
-        ws = twins_window_size(H, W)
+        ws = twins_window_size(config.native_height // scale, config.native_width // scale)
         for name in config.attention_layer:
             if name == "hist2image":
                 add_loftr(batch * g.zone_num ** 2, g.p1 * g.p2, config.zone_sample_num, C, 4)
@@ -195,12 +237,12 @@ def main_path_shapes(config, geoms, batch: int = 1):
     return att, dw, loftr
 
 
-def check_kernels(config, geoms, batch: int = 1, full: bool = True):
-    """Phase 3: every kernel at every main-path shape of a forward at
-    ``batch`` against its plain version; returns one line a shape. With
-    ``full`` each line also times the plain version and the library call and
-    splits the call by device kernel (torch.profiler); without it, only the
-    kernel is timed."""
+def check_kernels(config, geoms, batch: int = 1, full: bool = True, mode: str = "online_eval"):
+    """Phase 3: every kernel at every main-path shape of a forward in
+    ``mode`` at ``batch`` against its plain version; returns one line a
+    shape. With ``full`` each line also times the plain version and the
+    library call and splits the call by device kernel (torch.profiler);
+    without it, only the kernel is timed."""
     import torch.nn.functional as F
 
     from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
@@ -209,7 +251,7 @@ def check_kernels(config, geoms, batch: int = 1, full: bool = True):
     from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
     from cfpnet_torch.ops.loftr import loftr_apply
 
-    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch)
+    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch, mode)
     gen = torch.Generator(device="cuda").manual_seed(SEED + batch - 1)
 
     def randn(*shape):
@@ -297,8 +339,111 @@ def check_kernels(config, geoms, batch: int = 1, full: bool = True):
         per_shape.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
                               calls=calls, **line))
     for r in per_shape:
-        emit(dict(phase="kernel_shape", batch=batch, **r))
+        emit(dict(phase="kernel_shape", batch=batch, mode=mode, **r))
     return per_shape
+
+
+def check_gradients(config, geoms, batch: int):
+    """Phase 4: each kernel's gradients at every train-step shape (``mode``
+    "train") held against autograd of its plain version on the same inputs,
+    each within ``TOL`` of its max |plain|: dq, dk, dv of the attention calls
+    (the kernel's backward is that autograd, recomputed from the saved
+    inputs); dx, dW, db of dwconv (dx: the forward kernel on the rotated
+    taps; dW: PyTorch's depthwise weight gradient), against the plain twin
+    at one batch row where k = 31 (its autograd is 961 full-size passes); dx, dsource,
+    wq and w1 of the fused LoFTR layer. Each line also times the backward at
+    the full batch: for dwconv dx, dW (from NCHW copies, as the port calls
+    it, copies included, and on the channels-last views) and db apart,
+    against the bounds of their work."""
+    import torch.nn.functional as F
+
+    from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
+    from cfpnet_torch.models.transformer import LoFTREncoderLayer
+    from cfpnet_torch.ops.attention import linear_attention as att_plain
+    from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
+    from cfpnet_torch.ops.loftr import loftr_apply
+
+    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch, "train")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)).requires_grad_()
+
+    def held(name, shape, got, ref):
+        torch.cuda.synchronize()
+        out = {}
+        for key, a, b in zip(name.split(","), got, ref):
+            err, top = float((a - b).abs().max()), float(b.abs().max())
+            if not (err <= TOL * top):
+                raise AssertionError(f"gradient {key} at {shape}: max err {err} > {TOL} * {top}")
+            out[key] = err / top
+        return out
+
+    lines = []
+    for (N, L, S, H, D), calls in sorted(att_shapes.items()):
+        if not calls:
+            continue
+        ins = [randn(N, L, H, D), randn(N, S, H, D), randn(N, S, H, D)]
+        g = torch.randn(N, L, H, D, device="cuda", generator=gen)
+        got = torch.autograd.grad(linear_attention.linear_attention(*ins), ins, g)
+        ref = torch.autograd.grad(att_plain(*ins), ins, g)
+        lines.append(dict(kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D),
+                          calls=calls, max_rel_err=held("dq,dk,dv", (N, L, S, H, D), got, ref),
+                          backward_ms=device_ms(lambda: torch.autograd.grad(
+                              att_plain(*ins), ins, g), reps=5, trials=3)))
+    for (B, H, W, C, k), calls in sorted(dw_shapes.items()):
+        x, w, b = randn(B, H, W, C), randn(C, 1, k, k, scale=0.05), randn(C)
+        g = torch.randn(B, H, W, C, device="cuda", generator=gen)
+        rows = 1 if k == 31 else B
+        ins = [x[:rows].detach().requires_grad_(), w, b]
+        got = torch.autograd.grad(dwconv.depthwise_conv2d(*ins), ins, g[:rows])
+        ref = torch.autograd.grad(dw_plain(*ins), ins, g[:rows])
+        errs = held("dx,dW,db", (rows, H, W, C, k), got, ref)
+        wflip = w.detach().flip(-1, -2)
+        xd = x.detach()
+        x_nchw, g_nchw = xd.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        nbytes = 4 * (2 * B * H * W * C + C * k * k)
+        flops = 2 * k * k * B * H * W * C
+        lines.append(dict(
+            kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=k), calls=calls,
+            checked_rows=rows, max_rel_err=errs,
+            dx_ms=device_ms(lambda: dwconv.depthwise_conv2d(g, wflip)),
+            dw_ms=device_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw.contiguous(), w.shape, g_nchw.contiguous(), padding=k // 2, groups=C),
+                reps=5, trials=3),
+            dw_channels_last_ms=device_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, w.shape, g_nchw, padding=k // 2, groups=C), reps=2, trials=3),
+            db_ms=device_ms(lambda: g.sum((0, 1, 2))),
+            dx_bound=bound_fields(nbytes, flops), dw_bound=bound_fields(nbytes, flops),
+            library_conv_ms=device_ms(lambda: F.conv2d(x_nchw, w.detach(), b.detach(),
+                                                       padding=k // 2, groups=C))))
+    rng = np.random.default_rng(SEED + 100)
+    for (N, L, S, C, H), calls in sorted(loftr_shapes.items()):
+        def normal(*shape, mean=0.0, std=1.0):
+            a = (mean + std * rng.standard_normal(shape)).astype(np.float32)
+            return torch.from_numpy(a).cuda()
+
+        x, src = normal(N, L, C).requires_grad_(), normal(N, S, C).requires_grad_()
+        layer = LoFTREncoderLayer(C, H).cuda()
+        with torch.no_grad():
+            for name, w in layer.named_parameters():
+                w.copy_(normal(*w.shape, mean=1.0 if name.endswith(("norm1.weight",
+                                                                     "norm2.weight")) else 0.0,
+                               std=0.1))
+        p = layer.loftr_params()
+        g = normal(N, L, C)
+        ins = [x, src, p.wq, p.w1]
+        got = torch.autograd.grad(fused_loftr.fused_loftr(x, src, p, H), ins, g)
+        ref = torch.autograd.grad(loftr_apply(x, src, p, H), ins, g)
+        everything = [x, src, *p]
+        lines.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
+                          calls=calls,
+                          max_rel_err=held("dx,dsource,dwq,dw1", (N, L, S, C, H), got, ref),
+                          backward_ms=device_ms(lambda: torch.autograd.grad(
+                              loftr_apply(x, src, p, H), everything, g), reps=5, trials=3)))
+    for r in lines:
+        emit(dict(phase="kernel_gradient", batch=batch, **r))
+    return lines
 
 
 KERNEL_META = {
@@ -309,10 +454,14 @@ KERNEL_META = {
 }
 
 
-def kernel_rows(per_shape, per_shape_bs8):
+def kernel_rows(per_shape, per_shape_bs8, per_shape_train, gradients):
     """The kernel table: per kernel, the sums over a bs=1 forward of the
-    phase-3 lines (calls x per-call value), and the kernel's ms, bound and
-    error at bs=8 beside them (``*_bs8``)."""
+    phase-3 lines (calls x per-call value), and beside them the kernel's ms,
+    bound and error at bs=8 (``*_bs8``) and in a bs=16 train step's forward
+    (``*_train``), and the train step's backward from the phase-4 lines:
+    its ms (``backward_ms_train``; for dwconv dx, dW and db,
+    ``dx_ms_train``, ``dw_library_ms_train``) and its worst gradient error
+    over max |plain| (``grad_max_rel_err_train``)."""
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         def per_forward(lines, key):
@@ -329,6 +478,18 @@ def kernel_rows(per_shape, per_shape_bs8):
         if name == "fused_loftr":
             extra = {key: per_forward(per_shape, key)
                      for key in ("summary_ms", "rows_ms", "unfused_ms", "bound_tc_ms")}
+        mine = [r for r in gradients if r["kernel"] == name]
+        if name == "dwconv":
+            extra.update(dx_ms_train=per_forward(gradients, "dx_ms"),
+                         dw_library_ms_train=per_forward(gradients, "dw_ms"),
+                         dw_library_channels_last_ms_train=per_forward(gradients,
+                                                                       "dw_channels_last_ms"),
+                         db_ms_train=per_forward(gradients, "db_ms"))
+            extra["backward_ms_train"] = (extra["dx_ms_train"] + extra["dw_library_ms_train"]
+                                          + extra["db_ms_train"])
+        else:
+            extra["backward_ms_train"] = per_forward(gradients, "backward_ms")
+        extra["grad_max_rel_err_train"] = max(max(r["max_rel_err"].values()) for r in mine)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=None,
             max_abs_err=max(r["max_abs_err"] for r in per_shape if r["kernel"] == name),
@@ -341,8 +502,172 @@ def kernel_rows(per_shape, per_shape_bs8):
             **extra,
             ms_bs8=per_forward(per_shape_bs8, "ms"),
             bound_ms_bs8=per_forward(per_shape_bs8, "bound_ms"),
-            max_rel_err_bs8=worst(per_shape_bs8)))
+            max_rel_err_bs8=worst(per_shape_bs8),
+            ms_train=per_forward(per_shape_train, "ms"),
+            bound_ms_train=per_forward(per_shape_train, "bound_ms"),
+            max_rel_err_train=worst(per_shape_train)))
     return rows
+
+
+def golden_train_config():
+    """The production model at the train step's shape (bs 16 at 416x544 in
+    ``evaluate_time.train_config``), at bs ``GOLDEN_TRAIN_BS``."""
+    from cfpnet_torch.evaluate_time import train_config
+
+    return train_config(production_config()).replace(bs=GOLDEN_TRAIN_BS)
+
+
+def golden_train_batch(config):
+    """The golden step's batch, numpy, from formulas (no RNG): the golden
+    forward's image and histograms (``weights.det_leaf``), a smooth depth
+    with invalid pixels, one zone in seven without signal."""
+    from cfpnet_torch import weights
+
+    B, h, w = config.bs, config.input_height, config.input_width
+    Z = config.train_zone_num ** 2
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    depth = np.stack([1.0 + 1.5 * np.sin(yy / (37.0 + 5 * b)) ** 2
+                      + 1.2 * np.cos(xx / (53.0 - 7 * b)) ** 2 for b in range(B)])
+    depth[:, (yy.astype(int) * 7 + xx.astype(int) * 13) % 50 == 0] = 0.0
+    return dict(image=weights.det_leaf("img", (B, h, w, 3)),
+                depth=depth[..., None].astype(np.float32),
+                hist_data=np.abs(weights.det_leaf("hist", (B, Z, config.zone_sample_num))) * 20,
+                mask=(np.arange(B * Z) % 7 != 3).reshape(B, Z))
+
+
+def golden_crop_offsets(config, seed: int):
+    """The crop offsets the train step draws at ``seed``: its generator's
+    draws in the decoder's order of scales (16, 8, 4)."""
+    from cfpnet_torch.models.fusion import crop_offsets
+    from cfpnet_torch.train.steps import step_generator
+
+    gen = step_generator(seed)
+    h, w = config.input_height, config.input_width
+    nh, nw = config.native_height, config.native_width
+    return [crop_offsets(h // s, w // s, nh // s, nw // s, gen) for s in (16, 8, 4)]
+
+
+def leaf_indices(n: int):
+    """The fixed flat indices of a leaf at which the golden keeps entries."""
+    return np.unique(np.linspace(0, n - 1, min(16, n)).round().astype(np.int64))
+
+
+def golden_record(model, loss):
+    """What the golden keeps of a step just taken (``GOLDEN_TRAIN``'s keys):
+    the loss; per parameter its gradient's sum and norm, its gradient and
+    its value after the step at ``leaf_indices``; every BatchNorm running
+    statistic."""
+    rec = {"loss": float(loss)}
+    for k, p in model.named_parameters():
+        g = p.grad.detach().double().cpu().numpy().ravel()
+        idx = leaf_indices(g.size)
+        rec.update({"grad_sum:" + k: g.sum(), "grad_norm:" + k: np.linalg.norm(g),
+                    "grad_at:" + k: g[idx],
+                    "param_at:" + k: p.detach().double().cpu().numpy().ravel()[idx]})
+    for k, v in model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            rec["stat:" + k] = v.double().cpu().numpy()
+    return rec
+
+
+def golden_errors(got, ref):
+    """Errors of a step's record ``got`` against ``ref`` (both with the
+    golden's keys), each the largest over the parameters of a class:
+    ``head`` (``depth_head``, ``conv_out``: downstream of every
+    BatchNorm), ``trunk`` (the rest), and ``zero`` (those whose reference
+    gradient is zero in exact arithmetic, a norm below 1e-12 of the global
+    one: a conv bias before a train-mode BatchNorm):
+
+    - ``loss``: |loss - loss_ref| / |loss_ref|;
+    - ``<class>_grad_norm``: a gradient's norm, relative;
+    - ``<class>_grad_sum``: its sum, over its norm times sqrt(size) (the
+      most the sum can be);
+    - ``<class>_grad_at``: its entries at ``leaf_indices``, over its RMS
+      (norm over sqrt(size));
+    - ``<class>_param_at``: the parameter after the step at those entries,
+      over the step's learning rate for it, where the reference gradient is
+      at least the RMS (there the first Adam step's direction
+      g / (|g| + eps) is the gradient's sign);
+    - ``zero_grad_norm``: the gradient's norm over the global norm;
+    - ``stat``: a running statistic after the step, over the largest change
+      the step made to it (0.1 of the batch statistic; 0.9 of the old value
+      is exact).
+    """
+    from cfpnet_torch import weights
+    from cfpnet_torch.train.optim import LR_SCALE, onecycle_schedules, param_group_labels
+
+    config = golden_train_config()
+    start = weights.deterministic_state_dict(config)
+    names = [k.split(":", 1)[1] for k in ref.keys() if k.startswith("grad_norm:")]
+    labels = param_group_labels(names, config.hist_encoder_10x)
+    lr0 = onecycle_schedules(config.lr, GOLDEN_TRAIN_TOTAL_STEPS, config.div_factor,
+                             config.final_div_factor)[0](0)
+    global_norm = np.sqrt(sum(float(ref["grad_norm:" + k]) ** 2 for k in names))
+    errs = dict(loss=abs(float(got["loss"]) - float(ref["loss"])) / abs(float(ref["loss"])))
+
+    def worst(key, value):
+        errs[key] = max(errs.get(key, 0.0), float(value))
+
+    for k in names:
+        norm, n = float(ref["grad_norm:" + k]), start[k].numel()
+        if norm <= 1e-12 * global_norm:
+            worst("zero_grad_norm", float(got["grad_norm:" + k]) / global_norm)
+            continue
+        cls = "head" if k.startswith(("depth_head.", "conv_out.")) else "trunk"
+        rms = norm / np.sqrt(n)
+        g_ref = ref["grad_at:" + k]
+        worst(cls + "_grad_norm", abs(float(got["grad_norm:" + k]) - norm) / norm)
+        worst(cls + "_grad_sum", abs(float(got["grad_sum:" + k]) - float(ref["grad_sum:" + k]))
+              / (norm * np.sqrt(n)))
+        worst(cls + "_grad_at", np.abs(got["grad_at:" + k] - g_ref).max() / rms)
+        clear = np.abs(g_ref) >= rms
+        if clear.any():
+            lr = float(np.float32(lr0 * np.float32(LR_SCALE[labels[k]])))
+            worst(cls + "_param_at",
+                  np.abs(got["param_at:" + k] - ref["param_at:" + k])[clear].max() / lr)
+    for k in ref.keys():
+        if k.startswith("stat:"):
+            moved = np.abs(ref[k] - 0.9 * start[k[5:]].double().numpy()).max()
+            worst("stat", np.abs(got[k] - ref[k]).max() / moved)
+    return errs
+
+
+def train_golden_errors(device="cuda"):
+    """One step of the port's train step (``train/steps.py``) on
+    ``golden_train_batch`` with the deterministic weights and the golden's
+    crop offsets, against ``GOLDEN_TRAIN`` (``golden_errors``). Returns (the
+    errors, the launch counts of the step, the loss)."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.models import fusion
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.train import steps
+
+    ref = np.load(GOLDEN_TRAIN)
+    config = golden_train_config()
+    model = make_model(config, device=device)
+    model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
+    geoms = model_geometries(config, "train")
+    state = steps.create_train_state(model, config, GOLDEN_TRAIN_TOTAL_STEPS)
+    train_step = steps.make_train_step(model, config, geoms)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in golden_train_batch(config).items()}
+    offsets = [tuple(o) for o in ref["crop_offsets"].tolist()]
+    if offsets != golden_crop_offsets(config, GOLDEN_TRAIN_SEED):
+        print("chip_smoke: this torch's generator draws other crop offsets than the golden's; "
+              "the golden's are used", file=sys.stderr)
+    pinned = iter(offsets)
+    real = fusion.crop_offsets
+    fusion.crop_offsets = lambda *args: next(pinned)
+    try:
+        kernels.reset_launches()
+        loss = train_step(state, batch, GOLDEN_TRAIN_SEED)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+    finally:
+        fusion.crop_offsets = real
+    if next(pinned, None) is not None:
+        raise AssertionError("the step drew fewer crop offsets than the golden holds")
+    return golden_errors(golden_record(model, loss), ref), launches, float(loss)
 
 
 def golden_diffs(bin_edges, pred):
@@ -531,12 +856,81 @@ def check_host_waits(profile):
                              f"host-to-device copies and {profile['stream_syncs']} stream syncs")
 
 
+TRAIN_LAUNCHES = {"linear_attention": 6, "dwconv": 12, "fused_loftr": 18}
+# the kernels of a profiled train step, by kind (device kernel names)
+KINDS = (("ported kernels", ("attention_sum_kernel", "attention_apply_kernel", "dwconv_kernel",
+                             "summary_kernel", "rows_kernel")),
+         ("optimizer (foreach)", ("multi_tensor_apply",)),
+         ("large-kernel dW (torch's depthwise weight gradient)",
+          ("conv_depthwise2d_grad_weight",)),
+         ("cuDNN weight gradients", ("wgrad",)),
+         ("cuDNN data gradients", ("dgrad",)),
+         ("cuDNN forward convolutions", ("fprop", "conv", "implicit_gemm", "winograd")),
+         ("matrix products", ("gemm", "gemv", "cutlass")),
+         ("elementwise and reductions", ("elementwise", "reduce", "Reduce", "softmax",
+                                         "cat", "index", "fill", "copy")))
+
+
+def by_kind(events):
+    """Device ms and launches of a profiled run, summed by ``KINDS``."""
+    out = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k, keys in KINDS if any(key in e.key for key in keys)), "other")
+        d = out.setdefault(kind, dict(ms=0.0, launches=0))
+        d["ms"] += e.self_device_time_total / 1e3
+        d["launches"] += e.count
+    return out
+
+
+def train_step_phase(config, steps_timed: int = 10):
+    """Phase 9: the production train step (``train/steps.py``) at
+    ``config``'s shape (bs 16 at 416x544), eager, on one synthetic batch
+    and the deterministic weights: 10 steps whose losses must be finite and
+    fall; the launch counts of one step (6 attention, 6 + 6 dwconv, 18 fused
+    LoFTR); ``steps_timed`` steps between CUDA events
+    (``evaluate_time.train_latency_ms``, K = 5); one profiled step; the
+    peak of allocated memory."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.train import steps
+
+    model = make_model(config, device="cuda")
+    model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
+    geoms = model_geometries(config, "train")
+    state = steps.create_train_state(model, config, GOLDEN_TRAIN_TOTAL_STEPS)
+    train_step = steps.make_train_step(model, config, geoms)
+    batch = make_train_batch(config, config.bs)
+    seeds = iter(range(config.seed, config.seed + 10 ** 6))
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(train_step(state, batch, next(seeds))) for _ in range(10)]
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses on one repeated batch: {losses}")
+    kernels.reset_launches()
+    train_step(state, batch, next(seeds))
+    torch.cuda.synchronize()
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"a train step launched {launches}, expected {TRAIN_LAUNCHES}")
+    ms = train_latency_ms(lambda: train_step(state, batch, next(seeds)), steps_timed, 5)
+    events = device_events(lambda: train_step(state, batch, next(seeds)))
+    return dict(phase="train_step", batch=config.bs,
+                size=[config.input_height, config.input_width], ms_a_step=ms,
+                images_a_s=config.bs * 1000.0 / ms, steps_timed=steps_timed,
+                losses_first_10=losses, launches_a_step=launches,
+                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                profiled_step=busy(events, ms), profiled_step_by_kind=by_kind(events))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
         return 2
 
     from cfpnet_torch import bench, evaluate, weights
+    from cfpnet_torch.evaluate_time import train_config
     from cfpnet_torch.kernels import build
     from cfpnet_torch.models.deltar import make_model, model_geometries
 
@@ -559,14 +953,22 @@ def main() -> int:
              for name, log in build.BUILD_LOGS.items()}
     emit(dict(phase="build", seconds=time.perf_counter() - t0, per_source=seconds, ptxas=ptxas))
 
-    # 3. kernels at every main-path shape of the bs=1 and the bs=8 forward;
-    # the configuration and inputs of
+    # 3. kernels at every main-path shape of the bs=1 and the bs=8 forward
+    # and of the bs=16 train step; the configuration and inputs of
     # tests/test_golden.py::test_golden_forward_production_size
     config = production_config()
     geoms = model_geometries(config, "online_eval")
-    rows = kernel_rows(check_kernels(config, geoms), check_kernels(config, geoms, 8, full=False))
+    tconfig = train_config(config)
+    tgeoms = model_geometries(tconfig, "train")
+    per_shape = check_kernels(config, geoms)
+    per_shape_bs8 = check_kernels(config, geoms, 8, full=False)
+    per_shape_train = check_kernels(tconfig, tgeoms, tconfig.bs, full=False, mode="train")
 
-    # 4. slice: the full-width forward through the kernels, against the golden
+    # 4. the kernels' gradients at the train step's shapes
+    gradients = check_gradients(tconfig, tgeoms, tconfig.bs)
+    rows = kernel_rows(per_shape, per_shape_bs8, per_shape_train, gradients)
+
+    # 5. slice: the full-width forward through the kernels, against the golden
     model = make_model(config, device="cuda")
     model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
     img = torch.from_numpy(weights.det_leaf("img", (1, 480, 640, 3))).cuda()
@@ -584,10 +986,10 @@ def main() -> int:
     emit(dict(phase="slice", launches=launches, golden_max_abs_diff=golden_diffs(bin_edges, pred),
               pred_mean=float(pred.mean())))
 
-    # 5. graph: the forward captured in a CUDA graph at bs=1 and bs=8
+    # 6. graph: the forward captured in a CUDA graph at bs=1 and bs=8
     emit(graph_phase(model, config, geoms, args))
 
-    # 6. entry: the eval entry point on synthetic images
+    # 7. entry: the eval entry point on synthetic images
     entry = {}
     for bs, iters in ((1, 50), (2, 0)):
         out = evaluate.main([f"@{PROD_CONFIG}", "--dataset", "synthetic",
@@ -601,13 +1003,32 @@ def main() -> int:
               latency_ms_bs1_eager=entry["bs1"]["latency_ms_bs1_eager"],
               metrics_bs1=entry["bs1"]["metrics"], metrics_bs2=entry["bs2"]["metrics"]))
 
-    # 7. profile: where the bs=1 forward's time goes, eager and replayed, and
-    # the headline benchmark at reduced iterations (its own JSON line)
+    # 8. profile: where the bs=1 forward's time goes, eager and replayed
     profile = profile_phase(model, config, geoms, args, entry["bs1"])
     emit(profile)
-    if bench.main(["--iters", str(BENCH_ITERS)]) != 0:
-        raise AssertionError("cfpnet_torch.bench failed")
     check_host_waits(profile)
+    del model
+
+    # 9. the train step: one step at bs 2 against the JAX package's golden,
+    # then the production step at bs 16, timed and profiled
+    errs, golden_launches, golden_loss = train_golden_errors()
+    emit(dict(phase="train_golden", golden=os.path.relpath(GOLDEN_TRAIN, ROOT),
+              loss=golden_loss, launches=golden_launches, errors=errs,
+              tolerance=TRAIN_GOLDEN_TOL))
+    if golden_launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"the golden step launched {golden_launches}")
+    if set(errs) != set(TRAIN_GOLDEN_TOL) or not all(
+            v <= TRAIN_GOLDEN_TOL[k] for k, v in errs.items()):
+        raise AssertionError(f"train step against the golden: {errs}, tolerance "
+                             f"{TRAIN_GOLDEN_TOL}")
+    train = train_step_phase(tconfig)
+    emit(train)
+    for r in rows:
+        r["launches_train_step"] = train["launches_a_step"][r["name"]]
+
+    # 10. the headline benchmark at reduced iterations (its own JSON line)
+    if bench.main(["--iters", str(BENCH_ITERS), "--train_iters", str(BENCH_TRAIN_ITERS)]) != 0:
+        raise AssertionError("cfpnet_torch.bench failed")
     emit(dict(phase="done", seconds_total=time.perf_counter() - t_start))
 
     emit({"kernels": rows})

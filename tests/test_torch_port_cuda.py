@@ -152,14 +152,91 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError):
         linear_attention.linear_attention(_randn(gen, 1, 8, 4, 6), _randn(gen, 1, 8, 4, 6),
                                           _randn(gen, 1, 8, 4, 6))
-    qg = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
-        linear_attention.linear_attention(qg, q, q)
+    qg = q.clone().requires_grad_()  # a gradient is no refusal: the kernel forward runs
+    kernels.reset_launches()
+    linear_attention.linear_attention(qg, q, q).sum().backward()
+    assert linear_attention.launches == 1 and qg.grad is not None
     x = _randn(gen, 1, 8, 8, 4)
     with pytest.raises(ValueError):
         dwconv.depthwise_conv2d(x, _randn(gen, 4, 1, 9, 9))
     with pytest.raises(ValueError):
         dwconv.depthwise_conv2d(x.permute(0, 2, 1, 3), _randn(gen, 4, 1, 7, 7))
+
+
+@pytest.mark.parametrize("N,L,S,H,D", [(2, 70, 300, 8, 8), (3, 37, 5, 4, 4),
+                                       (16, 884, 576, 4, 32), (2, 3536, 2304, 4, 16)])
+def test_linear_attention_backward(gen, N, L, S, H, D):
+    """dq, dk, dv through the autograd.Function (kernel forward, backward
+    recomputed from the plain version) against plain autograd; one launch."""
+    ins = [_randn(gen, N, L, H, D).requires_grad_(), _randn(gen, N, S, H, D).requires_grad_(),
+           _randn(gen, N, S, H, D).requires_grad_()]
+    g = _randn(gen, N, L, H, D)
+    kernels.reset_launches()
+    got = torch.autograd.grad(linear_attention.linear_attention(*ins), ins, g)
+    assert linear_attention.launches == 1
+    for a, b in zip(got, torch.autograd.grad(attention_plain(*ins), ins, g)):
+        _assert_close(a, b)
+
+
+@pytest.mark.parametrize("B,H,W,C,k", [(2, 17, 33, 12, 15), (1, 5, 70, 32, 31), (3, 26, 34, 128, 7),
+                                       (1, 104, 136, 32, 31), (4, 52, 68, 64, 15)])
+def test_dwconv_backward(gen, B, H, W, C, k):
+    """dx (the kernel on the rotated taps), dW (``torch.nn.grad.conv2d_weight``)
+    and db against plain autograd; a forward and its backward launch the
+    kernel twice."""
+    ins = [_randn(gen, B, H, W, C).requires_grad_(),
+           (0.05 * _randn(gen, C, 1, k, k)).requires_grad_(), _randn(gen, C).requires_grad_()]
+    g = _randn(gen, B, H, W, C)
+    kernels.reset_launches()
+    got = torch.autograd.grad(dwconv.depthwise_conv2d(*ins), ins, g)
+    torch.cuda.synchronize()
+    assert dwconv.launches == 2
+    for a, b in zip(got, torch.autograd.grad(dwconv_plain(*ins), ins, g)):
+        _assert_close(a, b)
+
+
+def test_dwconv_backward_of_a_strided_gradient(gen):
+    """An upstream gradient that is not contiguous (a permuted view) is made
+    contiguous before the kernel takes it."""
+    x = _randn(gen, 2, 9, 11, 8).requires_grad_()
+    w = 0.05 * _randn(gen, 8, 1, 7, 7)
+    g = _randn(gen, 2, 11, 9, 8).transpose(1, 2)
+    (dx,) = torch.autograd.grad(dwconv.depthwise_conv2d(x, w), (x,), g)
+    _assert_close(dx, dwconv_plain(g.contiguous(), w.flip(-1, -2)))
+
+
+def test_train_step_small_geometry(gen):
+    """Two production train steps of the production-width model at the tiny
+    config's geometry (train 48x64 of native 64x96, 2x2 zones), bs 2, on the
+    card: each launches 3 attention, 3 + 3 dwconv and 9 fused-LoFTR kernels;
+    the first step's loss matches the same step on the CPU (plain versions)
+    to 1e-4, and the parameters move."""
+    from cfpnet_torch import weights
+    from cfpnet_torch.bench import smoke_config
+    from cfpnet_torch.evaluate_time import make_train_batch
+    from cfpnet_torch.models.deltar import make_model
+    from cfpnet_torch.train import steps
+
+    config = smoke_config().replace(tiny_model=False, mode="train", bs=2, input_height=48,
+                                    input_width=64, train_zone_num=2, train_patch_px=16,
+                                    disable_clip_grad=True, hist_encoder_10x=True)
+    geoms = model_geometries(config, "train")
+    losses = {}
+    for device in ("cpu", "cuda"):
+        model = make_model(config, device=device)
+        model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
+        state = steps.create_train_state(model, config, 100)
+        step = steps.make_train_step(model, config, geoms)
+        batch = make_train_batch(config, 2, device)
+        before = model.decoder.conv0.weight.detach().clone()
+        kernels.reset_launches()
+        losses[device] = [float(step(state, batch, 7))]
+        if device == "cuda":
+            assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 6, 9)
+        losses[device].append(float(step(state, batch, 8)))
+        assert not torch.equal(model.decoder.conv0.weight.detach(), before)
+    assert all(torch.isfinite(torch.tensor(v)).all() for v in losses.values())
+    torch.testing.assert_close(losses["cuda"][0], losses["cpu"][0], rtol=1e-4, atol=0)
 
 
 def _loftr_params(gen, C, requires_grad=False):

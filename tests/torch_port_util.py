@@ -10,6 +10,20 @@ import torch
 
 from cfpnet_torch import weights
 
+# torch's CPU exp, log, sqrt, tanh, ... call MKL's vector math library (VML)
+# on chunks of 2048 elements and more, one chunk a thread. The first such
+# call in a process, made from several threads at once, now and then
+# returns one thread's chunk at about 1e-4 relative error (a race in VML's
+# set-up on its first use; seen under heavy load of the machine, in about one
+# process of a hundred). One call of each function on one element, on this
+# thread, sets VML up before any parallel call.
+VML_FUNCTIONS = (torch.acos, torch.asin, torch.atan, torch.cos, torch.erf, torch.erfc,
+                 torch.erfinv, torch.exp, torch.log, torch.log10, torch.log2, torch.sin,
+                 torch.sqrt, torch.tan, torch.tanh, torch.trunc)
+for _dtype in (torch.float32, torch.float64):
+    for _fn in VML_FUNCTIONS:
+        _fn(torch.full((1,), 0.5, dtype=_dtype))
+
 
 @contextmanager
 def enable_x64():
