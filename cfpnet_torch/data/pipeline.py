@@ -1,0 +1,148 @@
+"""Host -> device data pipeline.
+
+Port of ``cfpnet_tpu/data/pipeline.py`` (``collate``, ``DataLoader``,
+``make_loader``) for one device: one producer thread decodes batches
+(ToF simulation included) into a bounded queue while the device computes.
+Batches are yielded in the JAX package's order: the shuffle of an epoch is
+``np.random.default_rng(seed + epoch)``, and before it decodes batch ``b``
+the producer sets the dataset's ``zone_offset`` to
+``zone_offset_for(seed, epoch, b, n)``, the value ``train/loop.py`` computes
+for the same step. An exception of the producer is raised in the consumer.
+
+On a CUDA device the producer copies each batch into pinned host memory and
+the consumer starts its copy to the device with ``non_blocking=True``: the
+host does not wait for it, and the copy runs in stream order before the
+step that reads it. No mesh and no multi-host split: multi-GPU is ROADMAP.md
+§A 9, and ``make_loader`` refuses a mesh.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Dict, Iterator, List
+
+import numpy as np
+import torch
+
+from .datasets import collate, make_dataset
+from .geometry import zone_offset_for
+
+
+class DataLoader:
+    """Epoch-based loader: shuffle, batch, background prefetch.
+
+    ``indices`` holds the dataset indices of the batch last yielded. For
+    the current (or last) pass over the loader, ``wait_s`` holds the seconds
+    the consumer spent blocked on the queue for each batch it took, and
+    ``produce_s`` the producer's seconds to decode, collate and pin each
+    batch it made."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0, prefetch: int = 2,
+                 zone_random_offset: int = 0, device="cpu"):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.prefetch = prefetch
+        self.zone_random_offset = int(zone_random_offset)
+        self.device = torch.device(device)
+        self.epoch = 0
+        self.indices = None
+        self.wait_s: List[float] = []
+        self.produce_s: List[float] = []
+
+    def set_epoch(self, epoch: int):
+        """Pin the epoch counter (shuffle and zone-offset streams), so that
+        the loader and the train loop agree after ``--resume`` and after a
+        consumer that left an epoch early (the implicit increment at the end
+        of an iteration is then skipped)."""
+        self.epoch = int(epoch)
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _index_order(self):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def _host_batch(self, chunk) -> Dict[str, torch.Tensor]:
+        batch = collate([self.dataset[int(i)] for i in chunk])
+        pin = self.device.type == "cuda"
+        return {k: (torch.from_numpy(v).pin_memory() if pin else torch.from_numpy(v))
+                for k, v in batch.items()}
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        order = self._index_order()
+        nb = len(self)
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        wait_s, produce_s = [], []
+        self.wait_s, self.produce_s = wait_s, produce_s
+
+        def producer():
+            try:
+                for b in range(nb):
+                    if stop.is_set():
+                        return
+                    if self.zone_random_offset > 0:
+                        self.dataset.zone_offset = zone_offset_for(
+                            self.seed, self.epoch, b, self.zone_random_offset)
+                    chunk = order[b * self.batch_size: (b + 1) * self.batch_size]
+                    t0 = time.perf_counter()
+                    batch = self._host_batch(chunk)
+                    produce_s.append(time.perf_counter() - t0)
+                    q.put((chunk, batch))
+            except Exception as e:  # raised in the consumer
+                q.put(e)
+            finally:
+                q.put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                wait_s.append(time.perf_counter() - t0)
+                self.indices, batch = item
+                yield {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+        finally:
+            stop.set()
+            # unblock a producer waiting on a full queue, then let it finish
+            while t.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    t.join(0.01)
+        self.epoch += 1
+
+
+def make_loader(config, mode: str, dataset=None, device="cuda", mesh=None) -> DataLoader:
+    """The loader policy of the JAX package: train at ``--bs``, shuffled,
+    last partial batch dropped; eval at ``--eval_bs`` in order."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh: multi-GPU loading is not ported yet "
+                                  "(ROADMAP.md §A 9)")
+    if getattr(config, "device_pipeline", False):
+        raise NotImplementedError("--device_pipeline is not ported yet (ROADMAP.md §A 8)")
+    if dataset is None:
+        dataset = make_dataset(config, mode)
+    if mode == "train":
+        return DataLoader(dataset, config.bs, shuffle=True, drop_last=True, seed=config.seed,
+                          zone_random_offset=getattr(config, "train_zone_random_offset", 0),
+                          device=device)
+    return DataLoader(dataset, max(1, getattr(config, "eval_bs", 1)), shuffle=False,
+                      drop_last=False, device=device)

@@ -1,8 +1,9 @@
 """ToF zone-histogram simulation (VL53L5CX model).
 
-Port (a copy) of ``cfpnet_tpu/data/tof_sim.py`` without its optional C++
-path (``data/native.py``): every function here is the vectorized numpy
-version, which that package's tests hold equal to the C++ one.
+Port (a copy) of ``cfpnet_tpu/data/tof_sim.py``. ``get_hist`` runs the
+host C++ kernel (``data/native.py``, ``csrc/host/tofsim.cpp``) where it is
+built and enabled, else the vectorized numpy version below, which agrees
+with it to float rounding; ``native.active()`` says which runs.
 
 Numerically matches the reference host pipeline
 (reference src/utils/dataloader.py:65-134) but replaces its per-zone
@@ -110,7 +111,14 @@ def get_hist(
 
     Equivalent of ``get_hist_parallel`` (reference
     src/utils/dataloader.py:83-134) minus the torch tensor plumbing.
+    Dispatches to the C++ kernel (``data/native.py``) when it is built.
     """
+    from .native import native_get_hist
+
+    res = native_get_hist(depth, geom, max_distance, BIN_WIDTH, NOISE_FLOOR)
+    if res is not None:
+        fh, mask = res
+        return fh, geom.zone_rects(), mask
     hist = zone_histograms(depth, geom, max_distance)
     hist[:, 0] = 0.0
     hist = np.clip(hist - NOISE_FLOOR, 0.0, None)

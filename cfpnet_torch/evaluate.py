@@ -1,13 +1,17 @@
 """Evaluation entry point of the port.
 
     python -m cfpnet_torch.evaluate @configs/train_cfpnet_combine1.txt \\
-        --dataset synthetic [--device cpu] [--weight_path ref.pt] \\
+        --dataset synthetic|nyu|zjuL5 [--device cpu] [--weight_path W] \\
         [--eval_bs N] [--synthetic_length N] [--time_iters N]
 
 Port of the ``evaluate_all.py`` protocol (``make_eval_step`` /
 ``make_metric_step`` with protocol 'evaluate_all', per-image metrics
 averaged image-weighted) over the dataset that ``--dataset`` names, at the
-native resolution, plus the bs=1 latency of ``evaluate_time.py``, twice:
+native resolution, through ``train/loop.py::make_grouped_eval`` (one eval
+step per rig of a mixed-rig ZJUL5 set). ``--dataset zjuL5`` applies the
+root ``evaluate_all.py``'s ``zju_overrides`` (data/ZJUL5, 256 bins, 16 samples a zone,
+depth 1e-3..10). NYU and ZJUL5 need Pillow and h5py and their files on
+disk. Then the bs=1 latency of ``evaluate_time.py``, twice:
 ``latency_ms_bs1`` of the forward captured in a CUDA graph (replays between
 CUDA events, ``evaluate_time.graphed_latency_ms``) and beside it
 ``latency_ms_bs1_eager``, ``--time_iters`` eager forwards each timed with
@@ -16,8 +20,9 @@ CUDA events, trimmed mean ``sorted[1:-2]``
 on the CPU it is reported as not measured. The metrics run eagerly: their
 last batch may be partial.
 
-Weights: ``--weight_path`` is a reference-trained ``Deltar`` checkpoint
-(``weights.load_reference_checkpoint``). Without it the model carries the
+Weights: ``--weight_path`` is a reference-trained ``Deltar`` checkpoint or
+a weights file of the port's training loop (``weights/{name}/...``; both
+through ``weights.load_reference_checkpoint``). Without it the model carries the
 deterministic shape-derived weights of the golden tests
 (``weights.deterministic_state_dict``), which is enough to run the path and
 not to give meaningful depth.
@@ -36,12 +41,31 @@ import torch
 
 from . import weights
 from .config import parse_config
-from .data.datasets import collate, make_dataset
+from .data.datasets import collate, make_dataset, sample_image_f32
 from .evaluate_time import eager_latency_ms, graphed_latency_ms
 from .models.deltar import make_model, model_geometries
-from .train.steps import batch_to_device, evaluate
+from .train.loop import make_grouped_eval
+from .train.steps import batch_to_device
 
 METRICS = ["a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel"]
+
+
+def zju_overrides(config):
+    """Dataset-specific overrides of the root ``evaluate_all.py``
+    (reference evaluate_all.py:99-109)."""
+    return config.replace(
+        data_path_eval="data/ZJUL5",
+        filenames_file_eval="data/ZJUL5/data.json",
+        native_height=480,
+        native_width=640,
+        max_depth=10.0,
+        min_depth=1e-3,
+        n_bins=256,
+        min_depth_eval=1e-3,
+        max_depth_eval=10.0,
+        zone_sample_num=16,
+        dataset_eval="zjuL5",
+    )
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
@@ -51,6 +75,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     config = parse_config(rest).replace(mode="online_eval")
     config = config.replace(dataset_eval=config.dataset)
+    if config.dataset in ("zjuL5", "zju", "ZJUL5"):
+        config = zju_overrides(config)
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,18 +88,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     else:
         sd = weights.deterministic_state_dict(config)
     model.load_state_dict(sd, strict=True)
-    geoms = model_geometries(config, "online_eval")
     dataset = make_dataset(config, "online_eval")
+    groups = getattr(dataset, "geometry_groups", None)
+    geoms = groups[0][0] if groups else model_geometries(config, "online_eval")
 
-    results = evaluate(model, config, dataset, geoms, protocol="evaluate_all",
-                       batch_size=config.eval_bs, device=device)
+    results = make_grouped_eval(model, config, dataset, protocol="evaluate_all",
+                                device=device)()
     out: Dict[str, object] = {"metrics": results, "images": len(dataset),
                               "eval_bs": config.eval_bs, "device": str(device)}
     print("Metrics: " + json.dumps({k: round(results[k], 3) for k in METRICS}))
     print(",".join(str(round(results[k], 3)) for k in METRICS))
 
     if device.type == "cuda" and args.time_iters > 0:
-        batch = batch_to_device(collate([dataset[0]]), device)
+        sample = dataset[0]
+        batch = batch_to_device(collate([dict(sample, image=sample_image_f32(sample))]), device)
         inputs = (batch["image"], batch["hist_data"], batch["mask"])
         out["latency_ms_bs1"] = graphed_latency_ms(model, inputs, geoms, config,
                                                    args.time_iters)

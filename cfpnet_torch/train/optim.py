@@ -101,10 +101,11 @@ class AdamW:
                  final_div_factor: float = 100.0, hist_encoder_10x: bool = True,
                  clip_grad: bool = False):
         named = list(named_params)
-        labels = param_group_labels([n for n, _ in named], hist_encoder_10x)
+        self.labels = param_group_labels([n for n, _ in named], hist_encoder_10x)
         self.groups: Dict[str, List[torch.nn.Parameter]] = {g: [] for g in LR_SCALE}
         for name, p in named:
-            self.groups[labels[name]].append(p)
+            self.groups[self.labels[name]].append(p)
+        self.named = named
         self.params = [p for _, p in named]
         self.lr_fn, self.mom_fn = onecycle_schedules(lr, total_steps, div_factor,
                                                      final_div_factor)
@@ -154,6 +155,37 @@ class AdamW:
             torch._foreach_mul_(u, -h["lr"][group])
             torch._foreach_add_(params, u)
         self.count += 1
+
+    def state_dict(self) -> Dict[str, dict]:
+        """Each group's state as optax keeps it: ``{group: {"count": int,
+        "mu": {name: tensor}, "nu": {name: tensor}}}`` (the tensors are the
+        live moments; ``torch.save`` copies them)."""
+        out = {g: {"count": self.count, "mu": {}, "nu": {}} for g in LR_SCALE}
+        for name, p in self.named:
+            g = out[self.labels[name]]
+            g["mu"][name] = self.mu[id(p)]
+            g["nu"][name] = self.nu[id(p)]
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, dict]) -> None:
+        """Copies a ``state_dict()`` (from this optimizer, a checkpoint or
+        ``weights.opt_state_from_optax``) into the moments and count; raises
+        unless it holds exactly this optimizer's groups and parameters."""
+        counts = {int(state[g]["count"]) for g in LR_SCALE}
+        if len(counts) != 1:
+            raise ValueError(f"the groups' counts differ: {counts}")
+        for key in ("mu", "nu"):
+            held = {(g, n) for g in LR_SCALE for n in state[g][key]}
+            want = {(self.labels[n], n) for n, _ in self.named}
+            if held != want:
+                raise ValueError(f"{key} for other parameters or groups: "
+                                 f"{sorted(held ^ want)[:5]}")
+        for name, p in self.named:
+            g = state[self.labels[name]]
+            self.mu[id(p)].copy_(g["mu"][name])
+            self.nu[id(p)].copy_(g["nu"][name])
+        self.count = counts.pop()
 
     @staticmethod
     def _clip(grads: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:

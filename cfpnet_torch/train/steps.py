@@ -1,11 +1,9 @@
 """Train step, eval steps and the metric sweep.
 
 Port of ``cfpnet_tpu/train/steps.py`` (``make_loss_fn``,
-``make_train_step``, ``create_train_state``, ``make_eval_step`` for both
-protocols, ``make_metric_step``) and of
-``cfpnet_tpu/train/loop.py::evaluate`` (per-image metrics streamed through
-``RunningAverageDict``; a ragged last batch is padded by repeating its last
-sample and the pad images are left out).
+``make_train_step``, ``create_train_state``, ``eval_batch_image``,
+``make_eval_step`` for both protocols, ``make_metric_step``). The sweep
+over an eval loader is ``train/loop.py::evaluate``.
 
 The train step is the JAX one written eagerly: the model in training mode
 (batch statistics, running statistics updated in place, a random crop of
@@ -19,15 +17,15 @@ ported, and refused: ``--grad_accum > 1``, ``--remat`` and a
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
 import torch
 
-from ..data.datasets import collate
 from ..ops.interp import resize_bilinear_align_corners
-from .losses import RunningAverageDict, compute_errors, silog_loss
+from .losses import compute_errors, silog_loss
 from .optim import AdamW, make_optimizer
 
 
@@ -106,8 +104,32 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
     return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
+# ImageNet statistics (reference nyu.py:266-288 / zjuL5.py:211)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """(mean, std) as f32 tensors on ``device``, copied there once."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
+def eval_batch_image(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Normalized f32 image of an eval batch: ``image_u8`` (raw uint8, as
+    the NYU and ZJUL5 eval samples ship it) normalized on the device with
+    the JAX package's operations, or the batch's normalized ``image``."""
+    if "image_u8" in batch:
+        u8 = batch["image_u8"]
+        mean, std = _imagenet_stats(u8.device)
+        return (u8.to(torch.float32) / 255.0 - mean) / std
+    return batch["image"]
+
+
 def make_eval_step(model, config, geoms, protocol: str = "evaluate_all"):
-    """Returns ``batch -> (pred_full [B,H,W,1], prob)``.
+    """Returns ``batch -> (pred_full [B,H,W,1], prob)``, the model in eval
+    mode; the image is ``eval_batch_image(batch)``.
 
     protocol='evaluate_all': clip to [min_depth, max_depth], then
     align-corners upsample to the input size (reference evaluate_all.py:37-44).
@@ -117,7 +139,8 @@ def make_eval_step(model, config, geoms, protocol: str = "evaluate_all"):
 
     @torch.no_grad()
     def eval_step(batch):
-        image = batch["image"]
+        model.eval()
+        image = eval_batch_image(batch)
         _, pred, prob, _ = model(image, batch["hist_data"], batch["mask"], geoms)
         H, W = image.shape[1], image.shape[2]
         if protocol == "evaluate_all":
@@ -155,26 +178,3 @@ def make_metric_step(config, protocol: str = "validate"):
         return {k: torch.stack([m[k] for m in per]) for k in per[0]}, torch.stack(counts)
 
     return metric_step
-
-
-def evaluate(model, config, dataset, geoms, protocol: str = "validate",
-             batch_size: int = 1, device="cuda") -> Dict[str, float]:
-    """Metric sweep over ``dataset`` in order, ``batch_size`` images at a
-    time; metrics are per image and averaged image-weighted, as the
-    reference's bs=1 protocol."""
-    eval_step = make_eval_step(model, config, geoms, protocol)
-    metric_step = make_metric_step(config, protocol)
-    metrics = RunningAverageDict()
-    for start in range(0, len(dataset), batch_size):
-        samples = [dataset[j] for j in range(start, min(start + batch_size, len(dataset)))]
-        n_real = len(samples)
-        samples += [samples[-1]] * (batch_size - n_real)
-        batch = batch_to_device(collate(samples), device)
-        pred, _ = eval_step(batch)
-        m, n = metric_step(batch["depth"], pred)
-        m = {k: v.cpu().numpy() for k, v in m.items()}
-        n = n.cpu().numpy()
-        for j in range(n_real):
-            if int(n[j]) > 0:
-                metrics.update({k: float(v[j]) for k, v in m.items()})
-    return metrics.get_value()

@@ -307,3 +307,73 @@ def load_reference_checkpoint(src) -> Dict[str, torch.Tensor]:
         if not _dead(k):
             out[k] = torch.as_tensor(v)
     return out
+
+
+def _fields(node) -> Dict[str, object]:
+    """The named children of an optax state node: a NamedTuple's fields or
+    a dict's items; {} for anything else."""
+    if hasattr(node, "_fields"):
+        return {f: getattr(node, f) for f in node._fields}
+    return dict(node) if isinstance(node, dict) else {}
+
+
+def _children(node):
+    if hasattr(node, "_fields") or isinstance(node, dict):
+        return list(_fields(node).values())
+    return list(node) if isinstance(node, (tuple, list)) else []
+
+
+def _find(node, key):
+    """Every value stored under ``key`` anywhere in ``node``, depth first."""
+    found = []
+    fields = _fields(node)
+    if key in fields:
+        found.append(fields[key])
+    for child in _children(node):
+        found.extend(_find(child, key))
+    return found
+
+
+def _array_leaves(tree):
+    """A flax-shaped tree with optax's ``MaskedNode`` leaves (empty
+    NamedTuples: the other group's parameters) left out."""
+    if isinstance(tree, dict):
+        out = {k: _array_leaves(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items() if not (isinstance(v, dict) and not v)}
+    return {} if isinstance(tree, tuple) else np.asarray(tree)
+
+
+def opt_state_from_optax(opt_state, config) -> Dict[str, dict]:
+    """The JAX package's optax state (``train/optim.py::make_optimizer``:
+    ``multi_transform`` of two ``inject_hyperparams(adamw)`` groups, after
+    ``clip_by_global_norm`` unless ``--disable_clip_grad``), its leaves as
+    numpy arrays, -> the state of the port's ``train/optim.py::AdamW``
+    (``AdamW.load_state_dict``): each group's Adam moments under the port's
+    parameter names and layouts (``from_flax``) and its count. Raises unless
+    every count of a group (Adam's, the injector's, each schedule's) is the
+    same, as the port keeps one."""
+    inner = _find(opt_state, "inner_states")
+    if len(inner) != 1:
+        raise ValueError("not the optax state of make_optimizer: no single multi_transform")
+    out = {}
+    for group, gstate in _fields(inner[0]).items():
+        nodes = [n for n in _all_nodes(gstate) if {"mu", "nu"} <= set(_fields(n))]
+        if len(nodes) != 1:
+            raise ValueError(f"group {group}: expected one Adam state, found {len(nodes)}")
+        counts = {int(np.asarray(c)) for c in _find(gstate, "count")}
+        if len(counts) != 1:
+            raise ValueError(f"group {group}: counts differ: {sorted(counts)}")
+        adam = _fields(nodes[0])
+        out[group] = {"count": counts.pop(),
+                      **{key: from_flax(_array_leaves(adam[key]), None, config)
+                         for key in ("mu", "nu")}}
+    return out
+
+
+def _all_nodes(node):
+    """Every node below ``node``, depth first."""
+    out = []
+    for child in _children(node):
+        out.append(child)
+        out.extend(_all_nodes(child))
+    return out

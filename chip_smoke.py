@@ -67,7 +67,20 @@ line:
    (``train_step_phase``): falling losses over 10 steps on one batch, the
    launch counts of a step, ms a step and images/s, peak memory, and one
    profiled step by kernel and by kind with the device's busy share.
-10. bench: ``cfpnet_torch.bench`` at ``BENCH_ITERS`` forward and
+10. loop: the training loop (``train/loop.py::run_training``) at the bs
+    16 train configuration on 48 synthetic samples, 2 epochs of 3 steps,
+    validation (48 eval images) and checkpoints every epoch, in a temporary
+    working directory (``loop_phase``): finite losses, the checkpoint and
+    weights files, the nine metrics in the JSONL; each step's launches
+    (6 / 12 / 18) and the run's; one profiled loop step with no copy to the
+    host and no stream sync, its batch copied from pinned memory; the last
+    checkpoint loaded back bit for bit; a resume from the epoch-0
+    checkpoint against the uninterrupted run (same batches, offsets and
+    rates; losses and parameters within 4x the spread of two uninterrupted
+    runs). Prints loop ms a step and images/s beside phase 9's bare step,
+    the wait on the loader's queue, validation and checkpoint seconds and
+    bytes, and the ToF path.
+11. bench: ``cfpnet_torch.bench`` at ``BENCH_ITERS`` forward and
     ``BENCH_TRAIN_ITERS`` train iterations prints its line.
 
 Then the kernel table as one JSON line (each row also carries its
@@ -76,11 +89,13 @@ at bs=8: ``ms_bs8``, ``bound_ms_bs8``, ``max_rel_err_bs8``; in the train
 step's forward: ``ms_train``, ``bound_ms_train``, ``max_rel_err_train``; its
 backward: ``backward_ms_train``, ``grad_max_rel_err_train``, for dwconv
 ``dx_ms_train``, ``dw_library_ms_train``; and its launches in one train
-step, ``launches_train_step``), and last the ``ok`` line.
+step, ``launches_train_step``; and in the loop phase's uninterrupted run,
+``launches_loop``), and last the ``ok`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -777,33 +792,75 @@ def device_events(fn):
     return prof.key_averages()
 
 
+class HostWaits:
+    """Context manager that counts the host's copies and waits in its body:
+    copies from the host to the device (``h2d``; of them from pageable
+    memory, ``h2d_pageable``) and from the device to the host (``d2h``,
+    ``.item()`` included) at the aten level, on the calling thread; the
+    profiler's ``Memcpy HtoD`` / ``Memcpy DtoH`` device events (a short
+    profile does not always receive them); the stream and event
+    synchronizations the profiler sees (``syncs``), and apart its device
+    synchronizations (``device_syncs``), among them the one this counter
+    makes at the end to collect the device events. Results in ``counts``
+    after exit."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+
+        counts = self.counts = dict(h2d=0, h2d_pageable=0, d2h=0)
+
+        class Copies(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
+                name = func.name()
+                if name.startswith(("aten::_to_copy", "aten::copy_")):
+                    if (any(t.device.type == "cpu" for t in ins)
+                            and out.device.type == "cuda"):
+                        counts["h2d"] += 1
+                        counts["h2d_pageable"] += any(t.device.type == "cpu" and not t.is_pinned()
+                                                      for t in ins)
+                    if (any(t.device.type == "cuda" for t in ins)
+                            and out.device.type == "cpu"):
+                        counts["d2h"] += 1
+                elif name.startswith("aten::_local_scalar_dense") and ins[0].is_cuda:
+                    counts["d2h"] += 1
+                return out
+
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.mode = Copies()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        events = self.prof.key_averages()
+
+        def n(key):
+            return sum(e.count for e in events if e.key == key)
+
+        self.counts.update(
+            profiler_h2d=sum(e.count for e in events if "HtoD" in e.key),
+            profiler_d2h=sum(e.count for e in events if "DtoH" in e.key),
+            syncs=n("cudaStreamSynchronize") + n("cudaEventSynchronize"),
+            device_syncs=n("cudaDeviceSynchronize"))
+        self.events = events
+        return False
+
+
 def host_waits(fn):
     """(copies from the host to the device, ``cudaStreamSynchronize`` calls)
     of one ``fn()``: the copies counted at the aten level (a copy of a CPU
     tensor into a CUDA one) and by the profiler's ``Memcpy HtoD`` device
-    events, which a short session does not always receive; the syncs by the
-    profiler."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_flatten
-
-    class HostCopies(TorchDispatchMode):
-        count = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func.name().startswith(("aten::_to_copy", "aten::copy_")):
-                ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
-                if (any(t.device.type == "cpu" for t in ins)
-                        and out.device.type == "cuda"):
-                    self.count += 1
-            return out
-
-    with HostCopies() as aten:
+    events; the syncs by the profiler (``HostWaits``)."""
+    with HostWaits() as w:
         fn()
-    events = device_events(fn)
-    profiler = sum(e.count for e in events if "HtoD" in e.key)
-    syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
-    return dict(aten=aten.count, profiler=profiler), syncs
+    return dict(aten=w.counts["h2d"], profiler=w.counts["profiler_h2d"]), w.counts["syncs"]
 
 
 def busy(events, latency_ms: float):
@@ -857,6 +914,8 @@ def check_host_waits(profile):
 
 
 TRAIN_LAUNCHES = {"linear_attention": 6, "dwconv": 12, "fused_loftr": 18}
+EVAL_LAUNCHES = {"linear_attention": 6, "dwconv": 6, "fused_loftr": 18}
+EVAL_METRICS = ("a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel")
 # the kernels of a profiled train step, by kind (device kernel names)
 KINDS = (("ported kernels", ("attention_sum_kernel", "attention_apply_kernel", "dwconv_kernel",
                              "summary_kernel", "rows_kernel")),
@@ -922,6 +981,300 @@ def train_step_phase(config, steps_timed: int = 10):
                 losses_first_10=losses, launches_a_step=launches,
                 max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 profiled_step=busy(events, ms), profiled_step_by_kind=by_kind(events))
+
+
+LOOP_EPOCHS = 2
+LOOP_SAMPLES = 48  # synthetic train samples: 3 steps an epoch at bs 16; 48 eval images
+LOOP_PROFILED_STEP = 1  # the profiled loop step: epoch 0's second (no log point)
+
+
+def loop_config(config):
+    """The loop phase's run: the production train step's configuration
+    (``evaluate_time.train_config``) on ``LOOP_SAMPLES`` synthetic samples,
+    ``LOOP_EPOCHS`` epochs, validation and checkpoints every epoch."""
+    return config.replace(dataset="synthetic", dataset_eval="synthetic",
+                          synthetic_length=LOOP_SAMPLES, epochs=LOOP_EPOCHS, validate_every=1,
+                          name="chip_smoke_loop", save_dir="results/chip_smoke_loop",
+                          no_logging=False, resume="", eval_bs=1)
+
+
+def launch_counts():
+    from cfpnet_torch import kernels
+
+    return {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+
+
+class LoopProbe:
+    """``run_training``'s ``step_context``: each step's kernel launches (the
+    counters' difference across it, no reset), and ``HostWaits`` over step
+    ``LOOP_PROFILED_STEP``, the fetch of its batch included."""
+
+    def __init__(self, cuda: bool = True):
+        self.launches, self.waits, self.cuda = {}, None, cuda
+
+    @contextlib.contextmanager
+    def __call__(self, step):
+        before = launch_counts()
+        if step == LOOP_PROFILED_STEP and self.cuda:
+            with HostWaits() as w:
+                yield
+            self.waits = w
+        else:
+            yield
+        after = launch_counts()
+        self.launches[step] = {k: after[k] - before[k] for k in after}
+
+
+def loop_run(cfg, init, trace, probe=None, device="cuda"):
+    """One ``run_training`` from the deterministic weights; returns (state,
+    the JSONL lines, seconds)."""
+    from cfpnet_torch.train.loop import run_training
+
+    t0 = time.perf_counter()
+    state = run_training(cfg, device=device, init_state_dict=init, trace=trace,
+                         step_context=probe or (lambda step: contextlib.nullcontext()))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(cfg.save_dir, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    os.remove(os.path.join(cfg.save_dir, "train_log.jsonl"))
+    return state, log, seconds
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms (warning, not raising, where an op
+    has none: the bit-for-bit comparison they serve is the check), cuDNN's
+    deterministic algorithms and no autotuning, and the cuBLAS workspace
+    setting that PyTorch asks for with them. Yields the list of warnings
+    raised meanwhile."""
+    import warnings
+
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old[2], old[3]
+        if old[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old[4]
+
+
+def zeroed_moments(src: str, dst: str) -> None:
+    """A copy of checkpoint ``src`` at ``dst`` with every group's moments
+    set to 0: a resume that lost the optimizer's state (the resume check's
+    planted fault)."""
+    ckpt = torch.load(src, map_location="cpu", weights_only=True)
+    for group in ckpt["opt_state"].values():
+        for key in ("mu", "nu"):
+            for v in group[key].values():
+                v.zero_()
+    torch.save(ckpt, dst)
+
+
+def flat_state(state):
+    """Parameters, statistics, moments and count of a ``TrainState``, on
+    the CPU."""
+    out = {"model." + k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    for g, gs in state.tx.state_dict().items():
+        for key in ("mu", "nu"):
+            out.update({f"{g}.{key}.{k}": v.detach().cpu() for k, v in gs[key].items()})
+    return out, state.step
+
+
+def params_diff(a, b):
+    """max |a - b| over every parameter of two ``TrainState``s."""
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    return max(float((pa[k] - pb[k]).detach().abs().max()) for k in pa)
+
+
+def state_differs(a, b):
+    """The entries of two ``flat_state``s that are not equal bit for bit
+    (the count included)."""
+    (fa, sa), (fb, sb) = flat_state(a), flat_state(b)
+    out = [k for k in fa if k not in fb or not torch.equal(fa[k], fb[k])]
+    return out + (["step"] if sa != sb else []) + sorted(set(fb) - set(fa))
+
+
+def loop_phase(config, bare_images_a_s: float, device="cuda"):
+    """Phase 10: ``train/loop.py::run_training`` on the card, at the
+    production train step's configuration (``loop_config``) with the
+    deterministic weights, in a temporary working directory removed after.
+
+    - Run A (uninterrupted, the launch counters set to 0 before it and read
+      after): finite losses; ``checkpoints/{name}/{0,1}_{rmse}``, ``best``
+      and ``weights/{name}/...``; JSONL ``val`` lines with the nine metrics;
+      each step launches ``TRAIN_LAUNCHES``, the run as a whole the steps'
+      and the validation forwards' kernels; step ``LOOP_PROFILED_STEP``
+      makes no device-to-host copy and no stream or event sync, and its
+      host-to-device copies come from pinned memory (positive control: an
+      ``.item()``). The last checkpoint loads back bit for bit.
+    - The resume, under ``deterministic_algorithms`` (the default ones,
+      cuDNN's weight gradients among them, are not bitwise repeatable):
+      run D, uninterrupted; run R, resumed from D's epoch-0 checkpoint,
+      whose epoch 1 takes A's and D's batch indices, zone offsets and
+      learning rates, and equals D bit for bit in its losses and its final
+      parameters, statistics, moments and step; and run C, the planted
+      fault, resumed from that checkpoint with its moments zeroed, which
+      must differ from D.
+
+    Prints loop ms a step and images/s (epoch 1, no profiler) beside the
+    bare step's images/s from phase 9, the consumer's wait for each step's
+    batch and the producer's time for each batch, validation seconds,
+    checkpoint bytes and seconds to save and load, and the ToF path.
+    ``device="cpu"`` runs the same checks but the host's waits, which need
+    the card (a dry run at a tiny size)."""
+    import shutil
+    import tempfile
+
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.data import native
+    from cfpnet_torch.models.deltar import make_model
+    from cfpnet_torch.train import checkpoint, steps
+
+    cfg = loop_config(config)
+    init = weights.deterministic_state_dict(cfg)
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_loop_", dir=ROOT)
+    os.chdir(work)
+    try:
+        cuda = torch.device(device).type == "cuda"
+        control_waits = HostWaits() if cuda else None
+        if cuda:
+            with control_waits:
+                float(torch.ones(2, device="cuda").sum())
+            if control_waits.counts["d2h"] < 1 or control_waits.counts["syncs"] < 1:
+                raise AssertionError(f"the counters did not see an .item(): "
+                                     f"{control_waits.counts}")
+
+        probe, trace_a = LoopProbe(cuda), []
+        kernels.reset_launches()
+        state_a, log_a, seconds_a = loop_run(cfg, init, trace_a, probe, device)
+        total = launch_counts()
+        losses_a = [float(t["loss"]) for t in trace_a]
+        if len(trace_a) != LOOP_EPOCHS * LOOP_SAMPLES // cfg.bs or not all(
+                math.isfinite(v) for v in losses_a):
+            raise AssertionError(f"loop losses {losses_a}")
+        bad = {t["step"]: probe.launches[t["step"]] for t in trace_a
+               if probe.launches[t["step"]] != TRAIN_LAUNCHES}
+        if bad:
+            raise AssertionError(f"loop steps launched {bad}, expected {TRAIN_LAUNCHES}")
+        vals = [line for line in log_a if line["kind"] == "val"]
+        epochs = [line for line in log_a if line["kind"] == "epoch"]
+        if [v["epoch"] for v in vals] != list(range(LOOP_EPOCHS)) or not all(
+                len(set(v) & set(EVAL_METRICS)) == 9 and all(math.isfinite(v[k])
+                                                             for k in EVAL_METRICS)
+                for v in vals):
+            raise AssertionError(f"val lines {vals}")
+        eval_images = LOOP_EPOCHS * min(LOOP_SAMPLES, 64)
+        want = {k: len(trace_a) * TRAIN_LAUNCHES[k] + eval_images * EVAL_LAUNCHES[k]
+                for k in TRAIN_LAUNCHES}
+        if total != want:
+            raise AssertionError(f"the loop launched {total}, expected {want}")
+        names = {f"{v['epoch']}_{v['rmse']:.3f}" for v in vals} | {"best"}
+        for d in (f"checkpoints/{cfg.name}", f"weights/{cfg.name}"):
+            if set(os.listdir(d)) != names:
+                raise AssertionError(f"{d} holds {sorted(os.listdir(d))}, expected {names}")
+        waits = probe.waits.counts if cuda else {}
+        if cuda and (waits["d2h"] or waits["profiler_d2h"] or waits["syncs"]
+                     or waits["h2d_pageable"]):
+            raise AssertionError(f"loop step {LOOP_PROFILED_STEP} waited on the host: {waits}")
+
+        # the last checkpoint loads back bit for bit
+        last = f"checkpoints/{cfg.name}/{vals[-1]['epoch']}_{vals[-1]['rmse']:.3f}"
+        fresh = steps.create_train_state(make_model(cfg, device=device), cfg, len(trace_a))
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        _, next_epoch, best = checkpoint.load_checkpoint(last, fresh)
+        sync()
+        load_s = time.perf_counter() - t0
+        differ = state_differs(fresh, state_a)
+        if (differ or next_epoch != LOOP_EPOCHS
+                or best != float(np.float32(min(v["rmse"] for v in vals[:-1])))):
+            raise AssertionError(f"{last} loads back other values: {differ[:5]}, next epoch "
+                                 f"{next_epoch}, best {best}")
+        del fresh
+
+        # the resume, bit for bit under deterministic algorithms, with a
+        # planted fault that the comparison must see
+        keys = ("epoch", "step", "zone_offset", "lr", "indices")
+        with deterministic_algorithms() as caught:
+            trace_d = []
+            cfg_d = cfg.replace(name=cfg.name + "_d", save_dir=cfg.save_dir + "_d")
+            state_d, log_d, seconds_d = loop_run(cfg_d, init, trace_d, device=device)
+            val_d = next(line for line in log_d if line["kind"] == "val")
+            ckpt0 = f"checkpoints/{cfg_d.name}/0_{val_d['rmse']:.3f}"
+            trace_r = []
+            state_r, log_r, seconds_r = loop_run(
+                cfg.replace(name=cfg.name + "_r", save_dir=cfg.save_dir + "_r", resume=ckpt0),
+                init, trace_r, device=device)
+            control = os.path.join(work, "zeroed_moments")
+            zeroed_moments(ckpt0, control)
+            trace_c = []
+            state_c, log_c, seconds_c = loop_run(
+                cfg.replace(name=cfg.name + "_c", save_dir=cfg.save_dir + "_c", resume=control),
+                init, trace_c, device=device)
+        tail = [t for t in trace_d if t["epoch"] == LOOP_EPOCHS - 1]
+        if ([{k: t[k] for k in keys} for t in trace_d] != [{k: t[k] for k in keys}
+                                                            for t in trace_a]
+                or [{k: t[k] for k in keys} for t in trace_r] != [{k: t[k] for k in keys}
+                                                                   for t in tail]):
+            raise AssertionError("the resumed epoch took other batches, offsets or rates")
+        loss_differs = [t["step"] for t, u in zip(trace_r, tail)
+                        if not torch.equal(t["loss"], u["loss"])]
+        differs = state_differs(state_r, state_d)
+        if loss_differs or differs:
+            raise AssertionError(f"the resumed run is not the uninterrupted one bit for bit: "
+                                 f"losses of steps {loss_differs}, state {differs[:5]} "
+                                 f"({len(differs)} entries); warnings {caught[:3]}")
+        control_differs = state_differs(state_c, state_d)
+        if not control_differs:
+            raise AssertionError("a resume with zeroed moments equals the uninterrupted run: "
+                                 "the resume check cannot see a lost optimizer state")
+        sizes = {d: {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+                 for d in (f"checkpoints/{cfg.name}", f"weights/{cfg.name}")}
+        last_epoch = epochs[-1]
+        ms = last_epoch["train_s"] * 1e3 / last_epoch["steps"]
+        more = {name: [line for line in log if line["kind"] == "epoch"]
+                for name, log in (("d", log_d), ("resumed", log_r), ("control", log_c))}
+        return dict(
+            phase="loop", batch=cfg.bs, size=[cfg.input_height, cfg.input_width],
+            samples=LOOP_SAMPLES, epochs=LOOP_EPOCHS,
+            eval_images_a_validation=min(LOOP_SAMPLES, 64),
+            tof_path=native.active(), loop_ms_a_step=ms, loop_images_a_s=cfg.bs * 1e3 / ms,
+            bare_step_images_a_s=bare_images_a_s,
+            loader_wait_ms_a_step=sum(last_epoch["loader_wait_ms"]) / last_epoch["steps"],
+            loader_wait_ms_each_step=[e["loader_wait_ms"] for e in epochs],
+            producer_ms_each_batch=[e["producer_ms"] for e in epochs],
+            epochs_logged=dict(a=epochs, **more), validation_s=[e["val_s"] for e in epochs],
+            checkpoint_save_s=[e["checkpoint_s"] for e in epochs], checkpoint_load_s=load_s,
+            checkpoint_bytes=sizes,
+            run_s=dict(a=seconds_a, d=seconds_d, resumed=seconds_r, control=seconds_c),
+            losses=losses_a, launches_run=total,
+            launches_a_step={t["step"]: probe.launches[t["step"]] for t in trace_a},
+            profiled_step_waits=waits, control_item_waits=control_waits and control_waits.counts,
+            profiled_step=busy(probe.waits.events, ms) if cuda else None,
+            resume=dict(checkpoint=os.path.basename(ckpt0), equal_batches_offsets_rates=True,
+                        loaded_state_bit_equal=True, resumed_bit_equal_deterministic=True,
+                        deterministic_warnings=sorted({str(w.message)[:200] for w in caught}),
+                        control_zeroed_moments=dict(
+                            entries_differing=len(control_differs),
+                            params_max_abs=params_diff(state_c, state_d)),
+                        default_algorithms_vs_deterministic_params_max_abs=params_diff(
+                            state_a, state_d)))
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -1026,7 +1379,14 @@ def main() -> int:
     for r in rows:
         r["launches_train_step"] = train["launches_a_step"][r["name"]]
 
-    # 10. the headline benchmark at reduced iterations (its own JSON line)
+    # 10. the training loop: two epochs with validation and checkpoints,
+    # a profiled step, and a resume from the epoch-0 checkpoint
+    loop = loop_phase(tconfig, train["images_a_s"])
+    emit(loop)
+    for r in rows:
+        r["launches_loop"] = loop["launches_run"][r["name"]]
+
+    # 11. the headline benchmark at reduced iterations (its own JSON line)
     if bench.main(["--iters", str(BENCH_ITERS), "--train_iters", str(BENCH_TRAIN_ITERS)]) != 0:
         raise AssertionError("cfpnet_torch.bench failed")
     emit(dict(phase="done", seconds_total=time.perf_counter() - t_start))
