@@ -1,30 +1,37 @@
-"""Headline benchmark of the port: frames/s of the 480x640 eval forward, f32.
+"""Headline benchmark of the port: frames/s of the 480x640 eval forward,
+bf16 (the headline, as the root's) and f32.
 
     python -m cfpnet_torch.bench [--iters N] [--peak_tflops T]
     python -m cfpnet_torch.bench --smoke
 
-Port of the root ``bench.py``'s f32 keys. Prints ONE JSON line:
+Port of the root ``bench.py``'s keys. Prints ONE JSON line:
 
-- ``metric`` ``frames_per_sec_per_chip_480x640_bs1_f32``, ``value``,
-  ``unit``: the bs=1 forward captured in a CUDA graph. The JAX headline is
-  bf16, which the port does not have yet (ROADMAP §A item 4), so the name
-  differs: a consumer keyed on that headline never reads an f32 number.
-- ``latency_ms_bs1_f32`` (graphed), ``latency_ms_bs1_f32_eager`` and
-  ``throughput_fps_bs8_f32`` (graphed), by the protocols of
+- ``metric`` ``frames_per_sec_per_chip_480x640_bs1``, ``value``, ``unit``,
+  ``dtype`` "bfloat16": the bs=1 forward in bf16 (the model and inputs cast
+  as ``evaluate_time.timed_forward`` casts them, ``--compute_dtype
+  bfloat16``) captured in a CUDA graph, as the root headline
+  (``bench.py:215-228``).
+- ``latency_ms_bs1`` (graphed), ``latency_ms_bs1_eager`` and
+  ``throughput_fps_bs8`` (graphed) in bf16, and the same in f32 under
+  ``latency_ms_bs1_f32``, ``latency_ms_bs1_f32_eager``,
+  ``throughput_fps_bs8_f32`` and ``fps_bs1_f32``, by the protocols of
   ``evaluate_time`` (``--iters`` forwards at bs=1, a quarter as many at
   bs=8, as the root ``bench.py``).
 - ``flops_g_fwd`` (``evaluate_time.forward_flops`` at bs=1; the count is
-  exactly linear in the batch, so bs=8 does 8 times as much),
-  ``tfps_bs1_f32`` and ``tfps_bs8_f32``, and ``mfu_bs1_f32``,
-  ``mfu_bs8_f32`` against the card's dense bf16 peak (``peak_bf16_tflops``,
-  as the root ``bench.py::peak_bf16_tflops`` takes the TPU's), from
-  ``PEAK_BF16_TFLOPS`` by the name torch reports or ``--peak_tflops``.
+  exactly linear in the batch, so bs=8 does 8 times as much, and the same
+  in either dtype), ``tfps_bs1``, ``tfps_bs8``, ``tfps_bs1_f32`` and
+  ``tfps_bs8_f32``, and ``mfu_bs1``, ``mfu_bs8``, ``mfu_bs1_f32``,
+  ``mfu_bs8_f32`` against the card's dense bf16 peak
+  (``peak_bf16_tflops``, as the root ``bench.py::peak_bf16_tflops`` takes
+  the TPU's), from ``PEAK_BF16_TFLOPS`` by the name torch reports or
+  ``--peak_tflops``.
 - The train step (``evaluate_time.timed_train_step`` at
   ``evaluate_time.train_config``: bs 16 at 416x544, ``--train_iters``
   steps, eager), as the root ``bench.py``'s train keys:
   ``train_ms_bs16``, ``train_img_s``, ``flops_g_train_step``
   (``evaluate_time.flops_train``), ``tfps_train``, ``mfu_train`` and
-  ``train_dtype`` ("float32").
+  ``train_dtype`` ("float32": the bf16 train step is not ported, ROADMAP
+  §A 2c, where the root times it in bf16).
 - ``gpu`` and ``power_limit`` from ``nvidia-smi``, ``iters``, ``timing``.
 - ``skipped``: what the port cannot measure yet.
 
@@ -54,8 +61,10 @@ from .models.deltar import model_geometries
 # data sheets, without sparsity)
 PEAK_BF16_TFLOPS = {"H100 80GB HBM3": 989.4, "H100 SXM": 989.4, "H100 PCIe": 756.5}
 THROUGHPUT_BS = 8
-SKIPPED = ["bf16 keys (not ported: ROADMAP.md §A item 4)",
+SKIPPED = ["bf16 train step (not ported: ROADMAP.md §A 2c; train_* keys are float32)",
            "CPU anchor (the reference model on the same host; not ported)"]
+# (suffix of the keys, compute dtype) of the forward's timings; the headline first
+FORWARD_DTYPES = (("", torch.bfloat16), ("_f32", torch.float32))
 
 
 def production_config() -> Config:
@@ -113,23 +122,27 @@ def main(argv: Optional[List[str]] = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0].split(","))
     config = production_config()
-    model = evaluate_time.load_model(config)
     geoms = model_geometries(config, "online_eval")
-
-    inputs = evaluate_time.make_inputs(config, 1)
-    ms1 = evaluate_time.graphed_latency_ms(model, inputs, geoms, config, args.iters)
-    ms1_eager = evaluate_time.eager_latency_ms(model, inputs, geoms, args.iters)
-    bs8_iters = max(4, args.iters // 4)
-    ms8 = evaluate_time.graphed_latency_ms(
-        model, evaluate_time.make_inputs(config, THROUGHPUT_BS), geoms, config, bs8_iters)
-    fps8 = THROUGHPUT_BS * 1000.0 / ms8
-
     flops = evaluate_time.forward_flops(config)
-    out = {"metric": "frames_per_sec_per_chip_480x640_bs1_f32", "value": 1000.0 / ms1,
-           "unit": "frames/s", "latency_ms_bs1_f32": ms1, "latency_ms_bs1_f32_eager": ms1_eager,
-           f"throughput_fps_bs{THROUGHPUT_BS}_f32": fps8, "flops_g_fwd": flops / 1e9,
-           "tfps_bs1_f32": flops / ms1 / 1e9,
-           f"tfps_bs{THROUGHPUT_BS}_f32": flops * fps8 / 1e12}
+    bs8_iters = max(4, args.iters // 4)
+    out = {"metric": "frames_per_sec_per_chip_480x640_bs1", "unit": "frames/s",
+           "dtype": "bfloat16", "flops_g_fwd": flops / 1e9}
+    for sfx, dtype in FORWARD_DTYPES:
+        model = evaluate_time.load_model(config, dtype=dtype)
+        inputs = evaluate_time.eval_batch(config, 1, dtype=dtype)[0]
+        ms1 = evaluate_time.graphed_latency_ms(model, inputs, geoms, config, args.iters)
+        ms1_eager = evaluate_time.eager_latency_ms(model, inputs, geoms, args.iters)
+        ms8 = evaluate_time.graphed_latency_ms(
+            model, evaluate_time.eval_batch(config, THROUGHPUT_BS, dtype=dtype)[0], geoms,
+            config, bs8_iters)
+        fps8 = THROUGHPUT_BS * 1000.0 / ms8
+        out.update({f"latency_ms_bs1{sfx}": ms1, f"latency_ms_bs1{sfx}_eager": ms1_eager,
+                    f"throughput_fps_bs{THROUGHPUT_BS}{sfx}": fps8,
+                    f"tfps_bs1{sfx}": flops / ms1 / 1e9,
+                    f"tfps_bs{THROUGHPUT_BS}{sfx}": flops * fps8 / 1e12})
+        del model
+    out["value"] = 1000.0 / out["latency_ms_bs1"]
+    out["fps_bs1_f32"] = 1000.0 / out["latency_ms_bs1_f32"]
     tcfg = evaluate_time.train_config(config)
     ms_t = evaluate_time.timed_train_step(tcfg, niters=args.train_iters)
     flops_t = evaluate_time.flops_train(tcfg)
@@ -140,12 +153,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     peak = args.peak_tflops or peak_bf16_tflops(torch.cuda.get_device_name(0))
     if peak:
         out["peak_bf16_tflops"] = peak
-        out["mfu_bs1_f32"] = out["tfps_bs1_f32"] / peak
-        out[f"mfu_bs{THROUGHPUT_BS}_f32"] = out[f"tfps_bs{THROUGHPUT_BS}_f32"] / peak
+        for sfx, _ in FORWARD_DTYPES:
+            out[f"mfu_bs1{sfx}"] = out[f"tfps_bs1{sfx}"] / peak
+            out[f"mfu_bs{THROUGHPUT_BS}{sfx}"] = out[f"tfps_bs{THROUGHPUT_BS}{sfx}"] / peak
         out["mfu_train"] = out["tfps_train"] / peak
     else:
         skipped.append(f"mfu (no bf16 peak known for {gpu}; pass --peak_tflops)")
-    out.update(gpu=gpu, power_limit=power_limit, dtype="float32",
+    out.update(gpu=gpu, power_limit=power_limit,
                iters=dict(bs1=args.iters, bs8=bs8_iters, train=args.train_iters),
                timing=("CUDA graph: K replays between CUDA events, trimmed mean over "
                        "repetitions (evaluate_time.graphed_latency_ms); eager: CUDA events "

@@ -1,5 +1,5 @@
-// SAME-padded stride-1 k x k depthwise convolution plus bias, NHWC, f32,
-// for sm_90a.
+// SAME-padded stride-1 k x k depthwise convolution plus bias, NHWC, f32 or
+// bf16, for sm_90a.
 //
 // Replaces the TPU kernel cfpnet_tpu/ops/pallas_dwconv.py::
 // depthwise_conv2d_pallas (kernel `_kernel`), reached from
@@ -69,8 +69,19 @@
 // as the plain version (cfpnet_torch/ops/dwconv.py) does; with two column
 // splits (k=31, k=15) it adds the sum over dx >= D to the sum over dx < D,
 // then the bias.
+//
+// bf16 (cfp_dwconv2d_bf16): the Pallas kernel upcasts each tap to f32,
+// multiplies by the weight and adds the bias in f32, and rounds the output
+// once (pallas_dwconv.py:33-37), so in bf16 it is the f32 kernel on
+// bf16-valued data. Here the staging converts: 8-byte loads of 4 bf16
+// where the f32 path does 16-byte loads of 4 floats, into the same f32
+// channel planes, so the taps, TILING and the bank arithmetic are those of
+// f32; the output is rounded to bf16 once, at the store (8 bytes a
+// 4-channel group).
 
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -134,16 +145,16 @@ __device__ __forceinline__ void tap_rows(const float* in_t, const float* w_t, in
 }
 
 // grid (tiles_x * tiles_y, ceil(C / cb), B), NS * 4 * ty * cb threads.
-// x, out: [B, H, W, C], C % 4 == 0, 16-byte aligned; w: [C, 1, K, K] (torch
-// depthwise layout), 16-byte aligned; b: [C] or null.
+// x, out: [B, H, W, C], C % 4 == 0, aligned to 4 elements; w: [C, 1, K, K]
+// (torch depthwise layout), aligned to 4 elements; b: [C] or null; all of
+// element type T (float or __nv_bfloat16).
 // D: the kernel columns of the first split (K when NS == 1); MAXT: the most
 // threads a block may have; F4: the float4 loads a thread keeps in flight
 // while staging.
-template <int K, int RX, int RY, int NS, int D, int MAXT, int F4>
+template <class T, int K, int RX, int RY, int NS, int D, int MAXT, int F4>
 __global__ void __launch_bounds__(MAXT)
-dwconv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ b, float* __restrict__ out, int H, int W, int C,
-              Plan p) {
+dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+              T* __restrict__ out, int H, int W, int C, Plan p) {
   constexpr int P = (K - 1) / 2;
   constexpr int TW = 4 * RX;
   constexpr int SW = TW + K - 1;           // staged columns
@@ -160,23 +171,23 @@ dwconv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int ty0 = (blockIdx.x / p.tiles_x) * th;
   const int c0 = blockIdx.y * p.cb;
   const int ng_log2 = __ffs(p.cb) - 3;     // log2 of the 4-channel groups a block
-  const float* xb = x + static_cast<size_t>(blockIdx.z) * H * W * C;
-  float* ob = out + static_cast<size_t>(blockIdx.z) * H * W * C;
+  const T* xb = x + static_cast<size_t>(blockIdx.z) * H * W * C;
+  T* ob = out + static_cast<size_t>(blockIdx.z) * H * W * C;
 
   auto row_off = [&](int row) { return row * p.pitch + ((row / RY) & 1) * p.swz; };
-  // float4 q < nw: the block's weights, cb*K*K contiguous floats from channel
-  // c0 (c0*K*K is a multiple of 4), each scattered to [cc][dy][dx]; then the
-  // input, 4-channel group fastest, then column, then row
-  const float4* wsrc = reinterpret_cast<const float4*>(w + static_cast<size_t>(c0) * K * K);
+  // group of 4 q < nw: the block's weights, cb*K*K contiguous elements from
+  // channel c0 (c0*K*K is a multiple of 4), each scattered to [cc][dy][dx];
+  // then the input, 4-channel group fastest, then column, then row
+  const T* wsrc = w + static_cast<size_t>(c0) * K * K;
   const int nw = (min(p.cb, C - c0) * K * K) / 4;
   const int n = nw + ((sh * SW) << ng_log2);
   auto load = [&](int q) {
-    if (q < nw) return __ldg(wsrc + q);
+    if (q < nw) return cfp::load4(wsrc + 4 * q);
     q -= nw;
     const int cg = q & ((1 << ng_log2) - 1), t = q >> ng_log2;
     const int gy = ty0 + t / SW - P, gx = tx0 + t % SW - P, gc = c0 + 4 * cg;
     if (gy < 0 || gy >= H || gx < 0 || gx >= W || gc >= C) return make_float4(0.f, 0.f, 0.f, 0.f);
-    return __ldg(reinterpret_cast<const float4*>(xb + (static_cast<size_t>(gy) * W + gx) * C + gc));
+    return cfp::load4(xb + (static_cast<size_t>(gy) * W + gx) * C + gc);
   };
   auto store = [&](int q, float4 v) {
     if (q < nw) {
@@ -231,7 +242,7 @@ dwconv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // the tile through shared memory, [cb][th][TW], then out in 4-channel
   // groups; with two splits the second's sums are added to the first's,
   // then the bias
-  const float bias = b != nullptr && c0 + cc < C ? b[c0 + cc] : 0.f;
+  const float bias = b != nullptr && c0 + cc < C ? cfp::to_f32(b[c0 + cc]) : 0.f;
   const int oplane = th * TW + 4;
   float* o_t = s_in + cc * oplane + ly * RY * TW + lx * RX;
   __syncthreads();
@@ -256,14 +267,14 @@ dwconv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int gy = ty0 + pix / TW, gx = tx0 + pix % TW, gc = c0 + 4 * cg;
     if (gy >= H || gx >= W || gc >= C) continue;
     const float* s = s_in + 4 * cg * oplane + pix;
-    *reinterpret_cast<float4*>(ob + (static_cast<size_t>(gy) * W + gx) * C + gc) =
-        make_float4(s[0], s[oplane], s[2 * oplane], s[3 * oplane]);
+    cfp::store4(ob + (static_cast<size_t>(gy) * W + gx) * C + gc,
+                make_float4(s[0], s[oplane], s[2 * oplane], s[3 * oplane]));
   }
 }
 
-template <int K, int RX, int RY, int NS, int D, int MAXT, int F4>
-int launch(const float* x, const float* w, const float* b, float* out, int B, int H, int W,
-           int C, Plan p, cudaStream_t stream) {
+template <class T, int K, int RX, int RY, int NS, int D, int MAXT, int F4>
+int launch(const T* x, const T* w, const T* b, T* out, int B, int H, int W, int C, Plan p,
+           cudaStream_t stream) {
   // the largest dynamic shared memory a block may ask for, set once per device
   static bool opted_in[kMaxDevices] = {};
   int dev = 0;
@@ -274,7 +285,7 @@ int launch(const float* x, const float* w, const float* b, float* out, int B, in
     int max_smem = 0;
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(dwconv_kernel<K, RX, RY, NS, D, MAXT, F4>,
+    err = cudaFuncSetAttribute(dwconv_kernel<T, K, RX, RY, NS, D, MAXT, F4>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in[dev] = true;
@@ -285,28 +296,43 @@ int launch(const float* x, const float* w, const float* b, float* out, int B, in
   p.tiles_x = (W + 4 * RX - 1) / (4 * RX);
   const int tiles_y = (H + th - 1) / th;
   const dim3 grid(p.tiles_x * tiles_y, (C + p.cb - 1) / p.cb, B);
-  dwconv_kernel<K, RX, RY, NS, D, MAXT, F4><<<grid, threads, smem, stream>>>(x, w, b, out, H, W,
-                                                                           C, p);
+  dwconv_kernel<T, K, RX, RY, NS, D, MAXT, F4><<<grid, threads, smem, stream>>>(x, w, b, out, H,
+                                                                              W, C, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Returns the cudaError_t of the launch (0 = success); cudaErrorInvalidValue
-// for a K this library was not built for. ty, cb, pitch, swz, plane and
-// wplane come from kernels/dwconv.py::launch_plan.
-extern "C" int cfp_dwconv2d_f32(const float* x, const float* w, const float* b, float* out, int B,
-                                int H, int W, int C, int K, int ty, int cb, int pitch, int swz,
-                                int plane, int wplane, void* stream) {
-  const Plan p{ty, cb, pitch, swz, plane, wplane, 0};
+template <class T>
+int dispatch(const T* x, const T* w, const T* b, T* out, int B, int H, int W, int C, int K,
+             const Plan& p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CFP_DWCONV_CASE(k)                                                                   \
-  if (K == k)                                                                                \
-    return launch<k, CFP_DWCONV_RX_##k, CFP_DWCONV_RY_##k, CFP_DWCONV_NS_##k, CFP_DWCONV_D_##k, \
+#define CFP_DWCONV_CASE(k)                                                                      \
+  if (K == k)                                                                                   \
+    return launch<T, k, CFP_DWCONV_RX_##k, CFP_DWCONV_RY_##k, CFP_DWCONV_NS_##k, CFP_DWCONV_D_##k, \
                   CFP_DWCONV_MAXT_##k, CFP_DWCONV_F4_##k>(x, w, b, out, B, H, W, C, p, st);
   CFP_DWCONV_CASE(31)
   CFP_DWCONV_CASE(15)
   CFP_DWCONV_CASE(7)
 #undef CFP_DWCONV_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 = success); cudaErrorInvalidValue
+// for a K this library was not built for. ty, cb, pitch, swz, plane and
+// wplane come from kernels/dwconv.py::launch_plan. x, w, b and out are all
+// f32 (cfp_dwconv2d_f32) or all bf16 (cfp_dwconv2d_bf16).
+extern "C" int cfp_dwconv2d_f32(const float* x, const float* w, const float* b, float* out, int B,
+                                int H, int W, int C, int K, int ty, int cb, int pitch, int swz,
+                                int plane, int wplane, void* stream) {
+  return dispatch(x, w, b, out, B, H, W, C, K, Plan{ty, cb, pitch, swz, plane, wplane, 0},
+                  stream);
+}
+
+extern "C" int cfp_dwconv2d_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                 const __nv_bfloat16* b, __nv_bfloat16* out, int B, int H, int W,
+                                 int C, int K, int ty, int cb, int pitch, int swz, int plane,
+                                 int wplane, void* stream) {
+  return dispatch(x, w, b, out, B, H, W, C, K, Plan{ty, cb, pitch, swz, plane, wplane, 0},
+                  stream);
 }

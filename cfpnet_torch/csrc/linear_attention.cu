@@ -1,4 +1,4 @@
-// Multi-head elu+1 linear attention, f32, for sm_90a.
+// Multi-head elu+1 linear attention, f32 or bf16, for sm_90a.
 //
 // Replaces the TPU kernel cfpnet_tpu/ops/pallas_attention.py::
 // linear_attention_pallas (kernel `_kernel`), reached from
@@ -59,10 +59,20 @@
 //     chosen so that the grid fills the 132 SMs in about one round.
 // Every sum runs in a fixed order with no atomics, so two calls on the same
 // inputs give the same bits.
+//
+// bf16 (cfp_linear_attention_bf16): q, k, v and out are bf16, every sum is
+// f32, and values are rounded to bf16 where the Pallas kernel holds them in
+// bf16 (pallas_attention.py:71-88): elu(k)+1 and v / S as they are staged,
+// elu(q)+1 as it is loaded, ksum (the f32 sum over all keys) as the apply
+// pass reads it, and the output at the store. KV, the denominator and the
+// numerator accumulate in f32, as the Pallas products do with
+// preferred_element_type f32. Loads are 8 bytes (4 bf16) where f32 loads
+// 16; the shared memory and the geometry are those of f32.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
@@ -115,11 +125,11 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// grid: N * hg * g * cl blocks in clusters of cl. k, v: [N, S, H*D];
-// sums: [N][g][H][D*D + D], one sum per cluster.
-template <int D>
+// grid: N * hg * g * cl blocks in clusters of cl. k, v: [N, S, H*D] of T;
+// sums: [N][g][H][D*D + D] f32, one sum per cluster.
+template <class T, int D>
 __global__ void __launch_bounds__(Cfg<D>::SUM_MAXT)
-attention_sum_kernel(const float* __restrict__ k, const float* __restrict__ v,
+attention_sum_kernel(const T* __restrict__ k, const T* __restrict__ v,
                      float* __restrict__ sums, Plan p) {
   using K = Cfg<D>;
   constexpr int P = K::P, W4 = K::W4;
@@ -139,8 +149,8 @@ attention_sum_kernel(const float* __restrict__ k, const float* __restrict__ v,
   const int C = p.H * D;
   const int s_begin = min(p.S, (gi * p.cl + rank) * p.chunk);
   const int nrows = min(p.S, s_begin + p.chunk) - s_begin;
-  const float* kb = k + (static_cast<size_t>(n) * p.S + s_begin) * C + h0 * D;
-  const float* vb = v + (static_cast<size_t>(n) * p.S + s_begin) * C + h0 * D;
+  const T* kb = k + (static_cast<size_t>(n) * p.S + s_begin) * C + h0 * D;
+  const T* vb = v + (static_cast<size_t>(n) * p.S + s_begin) * C + h0 * D;
 
   // loads: thread -> (key rows lr, lr + rstep, ..., float4 column lc)
   const int row4 = heads * D / 4;  // float4s of a key row this block reads (<= threads)
@@ -159,7 +169,7 @@ attention_sum_kernel(const float* __restrict__ k, const float* __restrict__ v,
     const int rows = min(p.tk, nrows - r0);
     if (r0 > 0) __syncthreads();  // the previous tile has been summed
     // the tile's key and value rows into shared memory, elu'd and divided by
-    // S on the way, 4 float4s of each in flight a thread
+    // S on the way (and rounded to T), 4 loads of each in flight a thread
     if (lr < rstep) {
       for (int r = lr; r < rows; r += 4 * rstep) {
         float4 kx[4], vx[4];
@@ -167,18 +177,20 @@ attention_sum_kernel(const float* __restrict__ k, const float* __restrict__ v,
         for (int u = 0; u < 4; ++u) {
           const size_t off = static_cast<size_t>(r0 + r + u * rstep) * C + 4 * lc;
           if (r + u * rstep < rows) {
-            kx[u] = __ldg(reinterpret_cast<const float4*>(kb + off));
-            vx[u] = __ldg(reinterpret_cast<const float4*>(vb + off));
+            kx[u] = cfp::load4(kb + off);
+            vx[u] = cfp::load4(vb + off);
           }
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int rr = r + u * rstep;
           if (rr < rows) {
-            *reinterpret_cast<float4*>(s_k + rr * p.kpitch + 4 * lc) =
-                make_float4(elu1(kx[u].x), elu1(kx[u].y), elu1(kx[u].z), elu1(kx[u].w));
-            *reinterpret_cast<float4*>(s_v + rr * p.kpitch + 4 * lc) =
-                make_float4(vx[u].x / s_len, vx[u].y / s_len, vx[u].z / s_len, vx[u].w / s_len);
+            *reinterpret_cast<float4*>(s_k + rr * p.kpitch + 4 * lc) = make_float4(
+                cfp::round_to<T>(elu1(kx[u].x)), cfp::round_to<T>(elu1(kx[u].y)),
+                cfp::round_to<T>(elu1(kx[u].z)), cfp::round_to<T>(elu1(kx[u].w)));
+            *reinterpret_cast<float4*>(s_v + rr * p.kpitch + 4 * lc) = make_float4(
+                cfp::round_to<T>(vx[u].x / s_len), cfp::round_to<T>(vx[u].y / s_len),
+                cfp::round_to<T>(vx[u].z / s_len), cfp::round_to<T>(vx[u].w / s_len));
           }
         }
       }
@@ -265,13 +277,13 @@ attention_sum_kernel(const float* __restrict__ k, const float* __restrict__ v,
 }
 
 // grid (ceil(L / tl), N); thread -> (query row, head hh, outputs w*4 + 4 W i
-// of the head, i < EO / 4). q, out: [N, L, H*D]; sums from the summary pass.
-// (registers bounded for two blocks an SM, so that the apply's blocks find
-// room beside the summary's and start while it runs)
-template <int D>
+// of the head, i < EO / 4). q, out: [N, L, H*D] of T; sums from the summary
+// pass. (registers bounded for two blocks an SM, so that the apply's blocks
+// find room beside the summary's and start while it runs)
+template <class T, int D>
 __global__ void __launch_bounds__(Cfg<D>::APPLY_MAXT, 2)
-attention_apply_kernel(const float* __restrict__ q, const float* sums, float* __restrict__ out,
-                       Plan p, float eps) {
+attention_apply_kernel(const T* __restrict__ q, const float* sums, T* __restrict__ out, Plan p,
+                       float eps) {
   using K = Cfg<D>;
   constexpr int P = K::P, EO = K::EO, W = K::W;
   extern __shared__ float4 smem4[];
@@ -285,17 +297,17 @@ attention_apply_kernel(const float* __restrict__ q, const float* sums, float* __
   const bool active = row < p.tl && l < p.L;
   const size_t at = (static_cast<size_t>(n) * p.L + l) * C + hh * D;
 
-  // before the summary has ended: this thread's query slice, elu'd
+  // before the summary has ended: this thread's query slice, elu'd (and
+  // rounded to T)
   float qf[D];
   if (active) {
-    const float4* qp = reinterpret_cast<const float4*>(q + at);
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) {
-      const float4 x = __ldg(qp + i);
-      qf[4 * i] = elu1(x.x);
-      qf[4 * i + 1] = elu1(x.y);
-      qf[4 * i + 2] = elu1(x.z);
-      qf[4 * i + 3] = elu1(x.w);
+      const float4 x = cfp::load4(q + at + 4 * i);
+      qf[4 * i] = cfp::round_to<T>(elu1(x.x));
+      qf[4 * i + 1] = cfp::round_to<T>(elu1(x.y));
+      qf[4 * i + 2] = cfp::round_to<T>(elu1(x.z));
+      qf[4 * i + 3] = cfp::round_to<T>(elu1(x.w));
     }
   }
   cfp::wait_for_primary();
@@ -334,7 +346,7 @@ attention_apply_kernel(const float* __restrict__ q, const float* sums, float* __
   const float* kvh = s_kv + hh * p.pitch;
   float den = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) den = fmaf(qf[d], kvh[D * D + d], den);
+  for (int d = 0; d < D; ++d) den = fmaf(qf[d], cfp::round_to<T>(kvh[D * D + d]), den);
   const float scale = (1.f / (den + eps)) * static_cast<float>(p.S);
   float acc[EO] = {};
 #pragma unroll
@@ -350,9 +362,9 @@ attention_apply_kernel(const float* __restrict__ q, const float* sums, float* __
   }
 #pragma unroll
   for (int i = 0; i < EO / 4; ++i)
-    *reinterpret_cast<float4*>(out + at + 4 * w + 4 * W * i) =
-        make_float4(acc[4 * i] * scale, acc[4 * i + 1] * scale, acc[4 * i + 2] * scale,
-                    acc[4 * i + 3] * scale);
+    cfp::store4(out + at + 4 * w + 4 * W * i,
+                make_float4(acc[4 * i] * scale, acc[4 * i + 1] * scale, acc[4 * i + 2] * scale,
+                            acc[4 * i + 3] * scale));
 }
 
 template <class Kernel>
@@ -368,7 +380,7 @@ cudaError_t opt_in(Kernel kernel, bool (&done)[kMaxDevices], int dev) {
 
 // Whether clusters of p.cl blocks (wider than the portable 8) of this
 // launch fit the card, asked once per device and launch shape.
-template <int D>
+template <class T, int D>
 cudaError_t wide_clusters_fit(int dev, const cudaLaunchConfig_t& cfg, const Plan& p) {
   struct Shape {
     int dev, cl, threads, smem;
@@ -380,28 +392,28 @@ cudaError_t wide_clusters_fit(int dev, const cudaLaunchConfig_t& cfg, const Plan
         fit[i].smem == p.sum_smem)
       return cudaSuccess;
   int clusters = 0;
-  cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, attention_sum_kernel<D>, &cfg);
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, attention_sum_kernel<T, D>, &cfg);
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   if (nfit < 16) fit[nfit++] = Shape{dev, p.cl, p.sum_threads, p.sum_smem};
   return cudaSuccess;
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* out, float* sums, const Plan& p,
-           float eps, cudaStream_t stream) {
+template <class T, int D>
+int launch(const T* q, const T* k, const T* v, T* out, float* sums, const Plan& p, float eps,
+           cudaStream_t stream) {
   // the largest dynamic shared memory a block may ask for, set once per device
   static bool sum_in[kMaxDevices] = {}, apply_in[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if ((err = opt_in(attention_sum_kernel<D>, sum_in, dev)) != cudaSuccess ||
-      (err = opt_in(attention_apply_kernel<D>, apply_in, dev)) != cudaSuccess)
+  if ((err = opt_in(attention_sum_kernel<T, D>, sum_in, dev)) != cudaSuccess ||
+      (err = opt_in(attention_apply_kernel<T, D>, apply_in, dev)) != cudaSuccess)
     return static_cast<int>(err);
   static bool wide_in[kMaxDevices] = {};
   if (p.cl > 8 && !wide_in[dev]) {
-    err = cudaFuncSetAttribute(attention_sum_kernel<D>,
+    err = cudaFuncSetAttribute(attention_sum_kernel<T, D>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
     wide_in[dev] = true;
@@ -419,9 +431,9 @@ int launch(const float* q, const float* k, const float* v, float* out, float* su
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = p.cl > 1 ? 1 : 0;
-  if (p.cl > 8 && (err = wide_clusters_fit<D>(dev, cfg, p)) != cudaSuccess)
+  if (p.cl > 8 && (err = wide_clusters_fit<T, D>(dev, cfg, p)) != cudaSuccess)
     return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, attention_sum_kernel<D>, k, v, sums, p);
+  err = cudaLaunchKernelEx(&cfg, attention_sum_kernel<T, D>, k, v, sums, p);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   cudaLaunchAttribute pdl;
@@ -432,30 +444,40 @@ int launch(const float* q, const float* k, const float* v, float* out, float* su
   cfg.dynamicSmemBytes = p.apply_smem;
   cfg.attrs = &pdl;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, attention_apply_kernel<D>, q,
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, attention_apply_kernel<T, D>, q,
                                              static_cast<const float*>(sums), out, p, eps));
+}
+
+template <class T>
+int dispatch(const T* q, const T* k, const T* v, T* out, float* sums, int D, const Plan& p,
+             float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 4: return launch<T, 4>(q, k, v, out, sums, p, eps, st);
+    case 8: return launch<T, 8>(q, k, v, out, sums, p, eps, st);
+    case 16: return launch<T, 16>(q, k, v, out, sums, p, eps, st);
+    case 32: return launch<T, 32>(q, k, v, out, sums, p, eps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// q: [N, L, H*D]; k, v: [N, S, H*D]; out: [N, L, H*D], all f32, contiguous,
-// 16-byte aligned. sums: N*g*H*(D*D + D) floats of scratch. The geometry
-// (hb .. apply_smem) is kernels/linear_attention.py::launch_plan's. Returns
-// the cudaError_t of the launches (0 = success).
-extern "C" int cfp_linear_attention_f32(const float* q, const float* k, const float* v,
-                                        float* out, float* sums, int N, int L, int S, int H,
-                                        int D, int hb, int hg, int cl, int g, int chunk, int tk,
-                                        int kpitch, int slices, int sum_threads, int sum_smem, int tl,
-                                        int pitch, int apply_threads, int apply_smem, float eps,
-                                        void* stream) {
-  const Plan p{N, L, S, H, hb, hg, cl, g, chunk, tk, kpitch, slices, sum_threads, sum_smem,
-               tl, pitch, apply_threads, apply_smem};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 4: return launch<4>(q, k, v, out, sums, p, eps, st);
-    case 8: return launch<8>(q, k, v, out, sums, p, eps, st);
-    case 16: return launch<16>(q, k, v, out, sums, p, eps, st);
-    case 32: return launch<32>(q, k, v, out, sums, p, eps, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// q: [N, L, H*D]; k, v: [N, S, H*D]; out: [N, L, H*D], all f32
+// (cfp_linear_attention_f32) or all bf16 (cfp_linear_attention_bf16),
+// contiguous, aligned to 4 elements. sums: N*g*H*(D*D + D) floats of
+// scratch. The geometry (hb .. apply_smem) is
+// kernels/linear_attention.py::launch_plan's. Returns the cudaError_t of the
+// launches (0 = success).
+#define CFP_ATTENTION_ENTRY(NAME, T)                                                            \
+  extern "C" int NAME(const T* q, const T* k, const T* v, T* out, float* sums, int N, int L,     \
+                      int S, int H, int D, int hb, int hg, int cl, int g, int chunk, int tk,     \
+                      int kpitch, int slices, int sum_threads, int sum_smem, int tl, int pitch,  \
+                      int apply_threads, int apply_smem, float eps, void* stream) {              \
+    const Plan p{N, L, S, H, hb, hg, cl, g, chunk, tk, kpitch, slices, sum_threads, sum_smem,   \
+                 tl, pitch, apply_threads, apply_smem};                                          \
+    return dispatch(q, k, v, out, sums, D, p, eps, stream);                                      \
   }
-}
+CFP_ATTENTION_ENTRY(cfp_linear_attention_f32, float)
+CFP_ATTENTION_ENTRY(cfp_linear_attention_bf16, __nv_bfloat16)
+#undef CFP_ATTENTION_ENTRY

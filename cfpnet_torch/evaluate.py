@@ -1,17 +1,19 @@
 """Evaluation entry point of the port.
 
     python -m cfpnet_torch.evaluate @configs/train_cfpnet_combine1.txt \\
-        --dataset synthetic|nyu|zjuL5 [--device cpu] [--weight_path W] \\
+        [--test_dataset zjuL5|nyu|synthetic] [--device cpu] [--weight_path W] \\
         [--eval_bs N] [--synthetic_length N] [--time_iters N]
 
 Port of the ``evaluate_all.py`` protocol (``make_eval_step`` /
 ``make_metric_step`` with protocol 'evaluate_all', per-image metrics
-averaged image-weighted) over the dataset that ``--dataset`` names, at the
-native resolution, through ``train/loop.py::make_grouped_eval`` (one eval
-step per rig of a mixed-rig ZJUL5 set). ``--dataset zjuL5`` applies the
-root ``evaluate_all.py``'s ``zju_overrides`` (data/ZJUL5, 256 bins, 16 samples a zone,
-depth 1e-3..10). NYU and ZJUL5 need Pillow and h5py and their files on
-disk. Then the bs=1 latency of ``evaluate_time.py``, twice:
+averaged image-weighted) for one weights file, at the native resolution,
+through ``train/loop.py::make_grouped_eval`` (one eval step per rig of a
+mixed-rig ZJUL5 set), over the set that ``--test_dataset`` chooses as the
+root ``evaluate_all.py`` chooses it (``evaluate_all.py::
+eval_dataset_config``): zjuL5, the default, under ``zju_overrides``
+(data/ZJUL5, 256 bins, 16 samples a zone, depth 1e-3..10), else synthetic
+or nyu. NYU and ZJUL5 need Pillow and h5py and their files on disk. The
+epoch sweep and its reports are ``python -m cfpnet_torch.evaluate_all``. Then the bs=1 latency of ``evaluate_time.py``, twice:
 ``latency_ms_bs1`` of the forward captured in a CUDA graph (replays between
 CUDA events, ``evaluate_time.graphed_latency_ms``) and beside it
 ``latency_ms_bs1_eager``, ``--time_iters`` eager forwards each timed with
@@ -42,30 +44,11 @@ import torch
 from . import weights
 from .config import parse_config
 from .data.datasets import collate, make_dataset, sample_image_f32
+from .evaluate_all import METRICS, eval_dataset_config
 from .evaluate_time import eager_latency_ms, graphed_latency_ms
 from .models.deltar import make_model, model_geometries
 from .train.loop import make_grouped_eval
 from .train.steps import batch_to_device
-
-METRICS = ["a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel"]
-
-
-def zju_overrides(config):
-    """Dataset-specific overrides of the root ``evaluate_all.py``
-    (reference evaluate_all.py:99-109)."""
-    return config.replace(
-        data_path_eval="data/ZJUL5",
-        filenames_file_eval="data/ZJUL5/data.json",
-        native_height=480,
-        native_width=640,
-        max_depth=10.0,
-        min_depth=1e-3,
-        n_bins=256,
-        min_depth_eval=1e-3,
-        max_depth_eval=10.0,
-        zone_sample_num=16,
-        dataset_eval="zjuL5",
-    )
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
@@ -73,10 +56,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--time_iters", type=int, default=100)
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
-    config = parse_config(rest).replace(mode="online_eval")
-    config = config.replace(dataset_eval=config.dataset)
-    if config.dataset in ("zjuL5", "zju", "ZJUL5"):
-        config = zju_overrides(config)
+    config = eval_dataset_config(parse_config(rest).replace(mode="online_eval"))
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

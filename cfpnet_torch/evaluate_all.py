@@ -1,0 +1,228 @@
+"""Epoch-sweep evaluation driver of the port.
+
+    python -m cfpnet_torch.evaluate_all @configs/X.txt [--selected_epoch best] \\
+        [--test_dataset nyu|zjuL5|synthetic] [--device cpu] \\
+        [--save_pred] [--save_rgb] [--save_error_map]
+
+Port of the root ``evaluate_all.py``: ``main`` (``:163-242``),
+``write_reports`` (``:245-262``), ``make_save_hook`` (``:33-84``) and
+``zju_overrides`` (``:148-160``). Users run it after training
+(``python -m cfpnet_torch.train``, whose loop writes
+``weights/{name}/{ep}_{rmse:.3f}`` and ``weights/{name}/best``,
+``train/loop.py::run_training``).
+
+- For each epoch ``ep`` of ``--epochs``, the first file of
+  ``weights/{name}`` (sorted) whose name starts with ``{ep}_``, read by
+  ``weights.load_reference_checkpoint``; epochs without one are skipped.
+  With ``--selected_epoch`` that one file alone (e.g. ``best``), reported
+  as epoch 0, as the root driver does.
+- One ``train/loop.py::make_grouped_eval`` (the 'evaluate_all' protocol at
+  the native resolution; one eval step per rig of a mixed-rig ZJUL5 set),
+  built once and reused over the sweep with each epoch's weights loaded
+  into the same model. The nine metrics are rounded to 3 places, one row an
+  epoch, printed and written by ``write_reports`` to
+  ``{save_dir}/results[_nyu].csv`` and ``.xlsx`` (``utils/xlsx.py``).
+- The eval set is chosen by ``--test_dataset`` (``eval_dataset_config``,
+  the root ``:169-174``): zjuL5 under ``zju_overrides``, else synthetic or
+  nyu. ``cfpnet_torch/evaluate.py`` and ``evaluate_time.py`` choose by the
+  same function.
+- ``--save_pred``, ``--save_rgb`` and ``--save_error_map`` write PNGs into
+  per-scene folders under ``--save_dir`` (``make_save_hook``); they need
+  Pillow and matplotlib, imported only when a flag is set.
+- ``--serving_artifact`` is refused: serving is not ported (ROADMAP.md
+  §A 10). ``--shard_eval`` acts only with more than one process
+  (``:219``), so with one it is a no-op, as in the JAX package; with more
+  it is refused, as is ``--multihost`` (multi-GPU, ROADMAP.md §A 9).
+- The forward runs in float32 whatever ``--compute_dtype`` says, as the
+  JAX package's eval step does (its ``make_eval_step`` casts nothing).
+
+Runs on the card unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import sys
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from . import weights
+from .config import parse_config
+from .data.datasets import make_dataset
+from .models.deltar import make_model
+from .train.loop import make_grouped_eval
+
+METRICS = ["a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel"]
+
+
+def zju_overrides(config):
+    """Dataset-specific overrides (reference evaluate_all.py:99-109)."""
+    return config.replace(
+        data_path_eval="data/ZJUL5",
+        filenames_file_eval="data/ZJUL5/data.json",
+        native_height=480,
+        native_width=640,
+        max_depth=10.0,
+        min_depth=1e-3,
+        n_bins=256,
+        min_depth_eval=1e-3,
+        max_depth_eval=10.0,
+        zone_sample_num=16,
+        dataset_eval="zjuL5",
+    )
+
+
+def eval_dataset_config(config):
+    """``config`` with the eval set that ``--test_dataset`` chooses (root
+    ``evaluate_all.py:169-174``): ``zju_overrides`` where it names zjuL5
+    (the default), else ``dataset_eval`` synthetic or nyu; any other name
+    leaves ``dataset_eval`` as it is."""
+    if "zjuL5" in config.test_dataset:
+        return zju_overrides(config)
+    if "synthetic" in config.test_dataset:
+        return config.replace(dataset_eval="synthetic")
+    if "nyu" in config.test_dataset:
+        return config.replace(dataset_eval="nyu")
+    return config
+
+
+def process_count() -> int:
+    """Processes of this job: torch.distributed's world, else WORLD_SIZE."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def refuse_unported(config) -> None:
+    """Raises for what the sweep does not have yet."""
+    if config.serving_artifact:
+        raise NotImplementedError("--serving_artifact: serving is not ported yet "
+                                  "(ROADMAP.md §A 10)")
+    if config.multihost:
+        raise NotImplementedError("--multihost: multi-GPU is not ported yet (ROADMAP.md §A 9)")
+    if config.shard_eval and process_count() > 1:
+        raise NotImplementedError("--shard_eval over more than one process: multi-GPU "
+                                  "evaluation is not ported yet (ROADMAP.md §A 9)")
+
+
+def make_save_hook(config, dataset):
+    """Per-image dumps (root ``evaluate_all.py::make_save_hook``): the
+    colorized prediction, the input RGB and the error map as PNGs in
+    per-scene folders under ``save_dir``, named by the dataset's
+    ``sample_meta``, one file per set flag; None when no flag is set. The
+    hook is ``train/loop.py::evaluate``'s ``per_image_hook(idx, pred_hw,
+    batch, j)``."""
+    if not (config.save_pred or config.save_rgb or config.save_error_map):
+        return None
+    import numpy as np
+    from PIL import Image as PILImage
+
+    from .data.datasets import sample_image_f32
+    from .utils.vis import colorize, unnormalize
+
+    def meta(idx):
+        fn = getattr(dataset, "sample_meta", None)
+        return fn(idx) if fn else ("eval", f"{idx:05d}")
+
+    def hook(idx, pred_hw, batch, j):
+        folder, name = meta(idx)
+        out_dir = os.path.join(config.save_dir, folder)
+        os.makedirs(out_dir, exist_ok=True)
+        if config.save_pred:
+            vis = colorize(pred_hw, vmin=float(pred_hw.min()), vmax=float(pred_hw.max()))
+            PILImage.fromarray(vis).save(os.path.join(out_dir, f"{name}_pred.png"))
+        if config.save_rgb:
+            if "image_u8" in batch:
+                rgb = np.asarray(batch["image_u8"][j])
+            else:
+                rgb = np.clip(unnormalize(sample_image_f32(
+                    {k: v[j] for k, v in batch.items() if k in ("image", "image_u8")})) * 255.0,
+                    0, 255).astype(np.uint8)
+            PILImage.fromarray(rgb).save(os.path.join(out_dir, f"{name}_rgb.png"))
+        if config.save_error_map:
+            gt = np.asarray(batch["depth"][j, ..., 0])
+            err = np.abs(pred_hw - gt)
+            # invalid gt rendered white (colorize's -1 convention)
+            err[(gt <= config.min_depth) | (gt >= config.max_depth)] = -1
+            valid = err >= 0
+            vmax = float(err[valid].max()) if valid.any() else 1.0
+            vis = colorize(err, vmin=0.0, vmax=max(vmax, 1e-6))
+            PILImage.fromarray(vis).save(os.path.join(out_dir, f"{name}_error.png"))
+
+    return hook
+
+
+def weight_files(config) -> List[Tuple[int, str]]:
+    """(epoch, path) of each weights file of the sweep (root ``:207-216``)."""
+    weights_dir = os.path.join("weights", config.name)
+    if config.selected_epoch != "-1":
+        return [(0, os.path.join(weights_dir, config.selected_epoch))]
+    names = sorted(os.listdir(weights_dir)) if os.path.isdir(weights_dir) else []
+    out = []
+    for ep in range(config.epochs):
+        mine = [n for n in names if n.startswith(f"{ep}_")]
+        if mine:
+            out.append((ep, os.path.join(weights_dir, mine[0])))
+    return out
+
+
+def write_reports(config, rows) -> Tuple[str, str]:
+    """``results[_nyu].csv`` and ``.xlsx`` under ``save_dir`` (root
+    ``write_reports``); returns their paths."""
+    from .utils.xlsx import write_xlsx
+
+    os.makedirs(config.save_dir, exist_ok=True)
+    suffix = "_nyu" if "nyu" in config.test_dataset else ""
+    csv_path = os.path.join(config.save_dir, f"results{suffix}.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["epoch"] + METRICS)
+        w.writerows(rows)
+    print(f"wrote {csv_path}")
+    xlsx = os.path.join(config.save_dir, f"results{suffix}.xlsx")
+    write_xlsx(xlsx, [["epoch"] + METRICS] + rows)
+    print(f"wrote {xlsx}")
+    return csv_path, xlsx
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """The sweep; returns the rows as written (``rows``), each epoch's
+    unrounded metrics (``metrics``) and weights file (``weights``), and the
+    report paths (``reports``)."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda")
+    args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
+    config = parse_config(rest).replace(mode="online_eval")
+    refuse_unported(config)
+    config = eval_dataset_config(config)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    model = make_model(config, device=device)
+    dataset = make_dataset(config, "online_eval")
+    eval_fn = make_grouped_eval(model, config, dataset, protocol="evaluate_all", device=device)
+    hook = make_save_hook(config, dataset)
+
+    rows, unrounded = [], []
+    files = weight_files(config)
+    for ep, path in files:
+        model.load_state_dict(weights.load_reference_checkpoint(path), strict=True)
+        results = eval_fn(per_image_hook=hook)
+        unrounded.append(dict(results))
+        results = {k: round(v, 3) for k, v in results.items()}
+        print(f"Metrics: {results}")
+        print(",".join(str(results[m]) for m in METRICS))
+        rows.append([ep] + [results[m] for m in METRICS])
+    return dict(rows=rows, metrics=unrounded, weights=[path for _, path in files],
+                reports=write_reports(config, rows))
+
+
+if __name__ == "__main__":
+    main()

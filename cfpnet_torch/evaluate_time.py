@@ -1,14 +1,22 @@
 """Latency and work of the eval forward and of the train step.
 
     python -m cfpnet_torch.evaluate_time @configs/train_cfpnet_combine1.txt \\
-        [--eager] [--profile_flops] [--device cpu] [--niters N] [--weight_path ref.pt]
+        [--eager] [--profile_flops] [--device cpu] [--niters N] [--weight_path ref.pt] \\
+        [--compute_dtype bfloat16] [--test_dataset zjuL5|nyu|synthetic]
     python -m cfpnet_torch.evaluate_time @configs/train_cfpnet_combine1.txt --train \\
         [--profile_flops] [--device cpu] [--niters N]
 
 Port of the root ``evaluate_time.py`` (``timed_forward``,
 ``graph_flops_eval``, ``timed_train_step``, ``graph_flops_train`` and its
-CLI) for the eval forward and the train step in f32:
+CLI) for the eval forward, in float32 or bfloat16 (``--compute_dtype``), and
+the train step in f32:
 
+- ``timed_forward(compute_dtype=...)``: the forward in the compute dtype as
+  the root ``timed_forward`` runs it (``:63,88-92``): the model's floating
+  parameters and BatchNorm statistics cast to it
+  (``models/deltar.py::cast_to_compute_dtype``), the image and the
+  histograms cast to it, the mask bool; only the depth tail promotes to
+  float32. Default: ``--compute_dtype`` (float32).
 - ``timed_forward(graphed=True)``: the forward captured once in a CUDA graph
   (``graphs.CapturedForward``), then K replays between two CUDA events
   (``graphed_latency_ms``, ``replay_latency_ms``),
@@ -44,13 +52,22 @@ CLI) for the eval forward and the train step in f32:
   elementwise work).
 
 The inputs are one sample of the config's eval dataset collated
-``batch_size`` times, as the root ``evaluate_time.py`` takes them; where
-that dataset is not ported (NYUv2, ZJUL5: ROADMAP §A item 5) the synthetic
-one stands in, as the root script falls back to it without the dataset on
-disk. Weights: ``--weight_path`` (``weights.load_reference_checkpoint``),
-else the golden tests' deterministic ones. ``--serving_artifact`` is not
-ported (ROADMAP §A item 10). Runs on the card unless ``--device cpu``,
-where only ``--eager`` can run: a CUDA graph needs a card.
+``batch_size`` times, its image normalized on the host, and the geometry is
+the dataset's own (``scale_geoms``: the measured ZJUL5 rig) where it has
+one, else the config's zone grid, as the root ``timed_forward`` takes them
+(``:51-60``). Where the dataset cannot be read (its files not on disk:
+``FileNotFoundError``; a name the port does not have:
+``NotImplementedError``; a missing key of its index: ``KeyError``) the
+synthetic sample stands in, as the root script falls back to it. The CLI
+chooses the eval set by ``--test_dataset`` through
+``evaluate_all.py::eval_dataset_config``, so under the default zjuL5 it
+times the ZJUL5 configuration (``zju_overrides``: 480x640, 256 bins), as
+the root ``__main__`` does (``:325-328``); ``--train`` times the train
+step's own configuration and does not. Weights: ``--weight_path``
+(``weights.load_reference_checkpoint``), else the golden tests'
+deterministic ones. ``--serving_artifact`` is not ported (ROADMAP §A item
+10). Runs on the card unless ``--device cpu``, where only ``--eager`` can
+run: a CUDA graph needs a card.
 """
 
 from __future__ import annotations
@@ -65,33 +82,46 @@ import torch
 
 from . import weights
 from .config import parse_config
-from .data.datasets import SyntheticDataset, collate, make_dataset
+from .data.datasets import SyntheticDataset, collate, make_dataset, sample_image_f32
+from .evaluate_all import eval_dataset_config
 from .graphs import CapturedForward
 from .models.convnext import LargeKernelDWConv
-from .models.deltar import make_model, model_geometries
+from .models.deltar import cast_to_compute_dtype, make_model, model_geometries
+from .models.deltar import compute_dtype as dtype_of
 from .train import steps
 
 Inputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def load_model(config, device="cuda", state_dict=None) -> torch.nn.Module:
+def load_model(config, device="cuda", state_dict=None, dtype=torch.float32) -> torch.nn.Module:
     """The eval model on ``device`` carrying ``state_dict``, or the golden
-    tests' deterministic weights."""
+    tests' deterministic weights, cast to ``dtype``."""
     model = make_model(config, device=device)
     if state_dict is None:
         state_dict = weights.deterministic_state_dict(config, tiny=config.tiny_model)
     model.load_state_dict(state_dict, strict=True)
-    return model
+    return cast_to_compute_dtype(model, dtype)
 
 
-def make_inputs(config, batch_size: int = 1, device="cuda") -> Inputs:
-    """(image, hist, mask): one eval sample collated ``batch_size`` times."""
+def eval_batch(config, batch_size: int = 1, device="cuda",
+               dtype=torch.float32) -> Tuple[Inputs, Dict]:
+    """((image, hist, mask), geometry): one eval sample collated
+    ``batch_size`` times, image and hist in ``dtype``, and the dataset's
+    geometry (module docstring); the synthetic sample where the dataset
+    cannot be read."""
     try:
-        sample = make_dataset(config, "online_eval")[0]
-    except NotImplementedError:
-        sample = SyntheticDataset(config, "online_eval")[0]
+        ds = make_dataset(config, "online_eval")
+        sample = ds[0]
+    except (FileNotFoundError, NotImplementedError, KeyError):
+        ds = SyntheticDataset(config, "online_eval")
+        sample = ds[0]
+    geoms = getattr(ds, "scale_geoms", None)
+    if geoms is None:
+        geoms = model_geometries(config, "online_eval")
     batch = collate([sample] * batch_size)
-    return tuple(torch.from_numpy(batch[k]).to(device) for k in ("image", "hist_data", "mask"))
+    image = torch.from_numpy(sample_image_f32(batch)).to(device, dtype)
+    hist = torch.from_numpy(batch["hist_data"]).to(device, dtype)
+    return (image, hist, torch.from_numpy(batch["mask"]).to(device)), geoms
 
 
 def eager_latency_ms(model, inputs: Inputs, geoms, niters: int, warmup: int = 5) -> float:
@@ -153,12 +183,14 @@ def graphed_latency_ms(model, inputs: Inputs, geoms, config, niters: int = 500,
 
 
 def timed_forward(config, batch_size: int = 1, niters: int = 500, K: int = 100,
-                  graphed: bool = True, state_dict=None, device="cuda") -> float:
-    """Milliseconds of one forward at ``batch_size``, graphed or eager
-    (module docstring)."""
-    model = load_model(config, device, state_dict)
-    geoms = model_geometries(config, "online_eval")
-    inputs = make_inputs(config, batch_size, device)
+                  graphed: bool = True, state_dict=None, device="cuda",
+                  compute_dtype=None) -> float:
+    """Milliseconds of one forward at ``batch_size`` in ``compute_dtype``
+    (default ``config.compute_dtype``), graphed or eager (module
+    docstring)."""
+    dtype = dtype_of(compute_dtype or config.compute_dtype)
+    model = load_model(config, device, state_dict, dtype)
+    inputs, geoms = eval_batch(config, batch_size, device, dtype)
     if graphed:
         return graphed_latency_ms(model, inputs, geoms, config, niters, K)
     return eager_latency_ms(model, inputs, geoms, niters)
@@ -302,6 +334,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap.add_argument("--train", action="store_true")
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     config = parse_config(rest).replace(mode="online_eval")
+    if not args.train:
+        config = eval_dataset_config(config)
     if config.serving_artifact:
         raise NotImplementedError("--serving_artifact: serving is not ported yet "
                                   "(ROADMAP.md §A item 10)")
@@ -316,11 +350,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                        device=device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu, host clock"
     out: Dict[str, object] = dict(latency_ms_bs1=ms, graphed=not args.eager, device=where,
-                                  niters=args.niters)
+                                  niters=args.niters, dtype=config.compute_dtype)
     print(f"{ms:.3f} ms")
     print(f"{1000.0 / ms:.2f} frames/sec/chip" if device.type == "cuda"
           else f"{1000.0 / ms:.2f} frames/sec on the CPU")
-    print(f"(bs=1, f32, {'eager' if args.eager else 'CUDA graph'}; {where})")
+    print(f"(bs=1, {config.compute_dtype}, {'eager' if args.eager else 'CUDA graph'}; {where})")
     if args.profile_flops:
         out["params"] = param_count(config)
         out["flops"] = forward_flops(config)

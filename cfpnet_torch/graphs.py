@@ -5,7 +5,11 @@ PyTorch's counterpart of the JAX package's jitted forward
 throughout, so one capture per batch size replays every launch of it
 (cuDNN, cuBLAS, elementwise and the three hand kernels) without the host.
 
-``CapturedForward(model, geoms, batch_size, config)`` warms the model up
+``CapturedForward(model, geoms, batch_size, config)`` captures the forward
+in the model's dtype (its parameters': float32, or bfloat16 after
+``models/deltar.py::cast_to_compute_dtype``), so a graph is one (batch
+size, dtype) and its image and histogram buffers are of that dtype. It
+warms the model up
 with a few eager forwards on a side stream, which does the first-call host
 work outside the capture: the kernels' one-time attribute calls (dwconv's
 and linear attention's shared-memory limits, attention's occupancy query
@@ -51,19 +55,22 @@ class CapturedForward:
     static buffers, replays it and returns its static outputs
     ``(bin_edges, pred, prob, None)``. The next replay overwrites those
     outputs: clone what must outlive it. Raises ``ValueError`` on a model
-    that is not on a CUDA device and on inputs of other shapes or dtypes;
-    an error during capture propagates. It never runs eagerly instead.
+    that is not on a CUDA device and on inputs of other shapes or dtypes
+    (image and histogram in the model's dtype, the mask bool); an error
+    during capture propagates. It never runs eagerly instead.
     """
 
     def __init__(self, model: torch.nn.Module, geoms: Dict[int, ScaleGeometry],
                  batch_size: int, config):
-        device = next(model.parameters()).device
+        param = next(model.parameters())
+        device, dtype = param.device, param.dtype
         if device.type != "cuda":
             raise ValueError(f"CapturedForward needs a model on a CUDA device, got {device}")
         zones = config.eval_zone_num ** 2
         self.image = torch.zeros(batch_size, config.native_height, config.native_width, 3,
-                                 device=device)
-        self.hist = torch.zeros(batch_size, zones, config.zone_sample_num, device=device)
+                                 device=device, dtype=dtype)
+        self.hist = torch.zeros(batch_size, zones, config.zone_sample_num, device=device,
+                                dtype=dtype)
         self.mask = torch.ones(batch_size, zones, dtype=torch.bool, device=device)
         args = (self.image, self.hist, self.mask, geoms)
 

@@ -7,11 +7,13 @@ its plain version is ``cfpnet_torch/ops/dwconv.py::depthwise_conv2d``.
 
 ``depthwise_conv2d(x, weight, bias)`` takes x [B, H, W, C] (NHWC, the
 fusion path's token layout, so no permute), weight [C, 1, k, k] (torch
-depthwise layout) and bias [C]. A CPU tensor goes through the plain
+depthwise layout) and bias [C], all float32 or all bfloat16 (the bf16
+variant: f32 taps and bias on the bf16 values, the output rounded once, as
+the Pallas kernel computes in bf16). A CPU tensor goes through the plain
 version; a CUDA tensor goes through the kernel or raises. The gradient
-(``_DepthwiseConv2d``) takes dx from the same kernel on the rotated taps and
-dW from one PyTorch call (its depthwise weight-gradient kernel) on NCHW
-copies.
+(``_DepthwiseConv2d``, f32 only: the bf16 backward raises, ROADMAP §A 2c)
+takes dx from the same kernel on the rotated taps and dW from one PyTorch
+call (its depthwise weight-gradient kernel) on NCHW copies.
 
 ``TILING`` holds the one choice of tiling per k; ``kernels/build.py``
 compiles its fixed part into the kernel (``nvcc_defines``), and
@@ -26,12 +28,13 @@ import ctypes
 import functools
 import math
 from types import MappingProxyType
-from typing import Mapping, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 
 from ..ops.dwconv import depthwise_conv2d as depthwise_conv2d_plain
 from . import build
+from .dtypes import DTYPES, check_dtypes, count_launch
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use
@@ -71,11 +74,14 @@ SUPPORTED_K = tuple(TILING)
 # once, and its backward once more for dx (the flipped taps), so a train step
 # of the production model launches 6 times for the outputs and 6 for dx
 launches = 0
+# the same launches by element type ("float32", "bfloat16")
+launches_by_dtype: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_dtype.clear()
 
 
 def _round4(n: int) -> int:
@@ -155,18 +161,18 @@ def launch_plan(B: int, H: int, W: int, C: int, k: int) -> Mapping:
         useful=H * W * C / (tiles_y * th * tiles_x * tw * cgroups * cb)))
 
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    """The C entry point, its ctypes signature set once."""
-    global _fn
-    if _fn is None:
-        fn = build.load("dwconv").cfp_dwconv2d_f32
+def _kernel(dtype: torch.dtype):
+    """The C entry point for ``dtype``, its ctypes signature set once."""
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(build.load("dwconv"), f"cfp_dwconv2d_{DTYPES[dtype]}")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -209,6 +215,9 @@ class _DepthwiseConv2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, weight = ctx.saved_tensors
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError("dwconv: the bf16 backward is not ported (the bf16 train "
+                                      "step, ROADMAP.md §A 2c)")
         gy = gy.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
@@ -230,22 +239,22 @@ def _launch(x, weight, bias):
     k = weight.shape[-1]
     p = launch_plan(B, H, W, C, k)
     out = torch.empty_like(x)
-    rc = _kernel()(x.data_ptr(), weight.data_ptr(), 0 if bias is None else bias.data_ptr(),
+    rc = _kernel(x.dtype)(x.data_ptr(), weight.data_ptr(), 0 if bias is None else bias.data_ptr(),
                    out.data_ptr(), B, H, W, C, k, p["ty"], p["cb"], p["pitch"], p["swz"],
                    p["plane"], p["wplane"], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dwconv kernel launch failed: cudaError {rc}")
     launches += 1
+    count_launch(launches_by_dtype, x.dtype)
     return out
 
 
 def _check(x, weight, bias):
     tensors = [("x", x), ("weight", weight)] + ([] if bias is None else [("bias", bias)])
+    check_dtypes("dwconv", tensors)
     for name, t in tensors:
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"dwconv: {name} must be on {x.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"dwconv: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"dwconv: {name} must be contiguous")
     if x.dim() != 4:
@@ -261,5 +270,6 @@ def _check(x, weight, bias):
     if C % 4 != 0:
         raise ValueError(f"dwconv: the kernel reads 4-channel groups; C={C} is not a multiple of 4")
     for name, t in (("x", x), ("weight", weight)):
-        if t.data_ptr() % 16 != 0:
-            raise ValueError(f"dwconv: {name} must be 16-byte aligned")
+        if t.data_ptr() % (4 * t.element_size()) != 0:
+            raise ValueError(f"dwconv: {name} must be aligned to 4 elements "
+                             f"({4 * t.element_size()} bytes)")

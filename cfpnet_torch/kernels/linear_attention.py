@@ -7,11 +7,14 @@ is ``cfpnet_torch/csrc/linear_attention.cu``; its plain version is
 ``cfpnet_torch/ops/attention.py::linear_attention``.
 
 ``linear_attention(q, k, v)`` takes the JAX layout [N, L, H, D] (which is
-[N, L, C] in memory, C = H*D). A CPU tensor goes through the plain version;
-a CUDA tensor goes through the kernel or raises. On the card the gradient
-is autograd of the plain version, recomputed from the saved inputs, as
-``kernels/fused_loftr.py`` takes its own: the TPU kernel has no backward
-kernel to port.
+[N, L, C] in memory, C = H*D), all float32 or all bfloat16 (the bf16
+variant rounds where the Pallas kernel holds bf16: elu(q)+1, elu(k)+1,
+v / S, the key sum and the output; every product accumulates in f32). A
+CPU tensor goes through the plain version; a CUDA tensor goes through the
+kernel or raises. On the card the f32 gradient is autograd of the plain
+version, recomputed from the saved inputs, as ``kernels/fused_loftr.py``
+takes its own: the TPU kernel has no backward kernel to port. The bf16
+backward raises (ROADMAP §A 2c).
 
 ``launch_plan(N, L, S, H, D)`` owns the geometry of a call's two device
 kernels (the summary pass's head groups, clusters, cluster sums, key tiles
@@ -26,12 +29,13 @@ import ctypes
 import functools
 import math
 from types import MappingProxyType
-from typing import Mapping
+from typing import Dict, Mapping
 
 import torch
 
 from ..ops.attention import linear_attention as linear_attention_plain
 from . import build
+from .dtypes import DTYPES, check_dtypes, count_launch
 from .dwconv import (MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK,
                      SMEM_PER_SM, SMEM_RESERVED, SMS)
 
@@ -68,11 +72,14 @@ def outputs_per_thread(D: int) -> int:
 
 
 launches = 0  # kernel launches since the last reset_launches()
+# the same launches by element type ("float32", "bfloat16")
+launches_by_dtype: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_dtype.clear()
 
 
 def _blocks_per_sm(threads: int, smem: int, max_threads: int, min_blocks: int = 1) -> int:
@@ -140,25 +147,25 @@ def launch_plan(N: int, L: int, S: int, H: int, D: int) -> Mapping:
         sums_floats=N * g * H * P))
 
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    """The C entry point, its ctypes signature set once."""
-    global _fn
-    if _fn is None:
-        fn = build.load("linear_attention").cfp_linear_attention_f32
+def _kernel(dtype: torch.dtype):
+    """The C entry point for ``dtype``, its ctypes signature set once."""
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(build.load("linear_attention"), f"cfp_linear_attention_{DTYPES[dtype]}")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 19
                        + [ctypes.c_float, ctypes.c_void_p])
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where its data does not start on 16 bytes (a
-    view at an odd offset): the kernel reads 16-byte groups."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    """``t``, or a copy of it where its data does not start on 4 elements
+    (a view at an odd offset): the kernel reads groups of 4."""
+    return t if t.data_ptr() % (4 * t.element_size()) == 0 else t.clone()
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,6 +190,9 @@ class _LinearAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if grad.dtype == torch.bfloat16:
+            raise NotImplementedError("linear_attention: the bf16 backward is not ported (the "
+                                      "bf16 train step, ROADMAP.md §A 2c)")
         saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = linear_attention_plain(*saved, eps=ctx.eps)
@@ -199,7 +209,7 @@ def _launch(q, k, v, eps):
     p = launch_plan(N, L, S, H, D)
     out = torch.empty_like(q)
     sums = torch.empty(p["sums_floats"], device=q.device, dtype=torch.float32)
-    rc = _kernel()(
+    rc = _kernel(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sums.data_ptr(),
         N, L, S, H, D, p["hb"], p["hg"], p["cl"], p["g"], p["chunk"], p["tk"], p["kpitch"],
         p["slices"],
@@ -208,15 +218,15 @@ def _launch(q, k, v, eps):
     if rc != 0:
         raise RuntimeError(f"linear_attention kernel launch failed: cudaError {rc}")
     launches += 1
+    count_launch(launches_by_dtype, q.dtype)
     return out
 
 
 def _check(q, k, v):
+    check_dtypes("linear_attention", [("q", q), ("k", k), ("v", v)])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"linear_attention: {name} must be on {q.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"linear_attention: {name} must be float32, got {t.dtype}")
         if t.dim() != 4:
             raise ValueError(f"linear_attention: {name} must be [N, *, H, D], got {tuple(t.shape)}")
         if not t.is_contiguous():

@@ -103,6 +103,27 @@ def make_model(config, tiny: bool = False, device="cuda") -> Deltar:
     return model.eval()
 
 
+def cast_to_compute_dtype(model: nn.Module, dtype) -> nn.Module:
+    """``model`` with every floating parameter and buffer (the BatchNorm
+    statistics included) cast to ``dtype`` in place, as the JAX drivers cast
+    ``params`` and ``batch_stats`` for ``--compute_dtype``
+    (``evaluate_time.py:88-92``, ``tests/test_bf16.py:140-142``,
+    ``cfpnet_tpu/serve/export.py:69-81``: a tree map of ``astype`` over
+    every floating leaf). The forward then runs in ``dtype`` where its
+    inputs are in ``dtype``; only the depth tail promotes to float32
+    (``Deltar.forward``). Returns ``model``."""
+    return model.to(dtype=compute_dtype(dtype))
+
+
+def compute_dtype(name) -> torch.dtype:
+    """The torch dtype of ``--compute_dtype`` ("float32", "bfloat16"), or
+    ``name`` itself where it is one already."""
+    dtype = name if isinstance(name, torch.dtype) else getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"--compute_dtype {name!r} is not a floating dtype")
+    return dtype
+
+
 def model_geometries(config, mode: str, offset=(0, 0)) -> Dict[int, ScaleGeometry]:
     """Static per-scale geometry for a (config, mode) pair."""
     return geometry_for(config, mode, offset).scales()

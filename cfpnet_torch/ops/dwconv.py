@@ -9,6 +9,10 @@ order, (dy, dx) then the bias; at k=15 and k=31 it sums two halves of the
 kernel columns apart and adds the second half's sum to the first's, then
 the bias (the tolerance note of ``chip_smoke.py`` covers that). It is no
 yardstick of speed; ``F.conv2d(groups=C)`` is, and the port never calls it.
+
+In bfloat16 it is the Pallas kernel's bf16 arithmetic
+(``cfpnet_tpu/ops/pallas_dwconv.py:33-37``): the taps, weights and bias
+upcast to f32, the f32 conv, the output rounded to bf16 once.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
     """x: [B, H, W, C]; weight: [C, 1, k, k] (torch depthwise layout), odd k;
     bias: [C]. Zero padding (k-1)//2 on each side, as torch ``padding=k//2``
     and the JAX package's SAME rule for odd k."""
+    if x.dtype == torch.bfloat16:
+        return depthwise_conv2d(x.float(), weight.float(),
+                                None if bias is None else bias.float()).to(torch.bfloat16)
     B, H, W, C = x.shape
     k = weight.shape[-1]
     p = (k - 1) // 2

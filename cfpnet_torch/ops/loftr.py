@@ -10,6 +10,14 @@ weights of ``LoFTRParams`` are [in, out] as flax ``nn.Dense`` stores them.
 A port module hands its ``nn.Linear`` weights over as ``weight.t()``
 (``LoFTREncoderLayer.loftr_params``): an [in, out] view of the [out, in]
 storage, which is the memory the CUDA kernel reads.
+
+In bfloat16 ``loftr_apply`` computes as the Pallas kernel's body does in
+bf16 (``cfpnet_tpu/ops/pallas_loftr.py::_kernel``, ``:108-142``, with the
+weights cast to bf16 as ``_fused_loftr_impl`` casts them, ``:168-171``):
+the q, k, v products and the attention in f32, the message rounded to bf16
+before the merge, LN1's output and the ReLU output rounded, LN2 and the
+residual in f32, the output rounded once. That is the kernel's bf16
+variant, not ``loftr_apply_xla``'s bf16 (which rounds every product).
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ def loftr_apply(x: torch.Tensor, source: torch.Tensor, p: LoFTRParams, nhead: in
     """One unmasked ``LoFTREncoderLayer``: q/k/v projections, elu+1 linear
     attention, merge, LayerNorm, concat-MLP with ReLU, LayerNorm, residual.
     x: [N, L, C]; source: [N, S, C]. Returns [N, L, C]."""
+    if x.dtype == torch.bfloat16:
+        return _loftr_apply_bf16(x, source, p, nhead, eps)
     N, L, C = x.shape
     S = source.shape[1]
     D = C // nhead
@@ -69,3 +79,26 @@ def loftr_apply(x: torch.Tensor, source: torch.Tensor, p: LoFTRParams, nhead: in
     h = torch.relu(torch.cat([x, msg], dim=-1) @ p.w0.to(dt))
     h = layernorm_f32(h @ p.w1.to(dt), p.g2, p.b2).to(dt)
     return h + x
+
+
+def _loftr_apply_bf16(x, source, p: LoFTRParams, nhead: int, eps: float) -> torch.Tensor:
+    """``loftr_apply`` on bfloat16 inputs with the Pallas kernel's rounding
+    points; returns bfloat16."""
+    N, L, C = x.shape
+    S = source.shape[1]
+    D = C // nhead
+    bf16 = torch.bfloat16
+
+    def w(t):  # the weight's bf16 values, as the kernel casts them
+        return t.to(bf16).float()
+
+    X, src = x.float(), source.float()
+    q = (X @ w(p.wq)).reshape(N, L, nhead, D)
+    k = (src @ w(p.wk)).reshape(N, S, nhead, D)
+    v = (src @ w(p.wv)).reshape(N, S, nhead, D)
+    msg = linear_attention(q, k, v, eps=eps).reshape(N, L, C).to(bf16).float()
+    msg = layernorm_f32(msg @ w(p.wm), p.g1, p.b1).to(bf16).float()
+    w0 = w(p.w0)
+    h = torch.relu(X @ w0[:C] + msg @ w0[C:]).to(bf16).float()
+    h = layernorm_f32(h @ w(p.w1), p.g2, p.b2)
+    return (h + X).to(bf16)

@@ -52,9 +52,9 @@ line:
    at bs=8, on 8 synthetic samples, an eager pass launches 6/6/18, the
    replay equals the eager forward bit for bit and each row matches the
    bs=1 forward of its sample (rtol 5e-4, atol 5e-5).
-7. entry: ``cfpnet_torch.evaluate`` on 4 synthetic images at bs=1 and
-   bs=2; metrics must be finite; prints the bs=1 latency in a CUDA graph
-   and eager.
+7. entry: ``cfpnet_torch.evaluate --test_dataset synthetic`` on 4
+   synthetic images at bs=1 and bs=2; metrics must be finite; prints the
+   bs=1 latency in a CUDA graph and eager.
 8. profile: device time of one bs=1 forward by kernel (torch.profiler),
    eager and replayed, its kernel launches and the device's busy share of
    each latency; the host-to-device copies and ``cudaStreamSynchronize``
@@ -80,8 +80,27 @@ line:
     runs). Prints loop ms a step and images/s beside phase 9's bare step,
     the wait on the loader's queue, validation and checkpoint seconds and
     bytes, and the ToF path.
-11. bench: ``cfpnet_torch.bench`` at ``BENCH_ITERS`` forward and
-    ``BENCH_TRAIN_ITERS`` train iterations prints its line.
+11. bf16 (``bf16_phase``): ``--compute_dtype bfloat16`` through the eval
+    forward. Each kernel's bf16 variant against its bf16 plain version at
+    every bs=1 and bs=8 main-path shape (max |kernel - plain| <=
+    ``BF16_TOL`` = 2^-7 * max |plain|, one bf16 ulp at the top of the
+    range), with the share of elements that differ and the ms a call
+    against its bound (``kernel_shape_bf16`` lines); the production model
+    cast to bf16 on the golden's inputs: one eager forward launches
+    6 / 6 / 18 kernels, all on bf16 tensors (the wrappers count by dtype),
+    and its prediction stays within tests/test_bf16.py's drift budget of
+    the f32 golden (median rel < 0.06, median abs < 0.08); its graph at
+    bs=1 and bs=8 replays bit for bit equal to the eager bf16 forward;
+    ``cfpnet_torch.evaluate_time --compute_dtype bfloat16`` graphed and
+    eager (``BF16_ITERS`` forwards); one replay of the f32 and of the bf16
+    graph profiled by kind (``by_kind``) with the busy share.
+12. sweep (``sweep_phase``): ``cfpnet_torch.evaluate_all --test_dataset
+    synthetic`` over the two epochs' weights phase 10's loop wrote, on 8
+    images: a CSV of two finite rows, the .xlsx, the launches of 16 f32
+    forwards.
+13. bench: ``cfpnet_torch.bench`` at ``BENCH_ITERS`` forward and
+    ``BENCH_TRAIN_ITERS`` train iterations prints its line (bf16 headline
+    keys and f32 ones).
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -90,7 +109,13 @@ step's forward: ``ms_train``, ``bound_ms_train``, ``max_rel_err_train``; its
 backward: ``backward_ms_train``, ``grad_max_rel_err_train``, for dwconv
 ``dx_ms_train``, ``dw_library_ms_train``; and its launches in one train
 step, ``launches_train_step``; and in the loop phase's uninterrupted run,
-``launches_loop``), and last the ``ok`` line.
+``launches_loop``; from the bf16 phase, per bs=1 forward, ``card_ms_bf16``,
+``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
+dense bf16 tensor-core rate for the fused layer's bf16 products),
+``library_ms_bf16`` (dwconv: cuDNN in bf16; else null), ``bound_by_bf16``,
+``max_rel_err_bf16`` and ``differ_share_bf16`` over the bs=1 and bs=8
+shapes, ``card_ms_bs8_bf16``, ``bound_ms_bs8_bf16`` and the bf16 forward's
+``launches_bf16``), and last the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -105,6 +130,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_FULL = os.path.join(ROOT, "tests", "golden", "full_forward.npz")
@@ -129,13 +155,20 @@ TRAIN_GOLDEN_TOL = dict(loss=9.6e-7, stat=0.023, zero_grad_norm=1.3e-6,
 PROD_CONFIG = os.path.join(ROOT, "configs", "train_cfpnet_combine1.txt")
 TOL = 1e-4  # max |kernel - plain| / max |plain|
 # published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
-# and the TF32 tensor-core rate over three (a 3xTF32 product is three TF32 ones)
+# the TF32 tensor-core rate over three (a 3xTF32 product is three TF32 ones),
+# and the dense bf16 tensor-core rate (bf16 x bf16 products, f32 sums)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-PEAK_TF32_3X = 495e12 / 3
+PEAK_TF32 = 495e12
+PEAK_TF32_3X = PEAK_TF32 / 3
+PEAK_BF16 = 989.4e12
+BF16_TOL = 2.0 ** -7  # bf16 phase: max |kernel - plain| / max |plain|, one bf16 ulp at the top
+# the bf16 forward's drift from the f32 golden: tests/test_bf16.py's budget
+BF16_DRIFT = dict(median_rel=0.06, median_abs=0.08)
 SEED = 117010053
 BENCH_ITERS = 40  # cfpnet_torch.bench --iters in phase 10 (its default is 500)
 BENCH_TRAIN_ITERS = 10  # and its --train_iters (its default is 40)
+BF16_ITERS = 50  # cfpnet_torch.evaluate_time --niters in the bf16 phase (its default is 500)
 
 
 def emit(obj) -> None:
@@ -162,10 +195,11 @@ def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
     return float(np.median(out))
 
 
-def bound_fields(nbytes: float, flops: float):
+def bound_fields(nbytes: float, flops: float, peak_flops: float = PEAK_F32):
     """The least time for the work: bytes over the memory rate and operations
-    over the f32 rate, in ms, and the larger of the two."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    over ``peak_flops`` (the f32 rate outside the tensor cores unless
+    given), in ms, and the larger of the two."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -258,8 +292,6 @@ def check_kernels(config, geoms, batch: int = 1, full: bool = True, mode: str = 
     shape. With ``full`` each line also times the plain version and the
     library call and splits the call by device kernel (torch.profiler);
     without it, only the kernel is timed."""
-    import torch.nn.functional as F
-
     from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
     from cfpnet_torch.models.transformer import LoFTREncoderLayer
     from cfpnet_torch.ops.attention import linear_attention as att_plain
@@ -370,8 +402,6 @@ def check_gradients(config, geoms, batch: int):
     the full batch: for dwconv dx, dW (from NCHW copies, as the port calls
     it, copies included, and on the channels-last views) and db apart,
     against the bounds of their work."""
-    import torch.nn.functional as F
-
     from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
     from cfpnet_torch.models.transformer import LoFTREncoderLayer
     from cfpnet_torch.ops.attention import linear_attention as att_plain
@@ -1105,7 +1135,7 @@ def state_differs(a, b):
     return out + (["step"] if sa != sb else []) + sorted(set(fb) - set(fa))
 
 
-def loop_phase(config, bare_images_a_s: float, device="cuda"):
+def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None):
     """Phase 10: ``train/loop.py::run_training`` on the card, at the
     production train step's configuration (``loop_config``) with the
     deterministic weights, in a temporary working directory removed after.
@@ -1132,7 +1162,8 @@ def loop_phase(config, bare_images_a_s: float, device="cuda"):
     batch and the producer's time for each batch, validation seconds,
     checkpoint bytes and seconds to save and load, and the ToF path.
     ``device="cpu"`` runs the same checks but the host's waits, which need
-    the card (a dry run at a tiny size)."""
+    the card (a dry run at a tiny size). ``keep_weights``: a directory
+    that gets a copy of run A's ``weights/{name}`` (for the sweep phase)."""
     import shutil
     import tempfile
 
@@ -1238,6 +1269,8 @@ def loop_phase(config, bare_images_a_s: float, device="cuda"):
                                  f"losses of steps {loss_differs}, state {differs[:5]} "
                                  f"({len(differs)} entries); warnings {caught[:3]}")
         control_differs = state_differs(state_c, state_d)
+        if keep_weights:
+            shutil.copytree(f"weights/{cfg.name}", os.path.join(keep_weights, "weights", cfg.name))
         if not control_differs:
             raise AssertionError("a resume with zeroed moments equals the uninterrupted run: "
                                  "the resume check cannot see a lost optimizer state")
@@ -1272,6 +1305,265 @@ def loop_phase(config, bare_images_a_s: float, device="cuda"):
                             params_max_abs=params_diff(state_c, state_d)),
                         default_algorithms_vs_deterministic_params_max_abs=params_diff(
                             state_a, state_d)))
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def check_kernels_bf16(config, geoms, batch: int):
+    """The bf16 phase's kernels: each bf16 variant at every main-path shape
+    of the forward at ``batch`` against its plain version in bf16 on the
+    same bf16 inputs (both round at the Pallas kernel's points; their f32
+    sums run in another order, so a value may land one bf16 ulp apart:
+    max |kernel - plain| <= ``BF16_TOL`` * max |plain|), with the share of
+    elements that differ at all, and the kernel's ms a call against its
+    bound: the bytes at 2 a value over the memory rate, the operations over
+    the f32 rate (attention, dwconv: f32 arithmetic on the CUDA cores) or
+    the dense bf16 tensor-core rate (the fused layer: its products are
+    bf16 x bf16 with f32 sums, whatever instruction the kernel issues);
+    for dwconv also one cuDNN call on the same bf16 inputs (``F.conv2d``
+    with groups=C: f32 sums, the output rounded once), timed only."""
+    from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
+    from cfpnet_torch.models.transformer import LoFTREncoderLayer
+    from cfpnet_torch.ops.attention import linear_attention as att_plain
+    from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
+    from cfpnet_torch.ops.loftr import loftr_apply
+
+    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 200 + batch)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)).to(bf16)
+
+    def held(name, shape, got, ref):
+        torch.cuda.synchronize()
+        if got.dtype != bf16 or ref.dtype != bf16:
+            raise AssertionError(f"{name} {shape}: got {got.dtype}, plain {ref.dtype}")
+        g, r = got.float(), ref.float()
+        err, top = float((g - r).abs().max()), float(r.abs().max())
+        if not (err <= BF16_TOL * top):
+            raise AssertionError(f"bf16 {name} {shape} at bs={batch}: max err {err} > "
+                                 f"{BF16_TOL} * {top}")
+        return dict(max_abs_err=err, max_abs_plain=top, differ_share=float((g != r).float().mean()))
+
+    lines = []
+    for (N, L, S, H, D), calls in sorted(att_shapes.items()):
+        q, k, v = randn(N, L, H, D), randn(N, S, H, D), randn(N, S, H, D)
+        line = held("linear_attention", (N, L, S, H, D),
+                    linear_attention.linear_attention(q, k, v), att_plain(q, k, v))
+        C = H * D
+        line.update(ms=device_ms(lambda: linear_attention.linear_attention(q, k, v)),
+                    **bound_fields(2 * (2 * N * L * C + 2 * N * S * C),
+                                   N * H * (2 * S * D * D + S * D + 2 * L * D * D + 2 * L * D)),
+                    library_ms=None)
+        lines.append(dict(kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D),
+                          calls=calls, **line))
+    for (B, H, W, C, kk), calls in sorted(dw_shapes.items()):
+        x, w, b = randn(B, H, W, C), randn(C, 1, kk, kk, scale=0.05), randn(C)
+        line = held("dwconv", (B, H, W, C, kk), dwconv.depthwise_conv2d(x, w, b), dw_plain(x, w, b))
+        x_nchw = x.permute(0, 3, 1, 2)  # the same memory, as cuDNN's channels-last input
+        line.update(ms=device_ms(lambda: dwconv.depthwise_conv2d(x, w, b)),
+                    **bound_fields(2 * (2 * B * H * W * C + C * kk * kk + C),
+                                   2 * kk * kk * B * H * W * C),
+                    library_ms=device_ms(lambda: F.conv2d(x_nchw, w, b, padding=kk // 2,
+                                                          groups=C)))
+        lines.append(dict(kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=kk), calls=calls,
+                          **line))
+    rng = np.random.default_rng(SEED + 200 + batch)
+    for (N, L, S, C, H), calls in sorted(loftr_shapes.items()):
+        def normal(*shape, mean=0.0, std=1.0):
+            a = (mean + std * rng.standard_normal(shape)).astype(np.float32)
+            return torch.from_numpy(a).cuda()
+
+        x, src = normal(N, L, C).to(bf16), normal(N, S, C).to(bf16)
+        layer = LoFTREncoderLayer(C, H).cuda()
+        for name, w in layer.named_parameters():
+            w.data.copy_(normal(*w.shape, mean=1.0 if name.endswith(("norm1.weight",
+                                                                     "norm2.weight")) else 0.0,
+                                std=0.1))
+        p = layer.to(bf16).loftr_params()
+        D = C // H
+        with torch.no_grad():
+            line = held("fused_loftr", (N, L, S, C, H), fused_loftr.fused_loftr(x, src, p, H),
+                        loftr_apply(x, src, p, H))
+            line.update(ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
+                        **bound_fields(2 * (2 * N * L * C + N * S * C + 10 * C * C + 4 * C),
+                                       2 * (N * L * 8 * C * C + N * S * 2 * C * C
+                                            + N * H * (S + L) * D * D), PEAK_BF16),
+                        library_ms=None)
+        lines.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
+                          calls=calls, **line))
+    for r in lines:
+        emit(dict(phase="kernel_shape_bf16", batch=batch, **r))
+    return lines
+
+
+def bf16_row_fields(name, lines, lines_bs8):
+    """A kernel row's bf16 columns: per bs=1 forward (calls x per-call value)
+    the card's ms, the bound and the library call's ms (None where there is
+    none), and the worst error and differing share over the bs=1 and bs=8
+    shapes; at bs=8 the ms and the bound."""
+    def per_forward(ls, key):
+        return sum(r["calls"] * r[key] for r in ls if r["kernel"] == name)
+
+    mine = [r for r in lines + lines_bs8 if r["kernel"] == name]
+    library = [r["library_ms"] for r in lines if r["kernel"] == name]
+    return dict(card_ms_bf16=per_forward(lines, "ms"), bound_ms_bf16=per_forward(lines, "bound_ms"),
+                library_ms_bf16=(per_forward(lines, "library_ms")
+                                 if None not in library else None),
+                bound_by_bf16=("bytes" if per_forward(lines, "bytes_ms")
+                               >= per_forward(lines, "ops_ms") else "operations"),
+                max_rel_err_bf16=max(r["max_abs_err"] / r["max_abs_plain"] for r in mine),
+                differ_share_bf16=max(r["differ_share"] for r in mine),
+                card_ms_bs8_bf16=per_forward(lines_bs8, "ms"),
+                bound_ms_bs8_bf16=per_forward(lines_bs8, "bound_ms"))
+
+
+def bf16_drift(pred):
+    """Median relative and absolute distance of a bs=1 prediction from the
+    f32 golden ``tests/golden/full_forward.npz`` (its every-16th-pixel
+    slice), as ``tests/test_bf16.py`` measures bf16 against f32:
+    |pred - golden| / (|golden| + 1e-2). Raises beyond ``BF16_DRIFT``."""
+    ref = np.load(GOLDEN_FULL)["pred_slice"]
+    got = pred.float().cpu().numpy()[0, ::16, ::16, 0]
+    err = np.abs(got - ref)
+    out = dict(median_rel=float(np.median(err / (np.abs(ref) + 1e-2))),
+               median_abs=float(np.median(err)), max_abs=float(err.max()),
+               finite=bool(np.isfinite(got).all()))
+    if not (out["finite"] and all(out[k] < v for k, v in BF16_DRIFT.items())):
+        raise AssertionError(f"bf16 forward against the f32 golden: {out}, budget {BF16_DRIFT}")
+    return out
+
+
+def launches_by_dtype():
+    from cfpnet_torch import kernels
+
+    return {k.__name__.rsplit(".", 1)[-1]: dict(k.launches_by_dtype) for k in kernels.KERNELS}
+
+
+def bf16_phase(config, geoms, args, f32_replay_ms):
+    """Phase 11: ``--compute_dtype bfloat16`` through the eval forward.
+
+    - The bf16 kernels against their bf16 plain versions at every bs=1 and
+      bs=8 main-path shape (``check_kernels_bf16``).
+    - The production model cast to bf16 (``cast_to_compute_dtype``) on the
+      golden's inputs cast to bf16: one eager forward with the launch
+      counters set to 0 just before it launches 6 attention, 6 dwconv and
+      18 fused-LoFTR kernels, every one on bf16 tensors (counted by dtype);
+      its prediction within ``BF16_DRIFT`` of the f32 golden.
+    - The bf16 forward captured in a CUDA graph at bs=1 (the golden inputs)
+      and bs=8 (8 synthetic samples): each replay equals the eager bf16
+      forward bit for bit.
+    - ``cfpnet_torch.evaluate_time --compute_dtype bfloat16``, graphed and
+      eager.
+    - One replay of the f32 and of the bf16 graph at bs=1 profiled, device
+      ms by kind (``by_kind``) and busy share against the replay's ms."""
+    from cfpnet_torch import evaluate_time, kernels, weights
+    from cfpnet_torch.data.datasets import SyntheticDataset, collate
+    from cfpnet_torch.graphs import CapturedForward
+    from cfpnet_torch.models.deltar import cast_to_compute_dtype, make_model
+
+    bf16 = torch.bfloat16
+    lines = check_kernels_bf16(config, geoms, 1)
+    lines_bs8 = check_kernels_bf16(config, geoms, 8)
+
+    sd = weights.deterministic_state_dict(config)
+    model = make_model(config, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    cast_to_compute_dtype(model, bf16)
+    img, hist, mask = args
+    args16 = (img.to(bf16), hist.to(bf16), mask)
+    kernels.reset_launches()
+    (bin_edges, pred, prob, _), launches = eager_launches(model, args16, geoms)
+    by_dtype = launches_by_dtype()
+    check_launches(launches, 1)
+    if any(set(d) != {"bfloat16"} for d in by_dtype.values()):
+        raise AssertionError(f"the bf16 forward launched kernels on other dtypes: {by_dtype}")
+    drift = bf16_drift(pred)
+
+    captured = CapturedForward(model, geoms, 1, config)
+    got = [t.clone() for t in captured(*args16)[:3]]
+    same_outputs(got, (bin_edges, pred, prob), "bf16 bs=1 replay")
+    replay16 = device_events(captured.replay)
+    del captured
+    dataset = SyntheticDataset(config, "online_eval", 8)
+    batch = collate([dataset[i] for i in range(8)])
+    args8 = (torch.from_numpy(batch["image"]).cuda().to(bf16),
+             torch.from_numpy(batch["hist_data"]).cuda().to(bf16),
+             torch.from_numpy(batch["mask"]).cuda())
+    eager8, launches8 = eager_launches(model, args8, geoms)
+    check_launches(launches8, 8)
+    captured = CapturedForward(model, geoms, 8, config)
+    same_outputs(captured(*args8), eager8, "bf16 bs=8 replay")
+    del captured, model
+
+    model32 = make_model(config, device="cuda")
+    model32.load_state_dict(sd, strict=True)
+    captured = CapturedForward(model32, geoms, 1, config)
+    captured(*args)
+    replay32 = device_events(captured.replay)
+    del captured, model32
+
+    entry = {}
+    for mode in ("graphed", "eager"):
+        out = evaluate_time.main([f"@{PROD_CONFIG}", "--compute_dtype", "bfloat16",
+                                  "--test_dataset", "synthetic", "--niters", str(BF16_ITERS)]
+                                 + (["--eager"] if mode == "eager" else []))
+        if out["dtype"] != "bfloat16" or not (out["latency_ms_bs1"] > 0):
+            raise AssertionError(f"evaluate_time --compute_dtype bfloat16 ({mode}): {out}")
+        entry[mode] = out["latency_ms_bs1"]
+    return dict(phase="bf16", kernels_bs1=len(lines), kernels_bs8=len(lines_bs8),
+                launches=launches, launches_by_dtype=by_dtype, launches_bs8=launches8,
+                drift_vs_f32_golden=drift, budget=BF16_DRIFT, bs1_replay_equals_eager=True,
+                bs8_replay_equals_eager=True,
+                evaluate_time_ms_bs1=entry, evaluate_time_niters=BF16_ITERS,
+                replay_bf16=busy(replay16, entry["graphed"]),
+                replay_f32=busy(replay32, f32_replay_ms),
+                replay_by_kind=dict(bfloat16=by_kind(replay16), float32=by_kind(replay32))
+                ), lines, lines_bs8
+
+
+def sweep_phase(work: str):
+    """Phase 12: ``python -m cfpnet_torch.evaluate_all`` in ``work``, which
+    holds ``weights/chip_smoke_loop`` from the loop phase (two epochs and
+    ``best``), on 8 synthetic images: two CSV rows of finite metrics, the
+    launches of 2 x 8 eval forwards, and the .xlsx beside the CSV; the two
+    rows come from two files whose weights differ, and their unrounded
+    metrics differ too."""
+    import csv
+    import shutil
+
+    from cfpnet_torch import evaluate_all, kernels, weights
+
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = evaluate_all.main([f"@{PROD_CONFIG}", "--test_dataset", "synthetic",
+                                 "--synthetic_length", "8", "--epochs", str(LOOP_EPOCHS),
+                                 "--name", "chip_smoke_loop", "--save_dir", "results"])
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(out["reports"][0]) as f:
+            table = list(csv.reader(f))
+        if (table[0] != ["epoch"] + list(EVAL_METRICS) or len(table) != 1 + LOOP_EPOCHS
+                or not all(math.isfinite(float(v)) for row in table[1:] for v in row)
+                or not os.path.getsize(out["reports"][1])):
+            raise AssertionError(f"evaluate_all wrote {table}")
+        want = {k: LOOP_EPOCHS * 8 * v for k, v in EVAL_LAUNCHES.items()}
+        if launches != want:
+            raise AssertionError(f"the sweep launched {launches}, expected {want}")
+        first, second = (weights.load_reference_checkpoint(f) for f in out["weights"])
+        changed = sum(not torch.equal(first[k], second[k]) for k in first)
+        if len(set(out["weights"])) != LOOP_EPOCHS or not changed:
+            raise AssertionError(f"the sweep read {out['weights']}, {changed} tensors apart")
+        if out["metrics"][0] == out["metrics"][1]:
+            raise AssertionError(f"both epochs' unrounded metrics are {out['metrics'][0]}")
+        return dict(phase="sweep", rows=table[1:], metrics=out["metrics"],
+                    weights=out["weights"], tensors_changed=changed, seconds=seconds,
+                    launches=launches)
     finally:
         os.chdir(here)
         shutil.rmtree(work, ignore_errors=True)
@@ -1345,7 +1637,7 @@ def main() -> int:
     # 7. entry: the eval entry point on synthetic images
     entry = {}
     for bs, iters in ((1, 50), (2, 0)):
-        out = evaluate.main([f"@{PROD_CONFIG}", "--dataset", "synthetic",
+        out = evaluate.main([f"@{PROD_CONFIG}", "--test_dataset", "synthetic",
                              "--synthetic_length", "4", "--eval_bs", str(bs),
                              "--time_iters", str(iters)])
         if len(out["metrics"]) != 9 or not all(math.isfinite(v)
@@ -1381,12 +1673,26 @@ def main() -> int:
 
     # 10. the training loop: two epochs with validation and checkpoints,
     # a profiled step, and a resume from the epoch-0 checkpoint
-    loop = loop_phase(tconfig, train["images_a_s"])
+    import tempfile
+
+    sweep_dir = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    loop = loop_phase(tconfig, train["images_a_s"], keep_weights=sweep_dir)
     emit(loop)
     for r in rows:
         r["launches_loop"] = loop["launches_run"][r["name"]]
 
-    # 11. the headline benchmark at reduced iterations (its own JSON line)
+    # 11. bf16: the bf16 kernels, the bf16 forward's launches, drift and
+    # graphs, evaluate_time --compute_dtype bfloat16, device time by kind
+    bf16, lines16, lines16_bs8 = bf16_phase(config, geoms, args, entry["bs1"]["latency_ms_bs1"])
+    emit(bf16)
+    for r in rows:
+        r.update(bf16_row_fields(r["name"], lines16, lines16_bs8),
+                 launches_bf16=bf16["launches_by_dtype"][r["name"]].get("bfloat16", 0))
+
+    # 12. the epoch sweep over the loop's weights
+    emit(sweep_phase(sweep_dir))
+
+    # 13. the headline benchmark at reduced iterations (its own JSON line)
     if bench.main(["--iters", str(BENCH_ITERS), "--train_iters", str(BENCH_TRAIN_ITERS)]) != 0:
         raise AssertionError("cfpnet_torch.bench failed")
     emit(dict(phase="done", seconds_total=time.perf_counter() - t_start))

@@ -408,3 +408,101 @@ def test_captured_forward_refuses(gen):
         captured(inputs[0][:1].double(), inputs[1][:1], inputs[2][:1])
     with pytest.raises(ValueError):
         CapturedForward(model.cpu(), geoms, 1, config)
+
+
+# bf16 variants: max |kernel - plain| <= 2^-7 max |plain|, one bf16 ulp at the
+# top of the range (kernel and plain version round at the same points; their
+# f32 sums run in another order, so a value near a rounding boundary may land
+# one ulp apart)
+BF16_TOL = 2.0 ** -7
+MAIN_PATH_DWCONV = [(1, 30, 40, 128, 7), (1, 60, 80, 64, 15), (1, 120, 160, 32, 31)]
+
+
+def _assert_close_bf16(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    assert err <= BF16_TOL * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("N,L,S,H,D", ATTENTION_CALLED + [(3, 37, 5, 4, 4), (140, 144, 144, 8, 4)])
+def test_linear_attention_kernel_bf16(gen, N, L, S, H, D):
+    q, k, v = (_randn(gen, N, n, H, D).bfloat16() for n in (L, S, S))
+    kernels.reset_launches()
+    got = linear_attention.linear_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert linear_attention.launches == 1
+    _assert_close_bf16(got, attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("B,H,W,C,k", MAIN_PATH_DWCONV + [(2, 17, 33, 12, 15)])
+def test_dwconv_kernel_bf16(gen, B, H, W, C, k):
+    x, w, b = _randn(gen, B, H, W, C), 0.05 * _randn(gen, C, 1, k, k), _randn(gen, C)
+    x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    kernels.reset_launches()
+    got = dwconv.depthwise_conv2d(x, w, b)
+    torch.cuda.synchronize()
+    assert dwconv.launches == 1
+    _assert_close_bf16(got, dwconv_plain(x, w, b))
+
+
+def _loftr_params_bf16(gen, C):
+    stored, _ = _loftr_params(gen, C)
+    stored = {k: v.bfloat16() for k, v in stored.items()}
+    return LoFTRParams(**{k: v.t() if v.dim() == 2 else v for k, v in stored.items()})
+
+
+@pytest.mark.parametrize("N,L,S,C,H", MAIN_PATH_LOFTR + [(3, 37, 5, 32, 8), (1, 17, 9, 128, 4)])
+def test_fused_loftr_kernel_bf16(gen, N, L, S, C, H):
+    x, src = _randn(gen, N, L, C).bfloat16(), _randn(gen, N, S, C).bfloat16()
+    p = _loftr_params_bf16(gen, C)
+    kernels.reset_launches()
+    got = fused_loftr.fused_loftr(x, src, p, H)
+    torch.cuda.synchronize()
+    assert fused_loftr.launches == 1
+    _assert_close_bf16(got, loftr_apply(x, src, p, H))
+
+
+def test_bf16_backwards_raise(gen):
+    """The bf16 variants are forward only (the bf16 train step is ROADMAP
+    §A 2c): each gradient raises NotImplementedError naming it."""
+    q = _randn(gen, 1, 8, 4, 8).bfloat16().requires_grad_()
+    with pytest.raises(NotImplementedError, match="2c"):
+        linear_attention.linear_attention(q, q, q).sum().backward()
+    x = _randn(gen, 1, 9, 10, 4).bfloat16().requires_grad_()
+    with pytest.raises(NotImplementedError, match="2c"):
+        dwconv.depthwise_conv2d(x, (0.05 * _randn(gen, 4, 1, 7, 7)).bfloat16()).sum().backward()
+    x = _randn(gen, 2, 8, 32).bfloat16().requires_grad_()
+    with pytest.raises(NotImplementedError, match="2c"):
+        fused_loftr.fused_loftr(x, x, _loftr_params_bf16(gen, 32), 4).sum().backward()
+
+
+def test_kernels_refuse_mixed_dtypes(gen):
+    q = _randn(gen, 1, 8, 4, 8)
+    with pytest.raises(TypeError):
+        linear_attention.linear_attention(q.bfloat16(), q, q)
+    x = _randn(gen, 1, 9, 10, 4)
+    with pytest.raises(TypeError):
+        dwconv.depthwise_conv2d(x.bfloat16(), 0.05 * _randn(gen, 4, 1, 7, 7))
+    x = _randn(gen, 2, 8, 32)
+    with pytest.raises(TypeError):
+        fused_loftr.fused_loftr(x.bfloat16(), x.bfloat16(), _loftr_params(gen, 32)[1], 4)
+
+
+def test_captured_forward_bf16(gen):
+    """The bf16 model (``cast_to_compute_dtype``) captured at bs=1: the replay
+    equals the eager bf16 forward bit for bit, an eager pass launches 3/3/9
+    kernels, and f32 inputs are refused."""
+    from cfpnet_torch.graphs import CapturedForward
+    from cfpnet_torch.models.deltar import cast_to_compute_dtype
+
+    config, model, geoms, inputs = _captured_model()
+    cast_to_compute_dtype(model, torch.bfloat16)
+    one = [inputs[0][:1].bfloat16(), inputs[1][:1].bfloat16(), inputs[2][:1]]
+    kernels.reset_launches()
+    want = _eager(model, one, geoms)
+    assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 3, 9)
+    captured = CapturedForward(model, geoms, 1, config)
+    _assert_equal(captured(*one)[:3], want)
+    with pytest.raises(ValueError):
+        captured(inputs[0][:1], inputs[1][:1], inputs[2][:1])

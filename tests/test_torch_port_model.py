@@ -167,7 +167,7 @@ def test_evaluate_entry_point_on_cpu(tiny_config):
     """The eval entry point, run as a user would with --device cpu, on two
     synthetic images at bs=2 (one forward) and bs=1 with a ragged tail."""
     cfg = tiny_config
-    argv = ["--device", "cpu", "--dataset", "synthetic", "--synthetic_length", "3",
+    argv = ["--device", "cpu", "--test_dataset", "synthetic", "--synthetic_length", "3",
             "--tiny_model", "--n_bins", "16", "--native_height", "64", "--native_width", "96",
             "--eval_zone_num_cfg", "2", "--eval_patch_px", "16", "--sample_uniform",
             "--change_embedding", "--attention_layer", *cfg.attention_layer]

@@ -145,7 +145,7 @@ def test_bench_smoke_prints_one_json_line(capsys):
 TINY_ARGV = ["--device", "cpu", "--niters", "4", "--tiny_model", "--n_bins", "16",
              "--native_height", "64", "--native_width", "96", "--eval_zone_num_cfg", "2",
              "--eval_patch_px", "16", "--sample_uniform", "--change_embedding",
-             "--dataset_eval", "synthetic", "--attention_layer", "hist2image", "combine1", "image"]
+             "--test_dataset", "synthetic", "--attention_layer", "hist2image", "combine1", "image"]
 
 
 def test_evaluate_time_cli_eager_on_cpu(capsys):
