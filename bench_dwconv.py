@@ -3,15 +3,17 @@
 
     python3 bench_dwconv.py --tree parent=DIR --tree new=. --order parent,new,new,parent
     python3 bench_dwconv.py --kernel linear_attention --tree parent=DIR --tree new=.
+    python3 bench_dwconv.py --kernel fused_loftr --dtype bfloat16 --tree parent=DIR --tree new=.
 
 Each ``--tree LABEL=DIR`` is a checkout of the repo (``.``, or a commit
 unpacked by ``git archive``). Its ``cfpnet_torch`` package is imported under
 a name of its own, so each tree runs its own wrapper, which builds that
 tree's source into that tree's ``cfpnet_torch/_build/``; the builds run at
 once. The trees run in the order ``--order`` gives (labels may repeat:
-parent, change, change, parent) at the kernel's three main-path shapes,
-timed by ``chip_smoke.device_ms`` against ``chip_smoke.bound_fields`` and
-held against this tree's plain version:
+parent, change, change, parent) at the kernel's main-path shapes, on
+inputs of ``--dtype`` (float32, or bfloat16 for the kernels' bf16
+variants), timed by ``chip_smoke.device_ms`` against
+``chip_smoke.bound_fields`` and held against this tree's plain version:
 
 - ``dwconv`` (the default): ``kernels/dwconv.py::depthwise_conv2d`` at k=31
   on 120x160x32, k=15 on 60x80x64, k=7 on 30x40x128, bs=1;
@@ -19,12 +21,21 @@ held against this tree's plain version:
   at the three ``LoFTRNewCross9`` calls (N, L, S, H, D) = (1, 1200, 784, 4,
   32), (1, 4800, 3136, 4, 16), (1, 19200, 12544, 4, 8); each line also
   carries the device kernels of one call by name (``chip_smoke.kernel_split``,
-  torch.profiler) and, where the tree has one, its ``launch_plan``.
+  torch.profiler) and, where the tree has one, its ``launch_plan``;
+- ``fused_loftr``: ``kernels/fused_loftr.py::fused_loftr`` at the nine
+  shapes of the bs=1 forward and the nine of the bs=8 forward
+  (``chip_smoke.main_path_shapes``), weights of std 0.1 as in
+  ``chip_smoke.py``'s phases 3 and 11; each line also carries the call's
+  two device kernels, ``summary_ms`` and ``rows_ms``
+  (``chip_smoke.pass_split``, torch.profiler), and, where the tree has
+  one, its ``launch_plan``. In bfloat16 the bound takes the products at
+  the dense bf16 tensor-core rate, as phase 11 does.
 
 Prints the card's name and power limit, one JSON line per run and shape
 (with the launches the tree's wrapper counted and whether the output is
-within ``chip_smoke.TOL`` of the plain version) and last the per-forward ms
-of each run (two calls of each shape a forward). A tree that computes
+within ``chip_smoke.TOL``, or ``chip_smoke.BF16_TOL`` in bfloat16, of the
+plain version) and last the per-forward ms of each run at each batch size
+(two calls of each shape a forward). A tree that computes
 something else on purpose (a diagnostic copy) reports its error like any
 other; correctness is ``chip_smoke.py``'s and the card tests' to decide.
 """
@@ -42,47 +53,92 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import SEED, TOL, bound_fields, device_ms, kernel_split
+import numpy as np
+
+from chip_smoke import (BF16_TOL, PEAK_BF16, PEAK_F32, SEED, TOL, bound_fields, device_ms,
+                        kernel_split, main_path_shapes, pass_split, production_config)
 from cfpnet_torch.ops.attention import linear_attention as attention_plain
 from cfpnet_torch.ops.dwconv import depthwise_conv2d as dwconv_plain
+from cfpnet_torch.ops.loftr import LoFTRParams, loftr_apply
 
 CALLS_PER_FORWARD = 2
 
 
-def _dwconv_inputs(shape, gen):
+def _dwconv_inputs(shape, gen, dtype):
     B, H, W, C, k = shape
     x = torch.randn(B, H, W, C, device="cuda", generator=gen)
     w = 0.05 * torch.randn(C, 1, k, k, device="cuda", generator=gen)
     b = torch.randn(C, device="cuda", generator=gen)
-    return x, w, b
+    return x.to(dtype), w.to(dtype), b.to(dtype)
 
 
-def _dwconv_bound(shape):
+def _dwconv_bound(shape, size):
     B, H, W, C, k = shape
-    return bound_fields(4 * (2 * B * H * W * C + C * k * k + C), 2 * k * k * B * H * W * C)
+    return bound_fields(size * (2 * B * H * W * C + C * k * k + C), 2 * k * k * B * H * W * C)
 
 
-def _attention_inputs(shape, gen):
+def _attention_inputs(shape, gen, dtype):
     N, L, S, H, D = shape
-    return tuple(torch.randn(N, n, H, D, device="cuda", generator=gen) for n in (L, S, S))
+    return tuple(torch.randn(N, n, H, D, device="cuda", generator=gen).to(dtype)
+                 for n in (L, S, S))
 
 
-def _attention_bound(shape):
+def _attention_bound(shape, size):
     N, L, S, H, D = shape
     C = H * D
-    return bound_fields(4 * (2 * N * L * C + 2 * N * S * C),
+    return bound_fields(size * (2 * N * L * C + 2 * N * S * C),
                         N * H * (2 * S * D * D + S * D + 2 * L * D * D + 2 * L * D))
 
 
-# kernel: (module name in kernels/, wrapper, shapes, inputs, plain version, bound)
+def _loftr_inputs(shape, gen, dtype):
+    """x, source, the layer's weights (as ``LoFTREncoderLayer.loftr_params``
+    hands them over: [in, out] views of [out, in] storage) and the head
+    count; numpy-seeded, std 0.1 with the LayerNorm scales around 1."""
+    N, L, S, C, H = shape
+    rng = np.random.default_rng(SEED + N * L)
+
+    def normal(*dims, mean=0.0, std=1.0):
+        a = (mean + std * rng.standard_normal(dims)).astype(np.float32)
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    x, src = normal(N, L, C), normal(N, S, C)
+    stored = dict(wq=(C, C), wk=(C, C), wv=(C, C), wm=(C, C), g1=(C,), b1=(C,),
+                  w0=(2 * C, 2 * C), w1=(C, 2 * C), g2=(C,), b2=(C,))
+    p = {k: normal(*dims, mean=1.0 if k in ("g1", "g2") else 0.0, std=0.1)
+         for k, dims in stored.items()}
+    return x, src, LoFTRParams(**{k: v.t() if v.dim() == 2 else v for k, v in p.items()}), H
+
+
+def _loftr_bound(shape, size):
+    N, L, S, C, H = shape
+    D = C // H
+    return bound_fields(size * (2 * N * L * C + N * S * C + 10 * C * C + 4 * C),
+                        2 * (N * L * 8 * C * C + N * S * 2 * C * C + N * H * (S + L) * D * D),
+                        PEAK_BF16 if size == 2 else PEAK_F32)
+
+
+def _loftr_shapes():
+    from cfpnet_torch.models.deltar import model_geometries
+
+    config = production_config()
+    geoms = model_geometries(config, "online_eval")
+    return tuple((batch, shape) for batch in (1, 8)
+                 for shape in sorted(main_path_shapes(config, geoms, batch)[2]))
+
+
+# kernel: (module name in kernels/, wrapper, (batch, shape) pairs, inputs, plain version, bound)
 KERNELS = {
     "dwconv": ("dwconv", "depthwise_conv2d",
-               ((1, 120, 160, 32, 31), (1, 60, 80, 64, 15), (1, 30, 40, 128, 7)),
+               tuple((1, s) for s in ((1, 120, 160, 32, 31), (1, 60, 80, 64, 15),
+                                      (1, 30, 40, 128, 7))),
                _dwconv_inputs, dwconv_plain, _dwconv_bound),
     "linear_attention": ("linear_attention", "linear_attention",
-                         ((1, 1200, 784, 4, 32), (1, 4800, 3136, 4, 16), (1, 19200, 12544, 4, 8)),
+                         tuple((1, s) for s in ((1, 1200, 784, 4, 32), (1, 4800, 3136, 4, 16),
+                                                (1, 19200, 12544, 4, 8))),
                          _attention_inputs, attention_plain, _attention_bound),
+    "fused_loftr": ("fused_loftr", "fused_loftr", None, _loftr_inputs, loftr_apply, _loftr_bound),
 }
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def load_tree(label: str, root: str):
@@ -103,6 +159,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", required=True, help="LABEL=DIR, a checkout")
     ap.add_argument("--order", default=None, help="comma-separated labels (default: as given)")
     ap.add_argument("--kernel", default="dwconv", choices=sorted(KERNELS))
+    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_dwconv: no CUDA device", file=sys.stderr)
@@ -111,46 +168,59 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     source, wrapper, shapes, make_inputs, plain, bound_of = KERNELS[args.kernel]
+    shapes = shapes or _loftr_shapes()
+    dtype = DTYPES[args.dtype]
+    size, tol = (2, BF16_TOL) if dtype == torch.bfloat16 else (4, TOL)
     trees = dict(spec.split("=", 1) for spec in args.tree)
     kernels = {label: load_tree(label, root) for label, root in trees.items()}
+
+    def build(k):  # the kernel's sources in the tree (fused_loftr may have a bf16 file)
+        names = [n for n in k.build.SOURCES if n.startswith(source)]
+        return sum(k.build.build(names).values())
+
     with ThreadPoolExecutor(len(kernels)) as pool:
-        seconds = dict(zip(kernels, pool.map(lambda k: k.build.build([source])[source],
-                                             kernels.values())))
+        seconds = dict(zip(kernels, pool.map(build, kernels.values())))
     print(json.dumps(dict(build_seconds=seconds)), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     inputs = []
-    for shape in shapes:
-        args_in = make_inputs(shape, gen)
-        inputs.append((args_in, plain(*args_in)))
+    with torch.no_grad():
+        for batch, shape in shapes:
+            args_in = make_inputs(shape, gen, dtype)
+            inputs.append((args_in, plain(*args_in).float()))
 
     per_forward = {}
     with torch.no_grad():
         for run, label in enumerate(args.order.split(",") if args.order else trees):
             module = getattr(kernels[label], source)
             fn = getattr(module, wrapper)
-            total = 0.0
-            for shape, (args_in, ref) in zip(shapes, inputs):
+            totals = {}
+            for (batch, shape), (args_in, ref) in zip(shapes, inputs):
                 module.reset_launches()
-                err = float((fn(*args_in) - ref).abs().max())
+                err = float((fn(*args_in).float() - ref).abs().max())
                 scale = float(ref.abs().max())
                 launches = module.launches
                 ms = device_ms(lambda: fn(*args_in))
-                bound = bound_of(shape)
+                bound = bound_of(shape, size)
                 extra = {}
                 if args.kernel == "linear_attention":
                     extra["device_kernels"] = kernel_split(lambda: fn(*args_in))
-                    if hasattr(module, "launch_plan"):
-                        extra["plan"] = dict(module.launch_plan(*shape))
-                print(json.dumps(dict(run=run, tree=label, kernel=args.kernel, shape=shape,
-                                      ms=ms, bound_ms=bound["bound_ms"],
-                                      x_bound=ms / bound["bound_ms"], launches=launches,
-                                      max_abs_err=err, max_abs_plain=scale,
-                                      within_tol=err <= TOL * scale, **extra)), flush=True)
-                total += CALLS_PER_FORWARD * ms
-            per_forward.setdefault(label, []).append(total)
-    print(json.dumps(dict(nvidia_smi=smi, kernel=args.kernel, per_forward_ms=per_forward)),
-          flush=True)
+                if args.kernel == "fused_loftr":
+                    extra.update(pass_split(lambda: fn(*args_in)))
+                if hasattr(module, "launch_plan"):
+                    plan_args = shape + ((dtype,) if args.kernel == "fused_loftr" else ())
+                    extra["plan"] = dict(module.launch_plan(*plan_args))
+                print(json.dumps(dict(run=run, tree=label, kernel=args.kernel, dtype=args.dtype,
+                                      batch=batch, shape=shape, ms=ms, bound_ms=bound["bound_ms"],
+                                      bound_by=bound["bound_by"], x_bound=ms / bound["bound_ms"],
+                                      launches=launches, max_abs_err=err, max_abs_plain=scale,
+                                      within_tol=err <= tol * scale, **extra)), flush=True)
+                key = f"bs{batch}"
+                totals[key] = totals.get(key, 0.0) + CALLS_PER_FORWARD * ms
+            for key, total in totals.items():
+                per_forward.setdefault(key, {}).setdefault(label, []).append(total)
+    print(json.dumps(dict(nvidia_smi=smi, kernel=args.kernel, dtype=args.dtype,
+                          per_forward_ms=per_forward)), flush=True)
     return 0
 
 
