@@ -29,7 +29,11 @@ variants), timed by ``chip_smoke.device_ms`` against
   two device kernels, ``summary_ms`` and ``rows_ms``
   (``chip_smoke.pass_split``, torch.profiler), and, where the tree has
   one, its ``launch_plan``. In bfloat16 the bound takes the products at
-  the dense bf16 tensor-core rate, as phase 11 does.
+  the dense bf16 tensor-core rate, as phase 11 does. With ``--sweep`` each
+  bf16 line also times the call under every row variant the tree builds
+  (``kernels/fused_loftr.py::ROW_VARIANTS_BF16``) and under 1, 2, 4 and 8
+  groups a summary block, the rest of the plan as ``launch_plan`` makes it
+  (``sweep_ms``; each held against the plain version like the call).
 
 Prints the card's name and power limit, one JSON line per run and shape
 (with the launches the tree's wrapper counted and whether the output is
@@ -43,6 +47,7 @@ other; correctness is ``chip_smoke.py``'s and the card tests' to decide.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -141,6 +146,42 @@ KERNELS = {
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@contextlib.contextmanager
+def _plan(module, plan):
+    """The tree's wrapper launching with ``plan`` instead of its own."""
+    own = module.launch_plan
+    module.launch_plan = lambda *args: plan
+    try:
+        yield
+    finally:
+        module.launch_plan = own
+
+
+def _sweep(module, fn, args_in, shape, ref, tol):
+    """ms of one bf16 fused-layer call under each row variant and each count
+    of summary groups a block, keyed "tm<rows>_cl<cluster>" and
+    "groups<g>"."""
+    N, L, S, C, H = shape
+    base = dict(module.launch_plan(*shape, torch.bfloat16))
+    plans = {}
+    for tm, cl in module.ROW_VARIANTS_BF16[C]:
+        resident = module._row_units(C, C // H, tm, cl, torch.bfloat16)[2]
+        units = min(resident, -(-N * L // tm))
+        plans[f"tm{tm}_cl{cl}"] = dict(base, tm=tm, cl=cl, units=units)
+    if base["sum_split"] == 1:
+        hg = C // max(C // H, 16)
+        for g in (1, 2, 4, 8):
+            plans[f"groups{g}"] = dict(base, sum_groups=g, sum_blocks=hg * -(-N // g))
+    out = {}
+    for key, plan in plans.items():
+        with _plan(module, plan):
+            err = float((fn(*args_in).float() - ref).abs().max())
+            if not err <= tol * float(ref.abs().max()):
+                raise AssertionError(f"{shape} under {key}: max err {err}")
+            out[key] = device_ms(lambda: fn(*args_in))
+    return out
+
+
 def load_tree(label: str, root: str):
     """``root``'s ``cfpnet_torch.kernels`` package, imported as
     ``_tree_<label>.kernels``."""
@@ -160,6 +201,8 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default=None, help="comma-separated labels (default: as given)")
     ap.add_argument("--kernel", default="dwconv", choices=sorted(KERNELS))
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--sweep", action="store_true",
+                    help="fused_loftr in bfloat16: also time every row variant and summary split")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_dwconv: no CUDA device", file=sys.stderr)
@@ -207,6 +250,9 @@ def main(argv=None) -> int:
                     extra["device_kernels"] = kernel_split(lambda: fn(*args_in))
                 if args.kernel == "fused_loftr":
                     extra.update(pass_split(lambda: fn(*args_in)))
+                    if (args.sweep and dtype == torch.bfloat16
+                            and hasattr(module, "ROW_VARIANTS_BF16")):
+                        extra["sweep_ms"] = _sweep(module, fn, args_in, shape, ref, tol)
                 if hasattr(module, "launch_plan"):
                     plan_args = shape + ((dtype,) if args.kernel == "fused_loftr" else ())
                     extra["plan"] = dict(module.launch_plan(*plan_args))

@@ -1,4 +1,4 @@
-// A whole LoFTR encoder layer, f32 or bf16 in and out, for sm_90a.
+// A whole LoFTR encoder layer, f32 in and out, for sm_90a.
 //
 // Replaces the TPU kernel cfpnet_tpu/ops/pallas_loftr.py::_fused_loftr_impl
 // (kernel `_kernel`, public `fused_loftr`). Computes, for x [N, L, C] and
@@ -100,30 +100,15 @@
 // allow no more). The summary pass: 91,392 (C = 128, D = 32), 51,776-64,000
 // otherwise.
 //
-// bf16 (cfp_fused_loftr_bf16): x, source, every weight and the output are
-// bf16; the Pallas kernel casts the weights to bf16, accumulates the q, k, v
-// products in f32 and keeps them f32, rounds the attention message to bf16
-// before the merge, LN1's output and the ReLU output, keeps LN2 and the
-// residual in f32 and rounds the output (pallas_loftr.py:108-142, 168-171).
-// This variant rounds at those points and nowhere else. Every operand of
-// its products is then bf16-valued (x and the source, the weights, the
-// rounded message, the rounded LN1 output and hidden), and TF32 holds a
-// bf16 value exactly, so each product is ONE TF32 mma.sync m16n8k8 a tile
-// with the bits taken as they are: no hi/lo split, and the product of two
-// such operands is exact in f32. The weights are staged by the threads
-// (8-byte loads of 4 bf16, converted to f32) into the layout the TMA gives
-// the f32 path, so the shared memory, tiles and clusters are those of f32;
-// the activations are converted as they are staged and rounded where the
-// Pallas body rounds. LayerNorm statistics, the attention's sums and the
-// KV summary are f32 as in f32.
+// The bf16 variant (cfp_fused_loftr_bf16) is a design of its own, for the
+// bf16 tensor cores: fused_loftr_bf16.cu.
 
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 #include "elem.cuh"
 #include "hopper.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -179,10 +164,7 @@ struct RowCfg {
 // adjacent k 2(t%2), 2(t%2) + 1 of chunk c + 4 (t/2) of the slab, c = 0..3
 // over a slab's four steps: one 8-byte read an operand pair, free of bank
 // conflicts in both layouts.
-//
-// EXACT: every operand is bf16-valued, so one TF32 product a tile, on the
-// operands' bits, is exact (the bf16 path).
-template <int K, int O, int NT, bool EXACT>
+template <int K, int O, int NT>
 __device__ __forceinline__ void mma_3xtf32(const float* A, int lda, const float* W,
                                            float (&acc)[NT][4]) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -202,18 +184,6 @@ __device__ __forceinline__ void mma_3xtf32(const float* A, int lda, const float*
     for (int c = 0; c < 4; ++c) {
       const float2 p = *reinterpret_cast<const float2*>(a0 + 32 * s + 4 * c);
       const float2 q = *reinterpret_cast<const float2*>(a8 + 32 * s + 4 * c);
-      if constexpr (EXACT) {
-        const uint32_t a[4] = {__float_as_uint(p.x), __float_as_uint(q.x), __float_as_uint(p.y),
-                               __float_as_uint(q.y)};
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float2 w =
-              *reinterpret_cast<const float2*>(w0 + 32 * (s * O + 8 * j) + 4 * (c ^ x));
-          const uint32_t b[2] = {__float_as_uint(w.x), __float_as_uint(w.y)};
-          cfp::mma_tf32(big[j], a, b);
-        }
-        continue;
-      }
       uint32_t ah[4], al[4];
       cfp::split_tf32(p.x, ah[0], al[0]);
       cfp::split_tf32(q.x, ah[1], al[1]);
@@ -254,7 +224,7 @@ __host__ __device__ constexpr int warp_tile_width() {
 // since splitting each A fragment for one tile only costs more issue slots
 // than the idle warps would fill; where there are more tiles than warps
 // (two blocks an SM, with registers short) a warp takes several.
-template <int TM, int K, int O, int NTMAX, bool EXACT, class Store>
+template <int TM, int K, int O, int NTMAX, class Store>
 __device__ __forceinline__ void product(const float* A, int lda, const float* W, Store store) {
   constexpr int MT = TM / 16, NTT = O / 8;
   constexpr int NT = warp_tile_width<MT, NTT, NTMAX>();
@@ -264,7 +234,7 @@ __device__ __forceinline__ void product(const float* A, int lda, const float* W,
   for (int wt = threadIdx.x / 32; wt < WT; wt += kWarps) {
     const int m0 = (wt / WPM) * 16, n0 = (wt % WPM) * NT * 8;
     float acc[NT][4];
-    mma_3xtf32<K, O, NT, EXACT>(A + m0 * lda, lda, W + n0 * 32, acc);
+    mma_3xtf32<K, O, NT>(A + m0 * lda, lda, W + n0 * 32, acc);
     const int r = m0 + lane / 4;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -336,13 +306,12 @@ struct SumCfg {
 
 // grid (N * HG * split), clusters of `split` blocks when split > 1. kv:
 // [N, H, D*D + D] f32 (KV row-major, then ksum). wk, wv: [C, C] as [out,
-// in]. src and the weights of element type T.
-template <class T, int C, int D>
+// in].
+template <int C, int D>
 __global__ void __launch_bounds__(kThreads)
-summary_kernel(const T* __restrict__ src, const T* __restrict__ wk, const T* __restrict__ wv,
-               float* __restrict__ kv, int S, int split) {
+summary_kernel(const float* __restrict__ src, const float* __restrict__ wk,
+               const float* __restrict__ wv, float* __restrict__ kv, int S, int split) {
   using K = SumCfg<C, D>;
-  constexpr bool kExact = sizeof(T) == 2;
   cfp::launch_dependents();
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -359,15 +328,15 @@ summary_kernel(const T* __restrict__ src, const T* __restrict__ wk, const T* __r
   for (int it = 0; it < 2 * K::OW * C / 4 / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int o = i / (C / 4), k = 4 * (i % (C / 4));
-    const T* w = o < K::OW ? wk + static_cast<size_t>(hg * K::OW + o) * C
-                           : wv + static_cast<size_t>(hg * K::OW + o - K::OW) * C;
+    const float* w = o < K::OW ? wk + static_cast<size_t>(hg * K::OW + o) * C
+                               : wv + static_cast<size_t>(hg * K::OW + o - K::OW) * C;
     *reinterpret_cast<float4*>(s_w + (k / 32) * 2 * K::OW * 32 + o * 32 +
                                4 * (((k % 32) / 4) ^ (o % 8))) = cfp::load4(w + k);
   }
   const int per_rank = (S + split - 1) / split;
   const int s_begin = rank * per_rank, s_end = min(S, s_begin + per_rank);
   const float s_len = static_cast<float>(S);
-  const T* sn = src + static_cast<size_t>(n) * S * C;
+  const float* sn = src + static_cast<size_t>(n) * S * C;
 
   float4 part[K::NI];
 #pragma unroll
@@ -400,9 +369,9 @@ summary_kernel(const T* __restrict__ src, const T* __restrict__ wk, const T* __r
               make_float2(v.x / s_len, v.y / s_len);
       };
       if (rows - r0 > 32)
-        product<64, C, 2 * K::OW, 2, kExact>(s_src + r0 * K::LDS, K::LDS, s_w, store);
+        product<64, C, 2 * K::OW, 2>(s_src + r0 * K::LDS, K::LDS, s_w, store);
       else
-        product<32, C, 2 * K::OW, 2, kExact>(s_src + r0 * K::LDS, K::LDS, s_w, store);
+        product<32, C, 2 * K::OW, 2>(s_src + r0 * K::LDS, K::LDS, s_w, store);
     }
     __syncthreads();
     // the sums, four at a time over the thread's row slice; four
@@ -481,36 +450,19 @@ summary_kernel(const T* __restrict__ src, const T* __restrict__ wk, const T* __r
   cluster.sync();  // the partials stay in place until block 0 has read them
 }
 
-// The O rows of a [*, K] weight from w (its first row the block's), as the
-// TMA lays out the f32 path's (32-column slabs of 128-byte rows, 16-byte
-// chunk c of row o at c ^ (o % 8)), converted to f32: the bf16 path's
-// staging, 4 elements a thread at a time.
-template <int O, int K, class T>
-__device__ __forceinline__ void stage_weight(float* dst, const T* w) {
-  for (int i = threadIdx.x; i < O * K / 4; i += kThreads) {
-    const int o = i / (K / 4), k = 4 * (i % (K / 4));
-    *reinterpret_cast<float4*>(dst + (k / 32) * O * 32 + o * 32 + 4 * (((k % 32) / 4) ^ (o % 8))) =
-        cfp::load4(w + static_cast<size_t>(o) * K + k);
-  }
-}
-
 // grid: CL * (resident clusters, or fewer when there are fewer tiles), in
 // clusters of CL. x, out: [N*L, C]; kv from the summary pass. Weights, of
-// their [out, in] storage: wq, wm [C, C]; w0 [2C, 2C]; w1 [C, 2C]; in f32 by
-// tensor maps (boxes of 32 columns by the block's rows, 128-byte swizzle),
-// in bf16 from the pointers (the tensor maps are then unused). g*, b* [C].
-// x, out, the weights and g*, b* of element type T.
-template <class T, int C, int D, int TM_>
+// their [out, in] storage, by tensor maps (boxes of 32 columns by the block's
+// rows, 128-byte swizzle): wq, wm [C, C]; w0 [2C, 2C]; w1 [C, 2C]. g*, b* [C].
+template <int C, int D, int TM_>
 __global__ void __launch_bounds__(kThreads, C == 32 ? 2 : 1)
-rows_kernel(const T* __restrict__ x, const float* kv,
+rows_kernel(const float* __restrict__ x, const float* kv,
             const __grid_constant__ CUtensorMap tm_wq, const __grid_constant__ CUtensorMap tm_wm,
             const __grid_constant__ CUtensorMap tm_w0, const __grid_constant__ CUtensorMap tm_w1,
-            const T* __restrict__ wq, const T* __restrict__ wm, const T* __restrict__ w0,
-            const T* __restrict__ w1, const T* __restrict__ g1, const T* __restrict__ b1,
-            const T* __restrict__ g2, const T* __restrict__ b2, T* __restrict__ out, int NL,
-            int L, int S, float eps) {
+            const float* __restrict__ g1, const float* __restrict__ b1,
+            const float* __restrict__ g2, const float* __restrict__ b2, float* __restrict__ out,
+            int NL, int L, int S, float eps) {
   using K = RowCfg<C, D, TM_>;
-  constexpr bool kExact = sizeof(T) == 2;  // bf16: one TF32 product, staged weights
   constexpr int CL = K::CL, TM = K::TM, OC = K::OC, OH = K::OH, HB = K::HB;
   constexpr int NTMAX = C == 32 ? 2 : 4;  // two blocks an SM at C = 32: 128 registers
   constexpr int RB = TM / kWarps < 8 ? TM / kWarps : 8;  // rows a warp a LayerNorm batch
@@ -534,20 +486,12 @@ rows_kernel(const T* __restrict__ x, const float* kv,
   if constexpr (CL > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
   const int col0 = rank * OC;  // the block's columns of q, the merge and mlp_1
 
-  if constexpr (kExact) {
-    // the sync after the first x tile covers the weights
-    stage_weight<OC, C>(s_wq, wq + static_cast<size_t>(col0) * C);
-    stage_weight<OC, C>(s_wm, wm + static_cast<size_t>(col0) * C);
-    stage_weight<OH, 2 * C>(s_w0, w0 + static_cast<size_t>(rank) * OH * 2 * C);
-    stage_weight<OC, 2 * C>(s_w1, w1 + static_cast<size_t>(col0) * 2 * C);
-  } else {
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < 4; ++i) cfp::mbar_init(&bars[i], 1);
-      cfp::mbar_init_fence();
-    }
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4; ++i) cfp::mbar_init(&bars[i], 1);
+    cfp::mbar_init_fence();
   }
-  if (!kExact && threadIdx.x == 0) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
     cfp::mbar_expect_bytes(&bars[0], OC * C * sizeof(float));
     cfp::mbar_expect_bytes(&bars[1], OC * C * sizeof(float));
     cfp::mbar_expect_bytes(&bars[2], OH * 2 * C * sizeof(float));
@@ -562,9 +506,7 @@ rows_kernel(const T* __restrict__ x, const float* kv,
       cfp::tma_load_2d(s_w1 + s * OC * 32, &tm_w1, 32 * s, col0, &bars[3]);
   }
 
-  auto wait_weight = [&](int i) {
-    if constexpr (!kExact) cfp::mbar_wait(&bars[i], 0);
-  };
+  auto wait_weight = [&](int i) { cfp::mbar_wait(&bars[i], 0); };
   // v to columns c, c + 1 of the same tile of every block of the cluster
   auto put = [&](float* local, float2 v) {
     if constexpr (CL > 1) {
@@ -604,7 +546,7 @@ rows_kernel(const T* __restrict__ x, const float* kv,
     __syncthreads();
 
     wait_weight(0);
-    product<TM, C, OC, NTMAX, kExact>(s_xm, LD2, s_wq, [&](int r, int c, float2 v) {
+    product<TM, C, OC, NTMAX>(s_xm, LD2, s_wq, [&](int r, int c, float2 v) {
       *reinterpret_cast<float2*>(s_q + r * LQ + c) = make_float2(elu1(v.x), elu1(v.y));
     });
     __syncthreads();
@@ -630,14 +572,13 @@ rows_kernel(const T* __restrict__ x, const float* kv,
         n1 = fmaf(qd, m.y, n1);
       }
       const float z = 1.f / (den + eps);
-      put(s_a + r * LDC + col0 + c, make_float2(cfp::round_to<T>(n0 * z * s_len),
-                                                cfp::round_to<T>(n1 * z * s_len)));
+      put(s_a + r * LDC + col0 + c, make_float2(n0 * z * s_len, n1 * z * s_len));
     }
     cluster_sync();
 
     // merge, then LN1 in place: the message half of the concat input
     wait_weight(1);
-    product<TM, C, OC, NTMAX, kExact>(s_a, LDC, s_wm, [&](int r, int c, float2 v) {
+    product<TM, C, OC, NTMAX>(s_a, LDC, s_wm, [&](int r, int c, float2 v) {
       put(s_xm + r * LD2 + C + col0 + c, v);
     });
     cluster_sync();
@@ -647,11 +588,11 @@ rows_kernel(const T* __restrict__ x, const float* kv,
       row_stats<C, RB>(s_xm + (warp + i0 * kWarps) * LD2 + C, LD2, mean, rstd);
 #pragma unroll
       for (int c = lane; c < C; c += 32) {
-        const float gc = cfp::to_f32(g1[c]), bc = cfp::to_f32(b1[c]);
+        const float gc = g1[c], bc = b1[c];
 #pragma unroll
         for (int i = 0; i < RB; ++i) {
           float* v = s_xm + (warp + (i0 + i) * kWarps) * LD2 + C;
-          v[c] = cfp::round_to<T>((v[c] - mean[i]) * (rstd[i] * gc) + bc);
+          v[c] = (v[c] - mean[i]) * (rstd[i] * gc) + bc;
         }
       }
     }
@@ -659,13 +600,12 @@ rows_kernel(const T* __restrict__ x, const float* kv,
 
     // MLP: relu([x, m] W0^T) W1^T
     wait_weight(2);
-    product<TM, 2 * C, OH, NTMAX, kExact>(s_xm, LD2, s_w0, [&](int r, int c, float2 v) {
-      put(s_h + r * LD2 + rank * OH + c,
-          make_float2(cfp::round_to<T>(fmaxf(v.x, 0.f)), cfp::round_to<T>(fmaxf(v.y, 0.f))));
+    product<TM, 2 * C, OH, NTMAX>(s_xm, LD2, s_w0, [&](int r, int c, float2 v) {
+      put(s_h + r * LD2 + rank * OH + c, make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f)));
     });
     cluster_sync();
     wait_weight(3);
-    product<TM, 2 * C, OC, NTMAX, kExact>(s_h, LD2, s_w1, [&](int r, int c, float2 v) {
+    product<TM, 2 * C, OC, NTMAX>(s_h, LD2, s_w1, [&](int r, int c, float2 v) {
       put(s_xm + r * LD2 + C + col0 + c, v);
     });
     cluster_sync();
@@ -678,14 +618,14 @@ rows_kernel(const T* __restrict__ x, const float* kv,
 #pragma unroll
       for (int cc = lane; cc < OC; cc += 32) {
         const int c = col0 + cc;
-        const float gc = cfp::to_f32(g2[c]), bc = cfp::to_f32(b2[c]);
+        const float gc = g2[c], bc = b2[c];
 #pragma unroll
         for (int i = 0; i < RB; ++i) {
           const int r = warp + (i0 + i) * kWarps;
           const float* v = s_xm + r * LD2;
           if (r < rows)
-            cfp::store1(out + static_cast<size_t>(row0 + r) * C + c,
-                        (v[C + c] - mean[i]) * (rstd[i] * gc) + bc + v[c]);
+            out[static_cast<size_t>(row0 + r) * C + c] =
+                (v[C + c] - mean[i]) * (rstd[i] * gc) + bc + v[c];
         }
       }
     }
@@ -693,48 +633,10 @@ rows_kernel(const T* __restrict__ x, const float* kv,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
-int tensor_map_encoder(PFN_cuTensorMapEncodeTiled_v12000& fn) {
-  static PFN_cuTensorMapEncodeTiled_v12000 cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 13000
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    cached = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  fn = cached;
-  return 0;
-}
-
-// a row-major [rows, k] f32 matrix, read in boxes of 32 columns by box_rows
-// rows with the 128-byte swizzle
-int weight_map(CUtensorMap* map, const float* w, int rows, int k, int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode;
-  if (int rc = tensor_map_encoder(encode)) return rc;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * sizeof(float)};
-  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// resident clusters (blocks at CL = 1) of rows_kernel<T, C, D, TM>, per
+// resident clusters (blocks at CL = 1) of rows_kernel<C, D, TM>, per
 // device; the first call on a device also sets both passes' shared-memory
 // limits
-template <class T, int C, int D, int TM>
+template <int C, int D, int TM>
 int row_units(int device, int& units) {
   using K = RowCfg<C, D, TM>;
   static int cache[64] = {};
@@ -742,11 +644,11 @@ int row_units(int device, int& units) {
     units = cache[device];
     return 0;
   }
-  cudaError_t err = cudaFuncSetAttribute(rows_kernel<T, C, D, TM>,
+  cudaError_t err = cudaFuncSetAttribute(rows_kernel<C, D, TM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(K::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(summary_kernel<T, C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(summary_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(SumCfg<C, D>::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
@@ -764,10 +666,10 @@ int row_units(int device, int& units) {
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(&units, rows_kernel<T, C, D, TM>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&units, rows_kernel<C, D, TM>, &cfg);
   } else {
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows_kernel<T, C, D, TM>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows_kernel<C, D, TM>,
                                                         kThreads, K::kSmem);
     units = per_sm * sms;
   }
@@ -779,11 +681,10 @@ int row_units(int device, int& units) {
 
 // the row pass with TM-row tiles: started early (programmatic dependent
 // launch), clusters of CL, one cluster or block for each tile up to `units`
-template <class T, int C, int D, int TM>
-int launch_rows(const T* x, const float* kv, const CUtensorMap (&maps)[4], const T* wq,
-                const T* wm, const T* w0, const T* w1, const T* g1, const T* b1, const T* g2,
-                const T* b2, T* out, int NL, int L, int S, float eps, int units,
-                cudaStream_t stream) {
+template <int C, int D, int TM>
+int launch_rows(const float* x, const float* kv, const CUtensorMap (&maps)[4], const float* g1,
+                const float* b1, const float* g2, const float* b2, float* out, int NL, int L,
+                int S, float eps, int units, cudaStream_t stream) {
   using R = RowCfg<C, D, TM>;
   cudaLaunchAttribute attrs[2];
   attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -799,9 +700,9 @@ int launch_rows(const T* x, const float* kv, const CUtensorMap (&maps)[4], const
   cfg.stream = stream;
   cfg.attrs = attrs;
   cfg.numAttrs = R::CL > 1 ? 2 : 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, rows_kernel<T, C, D, TM>, x, kv, maps[0],
-                                             maps[1], maps[2], maps[3], wq, wm, w0, w1, g1, b1,
-                                             g2, b2, out, NL, L, S, eps));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, rows_kernel<C, D, TM>, x, kv, maps[0],
+                                             maps[1], maps[2], maps[3], g1, b1, g2, b2, out, NL,
+                                             L, S, eps));
 }
 
 // Row tiles of TM_LO rows where they all fit in one round of resident
@@ -818,25 +719,29 @@ struct RowTiles {
   static constexpr int HI = C == 128 ? 48 : 64;
 };
 
-template <class T, int C, int D>
-int launch(const T* x, const T* src, const T* wq, const T* wk, const T* wv, const T* wm,
-           const T* g1, const T* b1, const T* w0, const T* w1, const T* g2, const T* b2, T* out,
-           float* kv, int N, int L, int S, float eps, cudaStream_t stream) {
+template <int C, int D>
+int launch(const float* x, const float* src, const float* wq, const float* wk, const float* wv,
+           const float* wm, const float* g1, const float* b1, const float* w0, const float* w1,
+           const float* g2, const float* b2, float* out, float* kv, int N, int L, int S,
+           float eps, cudaStream_t stream) {
   using Q = SumCfg<C, D>;
   constexpr int TM_LO = RowTiles<C>::LO, TM_HI = RowTiles<C>::HI;
   constexpr int OC = RowCfg<C, D, TM_LO>::OC, OH = RowCfg<C, D, TM_LO>::OH;
   int device = 0, units_lo = 0, units_hi = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (int rc = row_units<T, C, D, TM_LO>(device, units_lo)) return rc;
-  if (int rc = row_units<T, C, D, TM_HI>(device, units_hi)) return rc;
-  CUtensorMap maps[4] = {};  // the f32 path's; the bf16 path stages its weights itself
-  if constexpr (sizeof(T) == 4) {
-    if (int rc = weight_map(&maps[0], wq, C, C, OC)) return rc;
-    if (int rc = weight_map(&maps[1], wm, C, C, OC)) return rc;
-    if (int rc = weight_map(&maps[2], w0, 2 * C, 2 * C, OH)) return rc;
-    if (int rc = weight_map(&maps[3], w1, C, 2 * C, OC)) return rc;
-  }
+  if (int rc = row_units<C, D, TM_LO>(device, units_lo)) return rc;
+  if (int rc = row_units<C, D, TM_HI>(device, units_hi)) return rc;
+  // boxes of 32 columns (128 bytes) by the block's rows, 128-byte swizzle
+  auto map = [](CUtensorMap* m, const float* w, int rows, int k, int box_rows) {
+    return cfp::weight_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), w, rows, k, 32,
+                           box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  CUtensorMap maps[4] = {};
+  if (int rc = map(&maps[0], wq, C, C, OC)) return rc;
+  if (int rc = map(&maps[1], wm, C, C, OC)) return rc;
+  if (int rc = map(&maps[2], w0, 2 * C, 2 * C, OH)) return rc;
+  if (int rc = map(&maps[3], w1, C, 2 * C, OC)) return rc;
 
   // summary: split the source rows over a cluster where there are few groups
   const int split = N * Q::HG < 64 ? max(1, min(8, (S + 15) / 16)) : 1;
@@ -852,26 +757,35 @@ int launch(const T* x, const T* src, const T* wq, const T* wk, const T* wv, cons
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, summary_kernel<T, C, D>, src, wk, wv, kv, S, split);
+  err = cudaLaunchKernelEx(&cfg, summary_kernel<C, D>, src, wk, wv, kv, S, split);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int NL = N * L;
   if ((NL + TM_LO - 1) / TM_LO <= units_lo)
-    return launch_rows<T, C, D, TM_LO>(x, kv, maps, wq, wm, w0, w1, g1, b1, g2, b2, out, NL, L,
-                                       S, eps, units_lo, stream);
-  return launch_rows<T, C, D, TM_HI>(x, kv, maps, wq, wm, w0, w1, g1, b1, g2, b2, out, NL, L, S,
-                                     eps, units_hi, stream);
+    return launch_rows<C, D, TM_LO>(x, kv, maps, g1, b1, g2, b2, out, NL, L, S, eps, units_lo,
+                                    stream);
+  return launch_rows<C, D, TM_HI>(x, kv, maps, g1, b1, g2, b2, out, NL, L, S, eps, units_hi,
+                                  stream);
 }
 
-template <class T>
-int dispatch(const T* x, const T* src, const T* wq, const T* wk, const T* wv, const T* wm,
-             const T* g1, const T* b1, const T* w0, const T* w1, const T* g2, const T* b2, T* out,
-             float* kv, int N, int L, int S, int C, int D, float eps, void* stream) {
+}  // namespace
+
+// x, out: [N, L, C]; src: [N, S, C]; wq, wk, wv, wm: [C, C]; w0: [2C, 2C];
+// w1: [C, 2C] (weights as [out, in], row-major); g1, b1, g2, b2: [C]; all
+// f32, contiguous, 16-byte aligned. kv: N*(C/D)*(D*D + D) floats of scratch.
+// Built for C = 32, 64, 128 with 4 or 8 heads. Returns the cudaError_t of
+// the launches (0 = success).
+extern "C" int cfp_fused_loftr_f32(const float* x, const float* src, const float* wq,
+                                   const float* wk, const float* wv, const float* wm,
+                                   const float* g1, const float* b1, const float* w0,
+                                   const float* w1, const float* g2, const float* b2, float* out,
+                                   float* kv, int N, int L, int S, int C, int D, float eps,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CFP_LOFTR_CASE(CC, DD)                                                                   \
-  if (C == CC && D == DD)                                                                        \
-    return launch<T, CC, DD>(x, src, wq, wk, wv, wm, g1, b1, w0, w1, g2, b2, out, kv, N, L, S, eps, \
-                             st);
+#define CFP_LOFTR_CASE(CC, DD)                                                                 \
+  if (C == CC && D == DD)                                                                      \
+    return launch<CC, DD>(x, src, wq, wk, wv, wm, g1, b1, w0, w1, g2, b2, out, kv, N, L, S, eps, \
+                          st);
   CFP_LOFTR_CASE(32, 8)
   CFP_LOFTR_CASE(32, 4)
   CFP_LOFTR_CASE(64, 16)
@@ -881,23 +795,3 @@ int dispatch(const T* x, const T* src, const T* wq, const T* wk, const T* wv, co
 #undef CFP_LOFTR_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-}  // namespace
-
-// x, out: [N, L, C]; src: [N, S, C]; wq, wk, wv, wm: [C, C]; w0: [2C, 2C];
-// w1: [C, 2C] (weights as [out, in], row-major); g1, b1, g2, b2: [C]; all
-// f32 (cfp_fused_loftr_f32) or all bf16 (cfp_fused_loftr_bf16), contiguous,
-// 16-byte aligned. kv: N*(C/D)*(D*D + D) floats of scratch. Built for C =
-// 32, 64, 128 with 4 or 8 heads. Returns the cudaError_t of the launches
-// (0 = success).
-#define CFP_LOFTR_ENTRY(NAME, T)                                                                \
-  extern "C" int NAME(const T* x, const T* src, const T* wq, const T* wk, const T* wv,           \
-                      const T* wm, const T* g1, const T* b1, const T* w0, const T* w1,           \
-                      const T* g2, const T* b2, T* out, float* kv, int N, int L, int S, int C,   \
-                      int D, float eps, void* stream) {                                          \
-    return dispatch(x, src, wq, wk, wv, wm, g1, b1, w0, w1, g2, b2, out, kv, N, L, S, C, D, eps, \
-                    stream);                                                                     \
-  }
-CFP_LOFTR_ENTRY(cfp_fused_loftr_f32, float)
-CFP_LOFTR_ENTRY(cfp_fused_loftr_bf16, __nv_bfloat16)
-#undef CFP_LOFTR_ENTRY

@@ -1,5 +1,6 @@
 // PTX helpers for sm_90a kernels: TF32 tensor-core products split in three
-// for f32 accuracy (3xTF32), mbarriers fed by bulk asynchronous copies, and
+// for f32 accuracy (3xTF32), bf16 tensor-core products with their fragments
+// loaded by ldmatrix, mbarriers fed by bulk asynchronous copies, and
 // programmatic dependent launch.
 #pragma once
 
@@ -33,6 +34,46 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b for one 16x8x16 tile, bf16 in, f32 accumulate. Fragments of lane
+// (g, t) = (lane / 4, lane % 4), two bf16 a register, the lower k in the low
+// half: a = A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b =
+// B[2t..][g], B[2t+8..][g]; d as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 matrices of 16-bit elements from shared memory: lane i gives the
+// address of row i % 8 of matrix i / 8 (16 bytes, 16-byte aligned); r[j] of
+// lane (g, t) holds elements (g, 2t) and (g, 2t + 1) of matrix j
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// asynchronous copies from global to shared memory that pass through no
+// register: 8 bytes of which the first src_bytes are read and the rest are
+// zero (cp_async8), or 16 bytes (cp_async16, both 16-byte aligned); complete
+// after cp_async_wait_all()
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {

@@ -8,7 +8,10 @@ Imports nothing of JAX or of the JAX package. Phases, each printing one JSON
 line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: compiles every kernel of ``cfpnet_torch/csrc`` from source.
+2. build: compiles every kernel of ``cfpnet_torch/csrc`` from source and
+   reports each kernel's registers, spills and static shared bytes from
+   ptxas (``ptxas_report``); fails if a kernel of the bf16 fused layer
+   (``fused_loftr_bf16.cu``) spills.
 3. kernels: at every shape the production eval forward gives each kernel,
    holds the kernel against its plain PyTorch version on the same inputs
    (f32, TF32 off; max |kernel - plain| <= 1e-4 * max |plain|, the sums run
@@ -85,7 +88,9 @@ line:
     every bs=1 and bs=8 main-path shape (max |kernel - plain| <=
     ``BF16_TOL`` = 2^-7 * max |plain|, one bf16 ulp at the top of the
     range), with the share of elements that differ and the ms a call
-    against its bound (``kernel_shape_bf16`` lines); the production model
+    against its bound (``kernel_shape_bf16`` lines; the fused layer's also
+    split by pass, ``summary_ms`` and ``rows_ms``, with its launch plan
+    from ``kernels/fused_loftr.py::launch_plan``); the production model
     cast to bf16 on the golden's inputs: one eager forward launches
     6 / 6 / 18 kernels, all on bf16 tensors (the wrappers count by dtype),
     and its prediction stays within tests/test_bf16.py's drift budget of
@@ -115,7 +120,9 @@ dense bf16 tensor-core rate for the fused layer's bf16 products),
 ``library_ms_bf16`` (dwconv: cuDNN in bf16; else null), ``bound_by_bf16``,
 ``max_rel_err_bf16`` and ``differ_share_bf16`` over the bs=1 and bs=8
 shapes, ``card_ms_bs8_bf16``, ``bound_ms_bs8_bf16`` and the bf16 forward's
-``launches_bf16``), and last the ``ok`` line.
+``launches_bf16``; for the fused layer also its bf16 source,
+``source_bf16``, and its passes, ``summary_ms_bf16``, ``rows_ms_bf16``,
+``summary_ms_bs8_bf16``, ``rows_ms_bs8_bf16``), and last the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -124,6 +131,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -229,15 +237,75 @@ def kernel_split(fn, calls: int = 10, attempts: int = 3):
 
 def pass_split(fn):
     """Device ms per call of the fused LoFTR layer's two device kernels
-    (``summary_kernel``, ``rows_kernel``), by kernel name."""
+    (``summary_kernel``, ``rows_kernel``; ``bf16_...`` in bf16), by kernel
+    name: the mean over the launches the profiler recorded, each call
+    launching each pass once (a session now and then records only some of
+    its calls)."""
     split = dict(summary_ms=0.0, rows_ms=0.0)
     for name, k in kernel_split(fn).items():
         for key in split:
             if key.replace("_ms", "_kernel") in name:
-                split[key] += k["ms"]
+                split[key] += k["ms"] / k["launches"]
     if not all(split.values()):
         raise AssertionError(f"the profiler saw no summary or row kernel: {split}")
     return split
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<template arguments>`` of a mangled kernel (the length-prefixed
+    identifier that ends in ``_kernel``; integers, ``float``, ``bf16``), else
+    ``mangled``."""
+    for p in range(len(mangled)):  # every start of a length, "5413" holding "13"
+        m = re.match(r"\d+", mangled[p:])
+        if m is None:
+            continue
+        end = p + m.end()
+        name = mangled[end:end + int(m.group())]
+        rest = mangled[end + len(name):]
+        if not (name.endswith("_kernel") and rest.startswith("I")):
+            continue
+        args, i = [], 1
+        while i < len(rest) and rest[i] != "E":
+            if rest.startswith("Li", i):
+                j = rest.index("E", i)
+                args.append(rest[i + 2:j])
+                i = j + 1
+            elif rest[i] == "f":
+                args.append("float")
+                i += 1
+            elif rest[i].isdigit():
+                n = re.match(r"\d+", rest[i:]).group()
+                ident = rest[i + len(n):i + len(n) + int(n)]
+                args.append("bf16" if ident == "__nv_bfloat16" else ident)
+                i += len(n) + int(n)
+            else:
+                break
+        return f"{name}<{','.join(args)}>"
+    return mangled
+
+
+def ptxas_report(log: str):
+    """Each kernel of an ``nvcc -Xptxas -v`` log: its name (with integer
+    template arguments, e.g. ``bf16_rows_kernel<128,16,32,2>``), registers,
+    spill bytes (stores and loads), stack frame and static shared bytes."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = dict(kernel=_kernel_name(m.group(1)), registers=None, spill_stores=0,
+                         spill_loads=0, stack=0, smem=0)
+            out.append(entry)
+        elif entry is not None and "spill stores" in line:
+            n = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            entry.update(stack=n[0], spill_stores=n[1], spill_loads=n[2])
+        elif entry is not None and "Used" in line and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def production_config():
@@ -1387,7 +1455,12 @@ def check_kernels_bf16(config, geoms, batch: int):
         with torch.no_grad():
             line = held("fused_loftr", (N, L, S, C, H), fused_loftr.fused_loftr(x, src, p, H),
                         loftr_apply(x, src, p, H))
+            plan = fused_loftr.launch_plan(N, L, S, C, H, bf16)
             line.update(ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
+                        **pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H)),
+                        plan={key: plan[key] for key in (
+                            "tm", "cl", "units", "rounds", "blocks_per_sm", "smem", "sum_split",
+                            "sum_groups", "sum_blocks", "sum_smem")},
                         **bound_fields(2 * (2 * N * L * C + N * S * C + 10 * C * C + 4 * C),
                                        2 * (N * L * 8 * C * C + N * S * 2 * C * C
                                             + N * H * (S + L) * D * D), PEAK_BF16),
@@ -1409,6 +1482,13 @@ def bf16_row_fields(name, lines, lines_bs8):
 
     mine = [r for r in lines + lines_bs8 if r["kernel"] == name]
     library = [r["library_ms"] for r in lines if r["kernel"] == name]
+    extra = {}
+    if name == "fused_loftr":  # its own bf16 source, and the two passes per forward
+        extra = dict(source_bf16="cfpnet_torch/csrc/fused_loftr_bf16.cu",
+                     **{f"{key}_bf16": per_forward(lines, key)
+                        for key in ("summary_ms", "rows_ms")},
+                     **{f"{key}_bs8_bf16": per_forward(lines_bs8, key)
+                        for key in ("summary_ms", "rows_ms")})
     return dict(card_ms_bf16=per_forward(lines, "ms"), bound_ms_bf16=per_forward(lines, "bound_ms"),
                 library_ms_bf16=(per_forward(lines, "library_ms")
                                  if None not in library else None),
@@ -1417,7 +1497,7 @@ def bf16_row_fields(name, lines, lines_bs8):
                 max_rel_err_bf16=max(r["max_abs_err"] / r["max_abs_plain"] for r in mine),
                 differ_share_bf16=max(r["differ_share"] for r in mine),
                 card_ms_bs8_bf16=per_forward(lines_bs8, "ms"),
-                bound_ms_bs8_bf16=per_forward(lines_bs8, "bound_ms"))
+                bound_ms_bs8_bf16=per_forward(lines_bs8, "bound_ms"), **extra)
 
 
 def bf16_drift(pred):
@@ -1594,9 +1674,13 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     seconds = build.build()
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
-             for name, log in build.BUILD_LOGS.items()}
+    ptxas = {name: ptxas_report(log) for name, log in build.BUILD_LOGS.items()}
     emit(dict(phase="build", seconds=time.perf_counter() - t0, per_source=seconds, ptxas=ptxas))
+    # the bf16 fused layer's kernels keep their values in registers
+    spilled = [k for k in ptxas.get("fused_loftr_bf16", ())
+               if k["spill_stores"] or k["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"bf16 fused LoFTR kernels spill: {spilled}")
 
     # 3. kernels at every main-path shape of the bs=1 and the bs=8 forward
     # and of the bs=16 train step; the configuration and inputs of

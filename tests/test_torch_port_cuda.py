@@ -18,6 +18,7 @@ from cfpnet_torch.models.deltar import model_geometries
 from cfpnet_torch.ops.attention import linear_attention as attention_plain
 from cfpnet_torch.ops.dwconv import depthwise_conv2d as dwconv_plain
 from cfpnet_torch.ops.loftr import LoFTRParams, loftr_apply
+from test_torch_port_loftr_plan import BF16_CASES
 
 pytestmark = pytest.mark.gpu
 
@@ -461,6 +462,46 @@ def test_fused_loftr_kernel_bf16(gen, N, L, S, C, H):
     torch.cuda.synchronize()
     assert fused_loftr.launches == 1
     _assert_close_bf16(got, loftr_apply(x, src, p, H))
+
+
+@pytest.mark.parametrize("N,L,S,C,H", BF16_CASES)
+def test_fused_loftr_bf16_cases(gen, N, L, S, C, H):
+    """The bf16 kernel at every (C, D), both tile heights, a split summary
+    and not, summary blocks over several groups and ragged row tiles
+    (``BF16_CASES``) against its plain version; a second call on the same
+    inputs equal bit for bit."""
+    x, src = _randn(gen, N, L, C).bfloat16(), _randn(gen, N, S, C).bfloat16()
+    p = _loftr_params_bf16(gen, C)
+    kernels.reset_launches()
+    got = fused_loftr.fused_loftr(x, src, p, H)
+    torch.cuda.synchronize()
+    assert fused_loftr.launches == 1
+    _assert_close_bf16(got, loftr_apply(x, src, p, H))
+    assert torch.equal(fused_loftr.fused_loftr(x, src, p, H), got)
+
+
+def test_fused_loftr_bf16_plan_within_the_card(gen):
+    """Each bf16 row variant's resident clusters in launch_plan are at most
+    what the card's occupancy query gives, so a grid of them runs at once."""
+    for C, variants in fused_loftr.ROW_VARIANTS_BF16.items():
+        for D in (C // 4, C // 8):
+            for tm, cl in variants:
+                planned = fused_loftr._row_units(C, D, tm, cl, torch.bfloat16)[2]
+                card = fused_loftr.resident(C, D, tm, cl)
+                print(f"C={C} D={D} tm={tm} cl={cl}: planned {planned}, card {card}")
+                assert planned <= card
+
+
+def test_fused_loftr_bf16_refuses_unaligned_weights(gen):
+    """The bf16 kernel's TMA and 16-byte loads need 16-byte aligned weights:
+    a view 8 bytes off is refused, never computed by another path."""
+    x = _randn(gen, 2, 8, 32).bfloat16()
+    p = _loftr_params_bf16(gen, 32)
+    storage = torch.zeros(32 * 32 + 4, device="cuda", dtype=torch.bfloat16)
+    wq = storage[4:].view(32, 32)
+    wq.copy_(p.wq.t())
+    with pytest.raises(ValueError, match="16 bytes"):
+        fused_loftr.fused_loftr(x, x, p._replace(wq=wq.t()), 4)
 
 
 def test_bf16_backwards_raise(gen):
