@@ -27,11 +27,12 @@ Port of the root ``bench.py``'s keys. Prints ONE JSON line:
   ``--peak_tflops``.
 - The train step (``evaluate_time.timed_train_step`` at
   ``evaluate_time.train_config``: bs 16 at 416x544, ``--train_iters``
-  steps, eager), as the root ``bench.py``'s train keys:
-  ``train_ms_bs16``, ``train_img_s``, ``flops_g_train_step``
-  (``evaluate_time.flops_train``), ``tfps_train``, ``mfu_train`` and
-  ``train_dtype`` ("float32": the bf16 train step is not ported, ROADMAP
-  §A 2c, where the root times it in bf16).
+  steps, eager), as the root ``bench.py``'s train keys (``:248-256``):
+  ``train_ms_bs16``, ``train_img_s``, ``tfps_train`` and ``mfu_train`` of
+  the bf16 step, ``train_dtype`` "bfloat16", and the same of the f32 step
+  under ``train_ms_bs16_f32``, ``train_img_s_f32``, ``tfps_train_f32``
+  and ``mfu_train_f32`` (``train_fields``); ``flops_g_train_step``
+  (``evaluate_time.flops_train``, the same in either dtype).
 - ``gpu`` and ``power_limit`` from ``nvidia-smi``, ``iters``, ``timing``.
 - ``skipped``: what the port cannot measure yet.
 
@@ -61,10 +62,10 @@ from .models.deltar import model_geometries
 # data sheets, without sparsity)
 PEAK_BF16_TFLOPS = {"H100 80GB HBM3": 989.4, "H100 SXM": 989.4, "H100 PCIe": 756.5}
 THROUGHPUT_BS = 8
-SKIPPED = ["bf16 train step (not ported: ROADMAP.md §A 2c; train_* keys are float32)",
-           "CPU anchor (the reference model on the same host; not ported)"]
-# (suffix of the keys, compute dtype) of the forward's timings; the headline first
-FORWARD_DTYPES = (("", torch.bfloat16), ("_f32", torch.float32))
+SKIPPED = ["CPU anchor (the reference model on the same host; not ported)"]
+# (suffix of the keys, compute dtype) of the forward's and the train step's
+# timings; the headline first
+DTYPES = (("", torch.bfloat16), ("_f32", torch.float32))
 
 
 def production_config() -> Config:
@@ -89,6 +90,14 @@ def peak_bf16_tflops(name: str) -> Optional[float]:
         if key in name:
             return peak
     return None
+
+
+def train_fields(batch_size: int, ms: float, flops: float, sfx: str) -> dict:
+    """The train keys of one compute dtype (suffix ``sfx``, as ``DTYPES``):
+    ms a step at ``batch_size``, images/s and TFLOP/s."""
+    return {f"train_ms_bs{batch_size}{sfx}": ms,
+            f"train_img_s{sfx}": batch_size * 1000.0 / ms,
+            f"tfps_train{sfx}": flops / ms / 1e9}
 
 
 def smoke_main(iters: int) -> dict:
@@ -127,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     bs8_iters = max(4, args.iters // 4)
     out = {"metric": "frames_per_sec_per_chip_480x640_bs1", "unit": "frames/s",
            "dtype": "bfloat16", "flops_g_fwd": flops / 1e9}
-    for sfx, dtype in FORWARD_DTYPES:
+    for sfx, dtype in DTYPES:
         model = evaluate_time.load_model(config, dtype=dtype)
         inputs = evaluate_time.eval_batch(config, 1, dtype=dtype)[0]
         ms1 = evaluate_time.graphed_latency_ms(model, inputs, geoms, config, args.iters)
@@ -144,19 +153,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     out["value"] = 1000.0 / out["latency_ms_bs1"]
     out["fps_bs1_f32"] = 1000.0 / out["latency_ms_bs1_f32"]
     tcfg = evaluate_time.train_config(config)
-    ms_t = evaluate_time.timed_train_step(tcfg, niters=args.train_iters)
     flops_t = evaluate_time.flops_train(tcfg)
-    out.update({f"train_ms_bs{tcfg.bs}": ms_t, "train_img_s": tcfg.bs * 1000.0 / ms_t,
-                "train_dtype": "float32", "flops_g_train_step": flops_t / 1e9,
-                "tfps_train": flops_t / ms_t / 1e9})
+    out.update(train_dtype="bfloat16", flops_g_train_step=flops_t / 1e9)
+    for sfx, dtype in DTYPES:
+        ms_t = evaluate_time.timed_train_step(tcfg, niters=args.train_iters,
+                                              compute_dtype=dtype)
+        out.update(train_fields(tcfg.bs, ms_t, flops_t, sfx))
     skipped = list(SKIPPED)
     peak = args.peak_tflops or peak_bf16_tflops(torch.cuda.get_device_name(0))
     if peak:
         out["peak_bf16_tflops"] = peak
-        for sfx, _ in FORWARD_DTYPES:
+        for sfx, _ in DTYPES:
             out[f"mfu_bs1{sfx}"] = out[f"tfps_bs1{sfx}"] / peak
             out[f"mfu_bs{THROUGHPUT_BS}{sfx}"] = out[f"tfps_bs{THROUGHPUT_BS}{sfx}"] / peak
-        out["mfu_train"] = out["tfps_train"] / peak
+            out[f"mfu_train{sfx}"] = out[f"tfps_train{sfx}"] / peak
     else:
         skipped.append(f"mfu (no bf16 peak known for {gpu}; pass --peak_tflops)")
     out.update(gpu=gpu, power_limit=power_limit,
@@ -164,7 +174,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                timing=("CUDA graph: K replays between CUDA events, trimmed mean over "
                        "repetitions (evaluate_time.graphed_latency_ms); eager: CUDA events "
                        "around each forward, trimmed mean sorted[1:-2]; train: K eager steps "
-                       "between CUDA events (evaluate_time.timed_train_step)"),
+                       "between CUDA events (evaluate_time.timed_train_step), bf16 then "
+                       "f32"),
                skipped=skipped)
     print(json.dumps(out), flush=True)
     return 0

@@ -4,12 +4,12 @@
         [--eager] [--profile_flops] [--device cpu] [--niters N] [--weight_path ref.pt] \\
         [--compute_dtype bfloat16] [--test_dataset zjuL5|nyu|synthetic]
     python -m cfpnet_torch.evaluate_time @configs/train_cfpnet_combine1.txt --train \\
-        [--profile_flops] [--device cpu] [--niters N]
+        [--compute_dtype bfloat16] [--profile_flops] [--device cpu] [--niters N]
 
 Port of the root ``evaluate_time.py`` (``timed_forward``,
 ``graph_flops_eval``, ``timed_train_step``, ``graph_flops_train`` and its
-CLI) for the eval forward, in float32 or bfloat16 (``--compute_dtype``), and
-the train step in f32:
+CLI) for the eval forward and the train step, each in float32 or bfloat16
+(``--compute_dtype``):
 
 - ``timed_forward(compute_dtype=...)``: the forward in the compute dtype as
   the root ``timed_forward`` runs it (``:63,88-92``): the model's floating
@@ -41,6 +41,9 @@ the train step in f32:
   ``[1:-1]`` over K (the mean where there are fewer than three). The
   counterpart of the root ``timed_train_step``, which chains K steps inside
   one jit. On the CPU the host clock times the same steps.
+  ``compute_dtype`` (default ``--compute_dtype``) is the step's, as the
+  root's (``:167-183``): bfloat16 runs ``train/steps.py``'s mixed
+  precision (bf16 copies of the float32 masters cast inside the step).
 - ``flops_train``: the model's operations a train step, three times the
   training forward's and the loss's (``forward_flops``'s rule at bs=1,
   times the batch): the backward of every product and convolution costs
@@ -241,11 +244,15 @@ def make_train_batch(config, batch_size: int, device="cuda") -> Dict[str, torch.
 
 
 def timed_train_step(config, niters: int = 40, K: int = 10, warmup: int = 3,
-                     state_dict=None, device="cuda", tiny: bool = False) -> float:
+                     state_dict=None, device="cuda", tiny: bool = False,
+                     compute_dtype=None) -> float:
     """Milliseconds of one train step at the config's batch size and input
-    size (module docstring). ``state_dict``: the starting weights, else the
-    golden tests' deterministic ones."""
+    size in ``compute_dtype`` (default ``config.compute_dtype``; module
+    docstring). ``state_dict``: the starting weights, else the golden tests'
+    deterministic ones."""
     cfg = config.replace(mode="train")
+    if compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=dtype_name(compute_dtype))
     model = make_model(cfg, tiny=tiny, device=device)
     model.load_state_dict(state_dict if state_dict is not None
                           else weights.deterministic_state_dict(cfg, tiny=tiny), strict=True)
@@ -258,6 +265,12 @@ def timed_train_step(config, niters: int = 40, K: int = 10, warmup: int = 3,
         train_step(state, batch, next(seeds))
     return train_latency_ms(lambda: train_step(state, batch, next(seeds)), niters, K,
                             cuda=torch.device(device).type == "cuda")
+
+
+def dtype_name(dtype) -> str:
+    """The ``--compute_dtype`` name ("float32", "bfloat16") of a dtype or a
+    name."""
+    return str(dtype_of(dtype)).replace("torch.", "")
 
 
 def train_latency_ms(step, niters: int, K: int, cuda: bool = True) -> float:
@@ -364,17 +377,19 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
 def train_main(config, args, state_dict, device) -> Dict[str, object]:
     """``--train``: ms a train step at the config's batch size and input
-    size (``timed_train_step``, ``--niters`` steps), images/s, and with
-    ``--profile_flops`` the operations a step (``flops_train``)."""
+    size in ``--compute_dtype`` (``timed_train_step``, ``--niters`` steps),
+    images/s, and with ``--profile_flops`` the operations a step
+    (``flops_train``, the same in either dtype)."""
     cfg = config.replace(mode="train")
+    dtype = dtype_name(cfg.compute_dtype)
     ms = timed_train_step(cfg, niters=args.niters, state_dict=state_dict, device=device,
                           tiny=cfg.tiny_model)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu, host clock"
     out: Dict[str, object] = {f"train_ms_bs{cfg.bs}": ms, "train_img_s": cfg.bs * 1000.0 / ms,
-                              "device": where, "niters": args.niters}
+                              "train_dtype": dtype, "device": where, "niters": args.niters}
     print(f"{ms:.3f} ms a train step")
     print(f"{cfg.bs * 1000.0 / ms:.2f} images/sec")
-    print(f"(bs={cfg.bs} at {cfg.input_height}x{cfg.input_width}, f32, eager; {where})")
+    print(f"(bs={cfg.bs} at {cfg.input_height}x{cfg.input_width}, {dtype}, eager; {where})")
     if args.profile_flops:
         out["flops_train"] = flops_train(cfg, tiny=cfg.tiny_model)
         print(f"flops/train step: {out['flops_train'] / 1e9:.2f} G")

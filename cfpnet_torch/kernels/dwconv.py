@@ -11,8 +11,8 @@ depthwise layout) and bias [C], all float32 or all bfloat16 (the bf16
 variant: f32 taps and bias on the bf16 values, the output rounded once, as
 the Pallas kernel computes in bf16). A CPU tensor goes through the plain
 version; a CUDA tensor goes through the kernel or raises. The gradient
-(``_DepthwiseConv2d``, f32 only: the bf16 backward raises, ROADMAP §A 2c)
-takes dx from the same kernel on the rotated taps and dW from one PyTorch
+(``_DepthwiseConv2d``, in the inputs' dtype) takes dx from the same kernel
+on the rotated taps (its bf16 variant in bf16) and dW from one PyTorch
 call (its depthwise weight-gradient kernel) on NCHW copies.
 
 ``TILING`` holds the one choice of tiling per k; ``kernels/build.py``
@@ -215,9 +215,6 @@ class _DepthwiseConv2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, weight = ctx.saved_tensors
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError("dwconv: the bf16 backward is not ported (the bf16 train "
-                                      "step, ROADMAP.md §A 2c)")
         gy = gy.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:

@@ -21,8 +21,8 @@ summary, then the row pass, which starts before the summary ends by
 programmatic dependent launch and waits for it only where it reads the
 summary); ``launches`` counts wrapper calls that launched. The gradient is that of the plain version, recomputed from the
 saved inputs, as the JAX package's custom VJP takes the VJP of
-``loftr_apply_xla``; in bf16 it raises (the bf16 train step, ROADMAP §A
-2c).
+``loftr_apply_xla``; in bf16 that of the bf16 plain version, so the
+gradients come back in bf16.
 
 ``launch_plan(N, L, S, C, H, dtype)`` is a call's geometry: row tiles of
 ``tm`` rows, clusters of ``cl`` blocks, the clusters (blocks at ``cl`` = 1)
@@ -248,9 +248,6 @@ class _FusedLoFTR(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        if grad.dtype == torch.bfloat16:
-            raise NotImplementedError("fused_loftr: the bf16 backward is not ported (the bf16 "
-                                      "train step, ROADMAP.md §A 2c)")
         saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = loftr_apply(saved[0], saved[1], LoFTRParams(*saved[2:]), ctx.nhead, ctx.eps)

@@ -11,10 +11,10 @@ is ``cfpnet_torch/csrc/linear_attention.cu``; its plain version is
 variant rounds where the Pallas kernel holds bf16: elu(q)+1, elu(k)+1,
 v / S, the key sum and the output; every product accumulates in f32). A
 CPU tensor goes through the plain version; a CUDA tensor goes through the
-kernel or raises. On the card the f32 gradient is autograd of the plain
-version, recomputed from the saved inputs, as ``kernels/fused_loftr.py``
-takes its own: the TPU kernel has no backward kernel to port. The bf16
-backward raises (ROADMAP §A 2c).
+kernel or raises. On the card the gradient is autograd of the plain
+version in the inputs' dtype, recomputed from the saved inputs, as
+``kernels/fused_loftr.py`` takes its own: the TPU kernel has no backward
+kernel to port.
 
 ``launch_plan(N, L, S, H, D)`` owns the geometry of a call's two device
 kernels (the summary pass's head groups, clusters, cluster sums, key tiles
@@ -190,9 +190,6 @@ class _LinearAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        if grad.dtype == torch.bfloat16:
-            raise NotImplementedError("linear_attention: the bf16 backward is not ported (the "
-                                      "bf16 train step, ROADMAP.md §A 2c)")
         saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = linear_attention_plain(*saved, eps=ctx.eps)

@@ -10,14 +10,18 @@ axis (``channel_dim`` 1 for NCHW, -1 for channels-last tokens).
 - Train: the same formula on the batch's statistics over every axis but the
   channel, computed as flax 0.12 computes them (``use_fast_variance``):
   ``var = max(0, E[x^2] - E[x]^2)``, the *biased* variance, in float32 or
-  wider. The running statistics then move as flax moves them, with momentum
-  the weight of the old value (0.9 everywhere in the JAX package:
+  wider, whatever the input's dtype. The running statistics then move as
+  flax moves them, with momentum the weight of the old value (0.9
+  everywhere in the JAX package:
   ``cfpnet_tpu/models/efficientnetv2.py:43``, ``decoder.py:40``,
   ``encoder.py:41``, ``convnext.py:40``, ``transformer.py:195,199``):
   ``running = 0.9 * running + (1 - 0.9) * batch``, the biased batch
   variance included (torch's ``nn.BatchNorm2d`` would use 0.1 for the new
   value and the unbiased variance). The update is made in place under
-  ``no_grad``.
+  ``no_grad``, in the statistics' own float32, so that an increment below
+  one bf16 ulp lands in a bf16 step.
+- The output takes the dtype of (x, weight, bias), as flax's
+  ``_normalize`` does: bf16 in a bf16 step, whose statistics stay float32.
 """
 
 from __future__ import annotations
@@ -46,7 +50,11 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        # flax's _normalize: the output takes the dtype of (x, scale, bias),
+        # not that of the f32 statistics (a bf16 step's BatchNorm gives bf16)
+        return y.to(torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype),
+                                        self.bias.dtype))
 
     def _batch_stats(self, x: torch.Tensor):
         """flax ``_compute_stats`` with ``use_fast_variance``, then the

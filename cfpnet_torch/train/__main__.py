@@ -13,10 +13,14 @@ next epoch with the optimizer state and the step. ``--no_logging`` turns
 both off, as in the JAX package; ``--logging`` (this entry point's own
 flag) turns them back on over an argfile's ``--no_logging``.
 
+``--compute_dtype bfloat16`` trains with the bf16 step of
+``train/steps.py`` (float32 masters, moments, statistics and loss);
+validation runs in float32 on the masters and the checkpoints hold float32
+weights, as in the JAX package.
+
 Refused with ``NotImplementedError``, each naming its ROADMAP.md item:
 ``--selfsup``, ``--multihost``, ``--device_pipeline``, ``--spatial_shards >
-1``, ``--debug_nans``, ``--grad_accum > 1``, ``--remat`` and a
-``--compute_dtype`` other than float32. ``--use_pallas`` and
+1``, ``--debug_nans``, ``--grad_accum > 1`` and ``--remat``. ``--use_pallas`` and
 ``--safe_dw_vjp`` are accepted and change nothing: the port always runs its
 CUDA kernels on the card, and its gradients need no partitioner workaround.
 """

@@ -8,6 +8,10 @@ at the last, ``{ep}_{rmse:.3f}`` and ``best`` checkpoints, resume with the
 optimizer state and the step, JSONL logs. Not ported: ``evaluate_sharded``
 and the meshes (multi-GPU, ROADMAP.md §A 9), ``--device_pipeline`` (§A 8).
 
+The step runs in ``--compute_dtype`` (``train/steps.py``); validation runs
+the float32 model on its float32 masters in every case, as the JAX loop's
+eval steps cast nothing, and the checkpoints hold the float32 state.
+
 The loop makes no host sync in a step: the losses are summed on the device
 and read at the JSONL ``train`` lines (every 50 steps) and at the end of an
 epoch, where the JAX loop reads each step's loss (``float(loss)``).

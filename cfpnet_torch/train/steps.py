@@ -10,9 +10,16 @@ The train step is the JAX one written eagerly: the model in training mode
 each positional encoding), the masked SILog loss, its backward through the
 three kernels (``kernels/``), and one step of ``train/optim.py::AdamW``.
 The crop offsets come from a CPU ``torch.Generator`` seeded once a step
-(``step_generator``), the counterpart of the JAX step's 'fusion' RNG. Not
-ported, and refused: ``--grad_accum > 1``, ``--remat`` and a
-``--compute_dtype`` other than float32 (ROADMAP §A).
+(``step_generator``), the counterpart of the JAX step's 'fusion' RNG.
+
+``--compute_dtype bfloat16`` is the JAX package's mixed precision
+(``cfpnet_tpu/train/steps.py:55-88``): the forward and backward run on
+bf16 copies of the floating parameters, cast inside the step with autograd
+through the cast, so the gradients land in float32 on the float32 masters;
+the image and the histograms are cast, the mask and the depth are not; the
+BatchNorm statistics stay float32 and uncast; the depth tail, the loss and
+the optimizer run in float32. Not ported, and refused: ``--grad_accum > 1``
+and ``--remat`` (ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
+from ..models.deltar import compute_dtype
 from ..ops.interp import resize_bilinear_align_corners
 from .losses import compute_errors, silog_loss
 from .optim import AdamW, make_optimizer
@@ -35,9 +44,6 @@ def refuse_unported(config) -> None:
         raise NotImplementedError("--grad_accum > 1 is not ported yet (ROADMAP.md §A)")
     if getattr(config, "remat", False):
         raise NotImplementedError("--remat is not ported yet (ROADMAP.md §A)")
-    if getattr(config, "compute_dtype", "float32") != "float32":
-        raise NotImplementedError(f"--compute_dtype {config.compute_dtype}: only float32 is "
-                                  "ported (ROADMAP.md §A)")
 
 
 def step_generator(seed: int) -> torch.Generator:
@@ -51,17 +57,38 @@ def make_loss_fn(model, config, geoms):
     forward (which updates its BatchNorm running statistics), pred clipped
     at ``min_depth`` and the SILog loss over ``depth > min_depth``
     (reference train.py:121-123). batch: image [B,H,W,3], depth [B,H,W,1],
-    hist_data [B,Z,n], mask [B,Z]."""
+    hist_data [B,Z,n], mask [B,Z].
+
+    In a compute dtype other than float32 the forward runs on
+    ``cast_params(model, dtype)`` and the image and histograms cast to it
+    (module docstring); the model's own parameters and statistics stay
+    float32."""
     refuse_unported(config)
+    cdt = compute_dtype(getattr(config, "compute_dtype", "float32"))
+
+    def forward(image, hist, mask, generator):
+        if cdt == torch.float32:
+            return model(image, hist, mask, geoms, generator)
+        return functional_call(model, cast_params(model, cdt),
+                               (image.to(cdt), hist.to(cdt), mask, geoms, generator))
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
         model.train()
-        _, pred = model(batch["image"], batch["hist_data"], batch["mask"], geoms, generator)
+        _, pred = forward(batch["image"], batch["hist_data"], batch["mask"], generator)
         pred = torch.clamp(pred, min=config.min_depth)
         dmask = batch["depth"] > config.min_depth
         return silog_loss(pred, batch["depth"], dmask, interpolate=True)
 
     return loss_fn
+
+
+def cast_params(model, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """``dtype`` copies of the model's floating parameters by name, each one
+    differentiable cast (``Tensor.to``): a gradient through a copy lands in
+    the parameter's own dtype on the parameter. The JAX loss's ``cast_tree``
+    of ``params``; buffers (the BatchNorm statistics) are left out."""
+    return {name: p.to(dtype) if p.is_floating_point() else p
+            for name, p in model.named_parameters()}
 
 
 @dataclass

@@ -160,6 +160,10 @@ TRAIN_GOLDEN_TOL = dict(loss=9.6e-7, stat=0.023, zero_grad_norm=1.3e-6,
                         head_grad_norm=1.5e-5, head_grad_sum=2.5e-6, head_grad_at=4.2e-4,
                         head_param_at=5.1e-4, trunk_grad_norm=0.59, trunk_grad_sum=0.15,
                         trunk_grad_at=2.6, trunk_param_at=0.29)
+# the bf16 step's limits against the same float64 golden (``--tolerance``
+# also prints them): 4 times the larger error of the port's bf16 step on the
+# CPU and the JAX package's own bf16 step against it, by class
+TRAIN_GOLDEN_TOL_BF16 = dict.fromkeys(TRAIN_GOLDEN_TOL, float("nan"))
 PROD_CONFIG = os.path.join(ROOT, "configs", "train_cfpnet_combine1.txt")
 TOL = 1e-4  # max |kernel - plain| / max |plain|
 # published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
@@ -458,17 +462,19 @@ def check_kernels(config, geoms, batch: int = 1, full: bool = True, mode: str = 
     return per_shape
 
 
-def check_gradients(config, geoms, batch: int):
+def check_gradients(config, geoms, batch: int, dtype=torch.float32):
     """Phase 4: each kernel's gradients at every train-step shape (``mode``
     "train") held against autograd of its plain version on the same inputs,
-    each within ``TOL`` of its max |plain|: dq, dk, dv of the attention calls
+    each within ``TOL`` of its max |plain| (in bf16 ``BF16_TOL``, the
+    gradients in bf16 as the inputs): dq, dk, dv of the attention calls
     (the kernel's backward is that autograd, recomputed from the saved
     inputs); dx, dW, db of dwconv (dx: the forward kernel on the rotated
     taps; dW: PyTorch's depthwise weight gradient), against the plain twin
-    at one batch row where k = 31 (its autograd is 961 full-size passes); dx, dsource,
-    wq and w1 of the fused LoFTR layer. Each line also times the backward at
-    the full batch: for dwconv dx, dW (from NCHW copies, as the port calls
-    it, copies included, and on the channels-last views) and db apart,
+    at one batch row where k = 31 (its autograd is 961 full-size passes);
+    dx, dsource, wq and w1 of the fused LoFTR layer. Each line also times
+    the backward at the full batch: for dwconv dx, dW (from NCHW copies, as
+    the port calls it, copies included, and in f32 also on the
+    channels-last views, which PyTorch hands to cuDNN) and db apart,
     against the bounds of their work."""
     from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
     from cfpnet_torch.models.transformer import LoFTREncoderLayer
@@ -476,19 +482,26 @@ def check_gradients(config, geoms, batch: int):
     from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
     from cfpnet_torch.ops.loftr import loftr_apply
 
+    f32 = dtype == torch.float32
+    tol, esize = (TOL, 4) if f32 else (BF16_TOL, 2)
     att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch, "train")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
 
     def randn(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, device="cuda", generator=gen)).requires_grad_()
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)).to(
+            dtype).requires_grad_()
 
     def held(name, shape, got, ref):
         torch.cuda.synchronize()
         out = {}
         for key, a, b in zip(name.split(","), got, ref):
+            if a.dtype != dtype or b.dtype != dtype:
+                raise AssertionError(f"gradient {key} at {shape}: {a.dtype}, plain {b.dtype}")
+            a, b = a.float(), b.float()
             err, top = float((a - b).abs().max()), float(b.abs().max())
-            if not (err <= TOL * top):
-                raise AssertionError(f"gradient {key} at {shape}: max err {err} > {TOL} * {top}")
+            if not (err <= tol * top):
+                raise AssertionError(f"gradient {key} at {shape} ({dtype}): max err {err} > "
+                                     f"{tol} * {top}")
             out[key] = err / top
         return out
 
@@ -497,7 +510,7 @@ def check_gradients(config, geoms, batch: int):
         if not calls:
             continue
         ins = [randn(N, L, H, D), randn(N, S, H, D), randn(N, S, H, D)]
-        g = torch.randn(N, L, H, D, device="cuda", generator=gen)
+        g = torch.randn(N, L, H, D, device="cuda", generator=gen).to(dtype)
         got = torch.autograd.grad(linear_attention.linear_attention(*ins), ins, g)
         ref = torch.autograd.grad(att_plain(*ins), ins, g)
         lines.append(dict(kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D),
@@ -506,7 +519,7 @@ def check_gradients(config, geoms, batch: int):
                               att_plain(*ins), ins, g), reps=5, trials=3)))
     for (B, H, W, C, k), calls in sorted(dw_shapes.items()):
         x, w, b = randn(B, H, W, C), randn(C, 1, k, k, scale=0.05), randn(C)
-        g = torch.randn(B, H, W, C, device="cuda", generator=gen)
+        g = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
         rows = 1 if k == 31 else B
         ins = [x[:rows].detach().requires_grad_(), w, b]
         got = torch.autograd.grad(dwconv.depthwise_conv2d(*ins), ins, g[:rows])
@@ -515,29 +528,32 @@ def check_gradients(config, geoms, batch: int):
         wflip = w.detach().flip(-1, -2)
         xd = x.detach()
         x_nchw, g_nchw = xd.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        nbytes = 4 * (2 * B * H * W * C + C * k * k)
+        nbytes = esize * (2 * B * H * W * C + C * k * k)
         flops = 2 * k * k * B * H * W * C
-        lines.append(dict(
+        line = dict(
             kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=k), calls=calls,
             checked_rows=rows, max_rel_err=errs,
             dx_ms=device_ms(lambda: dwconv.depthwise_conv2d(g, wflip)),
             dw_ms=device_ms(lambda: torch.nn.grad.conv2d_weight(
                 x_nchw.contiguous(), w.shape, g_nchw.contiguous(), padding=k // 2, groups=C),
                 reps=5, trials=3),
-            dw_channels_last_ms=device_ms(lambda: torch.nn.grad.conv2d_weight(
-                x_nchw, w.shape, g_nchw, padding=k // 2, groups=C), reps=2, trials=3),
             db_ms=device_ms(lambda: g.sum((0, 1, 2))),
-            dx_bound=bound_fields(nbytes, flops), dw_bound=bound_fields(nbytes, flops),
-            library_conv_ms=device_ms(lambda: F.conv2d(x_nchw, w.detach(), b.detach(),
-                                                       padding=k // 2, groups=C))))
+            dx_bound=bound_fields(nbytes, flops), dw_bound=bound_fields(nbytes, flops))
+        if f32:
+            line.update(
+                dw_channels_last_ms=device_ms(lambda: torch.nn.grad.conv2d_weight(
+                    x_nchw, w.shape, g_nchw, padding=k // 2, groups=C), reps=2, trials=3),
+                library_conv_ms=device_ms(lambda: F.conv2d(x_nchw, w.detach(), b.detach(),
+                                                           padding=k // 2, groups=C)))
+        lines.append(line)
     rng = np.random.default_rng(SEED + 100)
     for (N, L, S, C, H), calls in sorted(loftr_shapes.items()):
         def normal(*shape, mean=0.0, std=1.0):
             a = (mean + std * rng.standard_normal(shape)).astype(np.float32)
-            return torch.from_numpy(a).cuda()
+            return torch.from_numpy(a).cuda().to(dtype)
 
         x, src = normal(N, L, C).requires_grad_(), normal(N, S, C).requires_grad_()
-        layer = LoFTREncoderLayer(C, H).cuda()
+        layer = LoFTREncoderLayer(C, H).cuda().to(dtype)
         with torch.no_grad():
             for name, w in layer.named_parameters():
                 w.copy_(normal(*w.shape, mean=1.0 if name.endswith(("norm1.weight",
@@ -555,7 +571,7 @@ def check_gradients(config, geoms, batch: int):
                           backward_ms=device_ms(lambda: torch.autograd.grad(
                               loftr_apply(x, src, p, H), everything, g), reps=5, trials=3)))
     for r in lines:
-        emit(dict(phase="kernel_gradient", batch=batch, **r))
+        emit(dict(phase="kernel_gradient", batch=batch, dtype=str(dtype)[6:], **r))
     return lines
 
 
@@ -620,6 +636,36 @@ def kernel_rows(per_shape, per_shape_bs8, per_shape_train, gradients):
             bound_ms_train=per_forward(per_shape_train, "bound_ms"),
             max_rel_err_train=worst(per_shape_train)))
     return rows
+
+
+def bf16_train_fields(name, lines, gradients):
+    """A kernel row's bf16 train columns: in a bs=16 bf16 train step's
+    forward (``check_kernels_bf16`` at mode "train"; calls x per-call
+    value) the kernel's ms, bound, worst error over max |plain| and share
+    of elements that differ; its backward from the bf16 phase-4 lines
+    (``backward_ms_train_bf16``; for dwconv dx, dW and db,
+    ``dx_ms_train_bf16``, ``dw_library_ms_train_bf16``,
+    ``db_ms_train_bf16``) and its worst gradient error over max |plain|."""
+    def per_step(ls, key):
+        return sum(r["calls"] * r[key] for r in ls if r["kernel"] == name)
+
+    mine = [r for r in lines if r["kernel"] == name]
+    out = dict(ms_train_bf16=per_step(lines, "ms"),
+               bound_ms_train_bf16=per_step(lines, "bound_ms"),
+               bound_by_train_bf16=("bytes" if per_step(lines, "bytes_ms")
+                                    >= per_step(lines, "ops_ms") else "operations"),
+               max_rel_err_train_bf16=max(r["max_abs_err"] / r["max_abs_plain"] for r in mine),
+               differ_share_train_bf16=max(r["differ_share"] for r in mine))
+    if name == "dwconv":
+        parts = dict(dx_ms_train_bf16="dx_ms", dw_library_ms_train_bf16="dw_ms",
+                     db_ms_train_bf16="db_ms")
+        out.update({key: per_step(gradients, part) for key, part in parts.items()})
+        out["backward_ms_train_bf16"] = sum(out[key] for key in parts)
+    else:
+        out["backward_ms_train_bf16"] = per_step(gradients, "backward_ms")
+    out["grad_max_rel_err_train_bf16"] = max(max(r["max_rel_err"].values()) for r in gradients
+                                             if r["kernel"] == name)
+    return out
 
 
 def golden_train_config():
@@ -745,10 +791,11 @@ def golden_errors(got, ref):
     return errs
 
 
-def train_golden_errors(device="cuda"):
-    """One step of the port's train step (``train/steps.py``) on
-    ``golden_train_batch`` with the deterministic weights and the golden's
-    crop offsets, against ``GOLDEN_TRAIN`` (``golden_errors``). Returns (the
+def train_golden_errors(device="cuda", compute_dtype="float32"):
+    """One step of the port's train step (``train/steps.py``) in
+    ``compute_dtype`` on ``golden_train_batch`` with the deterministic
+    weights and the golden's crop offsets, against ``GOLDEN_TRAIN``
+    (``golden_errors``; the golden is float64 in either case). Returns (the
     errors, the launch counts of the step, the loss)."""
     from cfpnet_torch import kernels, weights
     from cfpnet_torch.models import fusion
@@ -756,7 +803,7 @@ def train_golden_errors(device="cuda"):
     from cfpnet_torch.train import steps
 
     ref = np.load(GOLDEN_TRAIN)
-    config = golden_train_config()
+    config = golden_train_config().replace(compute_dtype=compute_dtype)
     model = make_model(config, device=device)
     model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
     geoms = model_geometries(config, "train")
@@ -1043,12 +1090,15 @@ def by_kind(events):
 
 def train_step_phase(config, steps_timed: int = 10):
     """Phase 9: the production train step (``train/steps.py``) at
-    ``config``'s shape (bs 16 at 416x544), eager, on one synthetic batch
-    and the deterministic weights: 10 steps whose losses must be finite and
-    fall; the launch counts of one step (6 attention, 6 + 6 dwconv, 18 fused
-    LoFTR); ``steps_timed`` steps between CUDA events
-    (``evaluate_time.train_latency_ms``, K = 5); one profiled step; the
-    peak of allocated memory."""
+    ``config``'s shape (bs 16 at 416x544) and compute dtype, eager, on one
+    synthetic batch and the deterministic weights: 10 steps whose losses
+    must be finite and fall; the launch counts of one step (6 attention,
+    6 + 6 dwconv, 18 fused LoFTR), every one on the compute dtype;
+    ``steps_timed`` steps between CUDA events
+    (``evaluate_time.train_latency_ms``, K = 5); one profiled step, with its
+    casts (``aten::_to_copy`` calls); the peak of allocated memory; and
+    after the steps every parameter, both AdamW moments and every running
+    statistic still float32."""
     from cfpnet_torch import kernels, weights
     from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
     from cfpnet_torch.models.deltar import make_model, model_geometries
@@ -1068,15 +1118,23 @@ def train_step_phase(config, steps_timed: int = 10):
     kernels.reset_launches()
     train_step(state, batch, next(seeds))
     torch.cuda.synchronize()
-    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
-    if launches != TRAIN_LAUNCHES:
-        raise AssertionError(f"a train step launched {launches}, expected {TRAIN_LAUNCHES}")
+    launches, by_dtype = launch_counts(), launches_by_dtype()
+    if launches != TRAIN_LAUNCHES or any(d != {config.compute_dtype: launches[k]}
+                                         for k, d in by_dtype.items()):
+        raise AssertionError(f"a {config.compute_dtype} train step launched {by_dtype}, "
+                             f"expected {TRAIN_LAUNCHES} on {config.compute_dtype}")
     ms = train_latency_ms(lambda: train_step(state, batch, next(seeds)), steps_timed, 5)
     events = device_events(lambda: train_step(state, batch, next(seeds)))
-    return dict(phase="train_step", batch=config.bs,
+    held = [t.dtype for t in (*model.parameters(), *model.buffers(), *state.tx.mu.values(),
+                              *state.tx.nu.values())]
+    if set(held) != {torch.float32}:
+        raise AssertionError(f"after {config.compute_dtype} steps the state holds {set(held)}")
+    return dict(phase="train_step", batch=config.bs, dtype=config.compute_dtype,
                 size=[config.input_height, config.input_width], ms_a_step=ms,
                 images_a_s=config.bs * 1000.0 / ms, steps_timed=steps_timed,
-                losses_first_10=losses, launches_a_step=launches,
+                losses_first_10=losses, launches_a_step=launches, launches_by_dtype=by_dtype,
+                casts_a_step=sum(e.count for e in events if e.key == "aten::_to_copy"),
+                state_float32_entries=len(held),
                 max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 profiled_step=busy(events, ms), profiled_step_by_kind=by_kind(events))
 
@@ -1378,9 +1436,75 @@ def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None)
         shutil.rmtree(work, ignore_errors=True)
 
 
-def check_kernels_bf16(config, geoms, batch: int):
+def loop_bf16_phase(config):
+    """Phase 10, bf16: ``run_training`` with ``--compute_dtype bfloat16`` at
+    the loop phase's configuration, one epoch of 3 steps on the synthetic
+    set, in a temporary working directory: finite losses; each step's
+    kernels all on bf16 tensors, the validation's all on float32 (the
+    float32 masters, as the JAX loop's eval steps cast nothing); finite
+    validation metrics; float32 weights in the weights file and float32
+    weights and moments in the checkpoint."""
+    import shutil
+    import tempfile
+
+    from cfpnet_torch import kernels, weights
+
+    cfg = loop_config(config).replace(epochs=1, compute_dtype="bfloat16",
+                                      name="chip_smoke_loop_bf16",
+                                      save_dir="results/chip_smoke_loop_bf16")
+    init = weights.deterministic_state_dict(cfg)
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_loop_", dir=ROOT)
+    os.chdir(work)
+    try:
+        trace = []
+        kernels.reset_launches()
+        state, log, seconds = loop_run(cfg, init, trace)
+        by_dtype = launches_by_dtype()
+        losses = [float(t["loss"]) for t in trace]
+        if len(losses) != LOOP_SAMPLES // cfg.bs or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"bf16 loop losses {losses}")
+        eval_images = min(LOOP_SAMPLES, 64)
+        want = {k: {"bfloat16": len(trace) * TRAIN_LAUNCHES[k],
+                    "float32": eval_images * EVAL_LAUNCHES[k]} for k in TRAIN_LAUNCHES}
+        if by_dtype != want:
+            raise AssertionError(f"the bf16 loop launched {by_dtype}, expected {want}")
+        (val,) = [line for line in log if line["kind"] == "val"]
+        (epoch,) = [line for line in log if line["kind"] == "epoch"]
+        if not all(math.isfinite(val[k]) for k in EVAL_METRICS):
+            raise AssertionError(f"bf16 loop validation {val}")
+        name = f"0_{val['rmse']:.3f}"
+        held = set()
+        for kind in ("weights", "checkpoints"):
+            files = sorted(os.listdir(f"{kind}/{cfg.name}"))
+            if files != sorted([name, "best"]):
+                raise AssertionError(f"{kind}/{cfg.name} holds {files}")
+        for f in (name, "best"):
+            held |= {v.dtype for v in torch.load(f"weights/{cfg.name}/{f}", map_location="cpu",
+                                                 weights_only=True).values()}
+            ckpt = torch.load(f"checkpoints/{cfg.name}/{f}", map_location="cpu",
+                              weights_only=True)
+            held |= {v.dtype for v in ckpt["model"].values()}
+            held |= {v.dtype for g in ckpt["opt_state"].values() for key in ("mu", "nu")
+                     for v in g[key].values()}
+        if held != {torch.float32}:
+            raise AssertionError(f"the bf16 loop's files hold {held}")
+        ms = epoch["train_s"] * 1e3 / epoch["steps"]
+        return dict(phase="loop_bf16", batch=cfg.bs, samples=LOOP_SAMPLES, epochs=1,
+                    losses=losses, launches_by_dtype=by_dtype, val=val,
+                    files_dtypes=sorted(str(d) for d in held), loop_ms_a_step=ms,
+                    loop_images_a_s=cfg.bs * 1e3 / ms,
+                    loader_wait_ms_each_step=epoch["loader_wait_ms"],
+                    validation_s=epoch["val_s"], run_s=seconds)
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def check_kernels_bf16(config, geoms, batch: int, mode: str = "online_eval", full: bool = True):
     """The bf16 phase's kernels: each bf16 variant at every main-path shape
-    of the forward at ``batch`` against its plain version in bf16 on the
+    of the forward in ``mode`` at ``batch`` (the eval forward, or the bf16
+    train step's forward at "train") against its plain version in bf16 on the
     same bf16 inputs (both round at the Pallas kernel's points; their f32
     sums run in another order, so a value may land one bf16 ulp apart:
     max |kernel - plain| <= ``BF16_TOL`` * max |plain|), with the share of
@@ -1390,14 +1514,16 @@ def check_kernels_bf16(config, geoms, batch: int):
     the dense bf16 tensor-core rate (the fused layer: its products are
     bf16 x bf16 with f32 sums, whatever instruction the kernel issues);
     for dwconv also one cuDNN call on the same bf16 inputs (``F.conv2d``
-    with groups=C: f32 sums, the output rounded once), timed only."""
+    with groups=C: f32 sums, the output rounded once), timed only. Without
+    ``full`` the cuDNN call and the fused layer's split by pass are left
+    out (``library_ms`` None)."""
     from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
     from cfpnet_torch.models.transformer import LoFTREncoderLayer
     from cfpnet_torch.ops.attention import linear_attention as att_plain
     from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
     from cfpnet_torch.ops.loftr import loftr_apply
 
-    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch)
+    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch, mode)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 200 + batch)
     bf16 = torch.bfloat16
 
@@ -1435,7 +1561,7 @@ def check_kernels_bf16(config, geoms, batch: int):
                     **bound_fields(2 * (2 * B * H * W * C + C * kk * kk + C),
                                    2 * kk * kk * B * H * W * C),
                     library_ms=device_ms(lambda: F.conv2d(x_nchw, w, b, padding=kk // 2,
-                                                          groups=C)))
+                                                          groups=C)) if full else None)
         lines.append(dict(kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=kk), calls=calls,
                           **line))
     rng = np.random.default_rng(SEED + 200 + batch)
@@ -1456,8 +1582,9 @@ def check_kernels_bf16(config, geoms, batch: int):
             line = held("fused_loftr", (N, L, S, C, H), fused_loftr.fused_loftr(x, src, p, H),
                         loftr_apply(x, src, p, H))
             plan = fused_loftr.launch_plan(N, L, S, C, H, bf16)
+            if full:
+                line.update(pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H)))
             line.update(ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
-                        **pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H)),
                         plan={key: plan[key] for key in (
                             "tm", "cl", "units", "rounds", "blocks_per_sm", "smem", "sum_split",
                             "sum_groups", "sum_blocks", "sum_smem")},
@@ -1468,7 +1595,7 @@ def check_kernels_bf16(config, geoms, batch: int):
         lines.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
                           calls=calls, **line))
     for r in lines:
-        emit(dict(phase="kernel_shape_bf16", batch=batch, **r))
+        emit(dict(phase="kernel_shape_bf16", batch=batch, mode=mode, **r))
     return lines
 
 
@@ -1696,6 +1823,13 @@ def main() -> int:
     # 4. the kernels' gradients at the train step's shapes
     gradients = check_gradients(tconfig, tgeoms, tconfig.bs)
     rows = kernel_rows(per_shape, per_shape_bs8, per_shape_train, gradients)
+    # and the bf16 variants at the bf16 train step's shapes, forward and
+    # backward
+    per_shape_train16 = check_kernels_bf16(tconfig, tgeoms, tconfig.bs, mode="train",
+                                           full=False)
+    gradients16 = check_gradients(tconfig, tgeoms, tconfig.bs, torch.bfloat16)
+    for r in rows:
+        r.update(bf16_train_fields(r["name"], per_shape_train16, gradients16))
 
     # 5. slice: the full-width forward through the kernels, against the golden
     model = make_model(config, device="cuda")
@@ -1754,6 +1888,25 @@ def main() -> int:
     emit(train)
     for r in rows:
         r["launches_train_step"] = train["launches_a_step"][r["name"]]
+    # the bf16 step: at bs 2 against the same float64 golden, all its kernels
+    # on bf16 tensors; then at bs 16 beside the f32 step
+    errs16, golden_launches16, golden_loss16 = train_golden_errors(compute_dtype="bfloat16")
+    by_dtype16 = launches_by_dtype()
+    emit(dict(phase="train_golden_bf16", golden=os.path.relpath(GOLDEN_TRAIN, ROOT),
+              loss=golden_loss16, launches=golden_launches16, launches_by_dtype=by_dtype16,
+              errors=errs16, tolerance=TRAIN_GOLDEN_TOL_BF16))
+    if golden_launches16 != TRAIN_LAUNCHES or any(
+            d != {"bfloat16": golden_launches16[k]} for k, d in by_dtype16.items()):
+        raise AssertionError(f"the bf16 golden step launched {by_dtype16}")
+    if set(errs16) != set(TRAIN_GOLDEN_TOL_BF16) or not all(
+            v <= TRAIN_GOLDEN_TOL_BF16[k] for k, v in errs16.items()):
+        raise AssertionError(f"bf16 train step against the golden: {errs16}, tolerance "
+                             f"{TRAIN_GOLDEN_TOL_BF16}")
+    train16 = train_step_phase(tconfig.replace(compute_dtype="bfloat16"))
+    train16["f32_ms_a_step"] = train["ms_a_step"]
+    emit(train16)
+    for r in rows:
+        r["launches_train_step_bf16"] = train16["launches_a_step"][r["name"]]
 
     # 10. the training loop: two epochs with validation and checkpoints,
     # a profiled step, and a resume from the epoch-0 checkpoint
@@ -1764,6 +1917,7 @@ def main() -> int:
     emit(loop)
     for r in rows:
         r["launches_loop"] = loop["launches_run"][r["name"]]
+    emit(loop_bf16_phase(tconfig))
 
     # 11. bf16: the bf16 kernels, the bf16 forward's launches, drift and
     # graphs, evaluate_time --compute_dtype bfloat16, device time by kind
@@ -1776,9 +1930,21 @@ def main() -> int:
     # 12. the epoch sweep over the loop's weights
     emit(sweep_phase(sweep_dir))
 
-    # 13. the headline benchmark at reduced iterations (its own JSON line)
-    if bench.main(["--iters", str(BENCH_ITERS), "--train_iters", str(BENCH_TRAIN_ITERS)]) != 0:
-        raise AssertionError("cfpnet_torch.bench failed")
+    # 13. the headline benchmark at reduced iterations (its own JSON line),
+    # with the root bench's train keys: the bf16 step's, the f32 step's
+    # under _f32
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = bench.main(["--iters", str(BENCH_ITERS), "--train_iters", str(BENCH_TRAIN_ITERS)])
+    print(printed.getvalue(), end="", flush=True)
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    keys = {f"train_ms_bs{tconfig.bs}", "train_img_s", "tfps_train", "mfu_train"}
+    missing = {k + sfx for k in keys for sfx in ("", "_f32")} - set(line)
+    if rc != 0 or line.get("train_dtype") != "bfloat16" or missing:
+        raise AssertionError(f"cfpnet_torch.bench: rc {rc}, train_dtype "
+                             f"{line.get('train_dtype')}, missing {sorted(missing)}")
     emit(dict(phase="done", seconds_total=time.perf_counter() - t_start))
 
     emit({"kernels": rows})

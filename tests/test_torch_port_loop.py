@@ -440,8 +440,7 @@ ENTRY = ["--tiny_model", "--n_bins", "16", "--native_height", "64", "--native_wi
 @pytest.mark.parametrize("flags,item", [
     (["--selfsup"], "§A 11"), (["--multihost"], "§A 9"), (["--device_pipeline"], "§A 8"),
     (["--spatial_shards", "2"], "§A 9"), (["--debug_nans"], "§A 3"),
-    (["--grad_accum", "2"], "§A"), (["--remat"], "§A"),
-    (["--compute_dtype", "bfloat16"], "§A")])
+    (["--grad_accum", "2"], "§A"), (["--remat"], "§A")])
 def test_entry_point_refusals(flags, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):

@@ -453,8 +453,7 @@ def test_attention_gradient_is_the_plain_versions(monkeypatch):
 
 # ---- what is not ported raises ------------------------------------------------
 
-@pytest.mark.parametrize("option", [dict(grad_accum=2), dict(remat=True),
-                                    dict(compute_dtype="bfloat16")])
+@pytest.mark.parametrize("option", [dict(grad_accum=2), dict(remat=True)])
 def test_unported_options_raise(tiny, option):
     cfg = tiny["pt_cfg"].replace(**option)
     port = pt_make_model(cfg, tiny=True, device="meta")
