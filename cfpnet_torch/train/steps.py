@@ -64,7 +64,7 @@ def make_loss_fn(model, config, geoms):
     (module docstring); the model's own parameters and statistics stay
     float32."""
     refuse_unported(config)
-    cdt = compute_dtype(getattr(config, "compute_dtype", "float32"))
+    cdt = compute_dtype(config.compute_dtype)
 
     def forward(image, hist, mask, generator):
         if cdt == torch.float32:
@@ -83,12 +83,12 @@ def make_loss_fn(model, config, geoms):
 
 
 def cast_params(model, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """``dtype`` copies of the model's floating parameters by name, each one
-    differentiable cast (``Tensor.to``): a gradient through a copy lands in
-    the parameter's own dtype on the parameter. The JAX loss's ``cast_tree``
-    of ``params``; buffers (the BatchNorm statistics) are left out."""
-    return {name: p.to(dtype) if p.is_floating_point() else p
-            for name, p in model.named_parameters()}
+    """``dtype`` copies of the model's parameters (all floating) by name,
+    each one differentiable cast (``Tensor.to``): a gradient through a copy
+    lands in the parameter's own dtype on the parameter. The JAX loss's
+    ``cast_tree`` of ``params``; buffers (the BatchNorm statistics) are
+    left out."""
+    return {name: p.to(dtype) for name, p in model.named_parameters()}
 
 
 @dataclass

@@ -43,7 +43,13 @@ line:
    forward kernel on the rotated taps), dW (PyTorch's call, from NCHW
    copies as the port makes it, and on the channels-last views, which
    PyTorch hands to cuDNN) and db apart; the attention and
-   LoFTR backwards (autograd of the plain version, recomputed).
+   LoFTR backwards (autograd of the plain version, recomputed). Then the
+   same in bf16 for the bf16 train step: each bf16 variant at every shape
+   of the bs=16 train step's forward against its bf16 plain version within
+   ``BF16_TOL`` (``check_kernels_bf16``, mode "train", with the share of
+   elements that differ, ms and bound), and its bf16 gradients against
+   autograd of the bf16 plain version within ``BF16_TOL`` x max |plain|,
+   with dx, dW and db timed apart.
 5. slice: the production model (configs/train_cfpnet_combine1.txt
    topology) at 480x640, bs=1, with the golden tests' deterministic
    weights, against ``tests/golden/full_forward.npz`` at that test's
@@ -69,7 +75,12 @@ line:
    fused-LoFTR kernels; then the production step at bs 16
    (``train_step_phase``): falling losses over 10 steps on one batch, the
    launch counts of a step, ms a step and images/s, peak memory, and one
-   profiled step by kernel and by kind with the device's busy share.
+   profiled step by kernel and by kind with the device's busy share. Then
+   the bf16 step (``--compute_dtype bfloat16``): one step at bs 2 against
+   the same float64 golden within ``TRAIN_GOLDEN_TOL_BF16``, its 6 / 6 + 6
+   / 18 launches all on bf16 tensors; the bs-16 bf16 step as above beside
+   the f32 one (its casts counted), after which every parameter, both
+   AdamW moments and every running statistic are still float32.
 10. loop: the training loop (``train/loop.py::run_training``) at the bs
     16 train configuration on 48 synthetic samples, 2 epochs of 3 steps,
     validation (48 eval images) and checkpoints every epoch, in a temporary
@@ -82,7 +93,10 @@ line:
     rates; losses and parameters within 4x the spread of two uninterrupted
     runs). Prints loop ms a step and images/s beside phase 9's bare step,
     the wait on the loader's queue, validation and checkpoint seconds and
-    bytes, and the ToF path.
+    bytes, and the ToF path. Then one epoch of ``run_training`` in bf16
+    (``loop_bf16_phase``): finite losses, the steps' launches on bf16 and
+    the validation's on float32, finite metrics, float32 weights and
+    moments in the files.
 11. bf16 (``bf16_phase``): ``--compute_dtype bfloat16`` through the eval
     forward. Each kernel's bf16 variant against its bf16 plain version at
     every bs=1 and bs=8 main-path shape (max |kernel - plain| <=
@@ -105,7 +119,8 @@ line:
     forwards.
 13. bench: ``cfpnet_torch.bench`` at ``BENCH_ITERS`` forward and
     ``BENCH_TRAIN_ITERS`` train iterations prints its line (bf16 headline
-    keys and f32 ones).
+    keys and f32 ones; the train keys of the bf16 step, ``train_dtype``
+    "bfloat16", and of the f32 step under ``_f32``).
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -122,7 +137,13 @@ dense bf16 tensor-core rate for the fused layer's bf16 products),
 shapes, ``card_ms_bs8_bf16``, ``bound_ms_bs8_bf16`` and the bf16 forward's
 ``launches_bf16``; for the fused layer also its bf16 source,
 ``source_bf16``, and its passes, ``summary_ms_bf16``, ``rows_ms_bf16``,
-``summary_ms_bs8_bf16``, ``rows_ms_bs8_bf16``), and last the ``ok`` line.
+``summary_ms_bs8_bf16``, ``rows_ms_bs8_bf16``); in the bf16 train step
+(``bf16_train_fields``) ``ms_train_bf16``, ``bound_ms_train_bf16``,
+``max_rel_err_train_bf16``, ``differ_share_train_bf16``,
+``backward_ms_train_bf16``, ``grad_max_rel_err_train_bf16``, for dwconv
+``dx_ms_train_bf16``, ``dw_library_ms_train_bf16``, ``db_ms_train_bf16``,
+and ``launches_train_step_bf16``), and last the ``ok`` line. Each phase's
+line carries ``at_s``, the seconds since the script started.
 """
 
 from __future__ import annotations
@@ -160,10 +181,21 @@ TRAIN_GOLDEN_TOL = dict(loss=9.6e-7, stat=0.023, zero_grad_norm=1.3e-6,
                         head_grad_norm=1.5e-5, head_grad_sum=2.5e-6, head_grad_at=4.2e-4,
                         head_param_at=5.1e-4, trunk_grad_norm=0.59, trunk_grad_sum=0.15,
                         trunk_grad_at=2.6, trunk_param_at=0.29)
-# the bf16 step's limits against the same float64 golden (``--tolerance``
-# also prints them): 4 times the larger error of the port's bf16 step on the
-# CPU and the JAX package's own bf16 step against it, by class
-TRAIN_GOLDEN_TOL_BF16 = dict.fromkeys(TRAIN_GOLDEN_TOL, float("nan"))
+# The bf16 step's limits against the same float64 golden, by the same rule:
+# 4 times the error of the port's bf16 step on the CPU
+# (``train_golden_errors(device="cpu", compute_dtype="bfloat16")``, run on an
+# 8-core host), rounded up to two digits. ``python
+# tests/test_torch_port_train.py --tolerance`` prints them with the JAX
+# package's own bf16 step beside it (the larger of the two sets them); that
+# full-size JAX step needs flax and a large host and has not been run yet.
+# In bf16 the trunk's gradients are as far from the float64 ones as their
+# own norm (the float32 trunk is already 15% off), so a parameter there may
+# step against the golden's sign (``trunk_param_at`` 2: two learning rates);
+# the loss, the head and the statistics keep limits with teeth.
+TRAIN_GOLDEN_TOL_BF16 = dict(loss=0.0053, stat=1.3, zero_grad_norm=0.024, head_grad_norm=0.46,
+                             head_grad_sum=0.12, head_grad_at=2.9, head_param_at=0.002,
+                             trunk_grad_norm=45, trunk_grad_sum=2.5, trunk_grad_at=91,
+                             trunk_param_at=8.1)
 PROD_CONFIG = os.path.join(ROOT, "configs", "train_cfpnet_combine1.txt")
 TOL = 1e-4  # max |kernel - plain| / max |plain|
 # published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
@@ -183,7 +215,14 @@ BENCH_TRAIN_ITERS = 10  # and its --train_iters (its default is 40)
 BF16_ITERS = 50  # cfpnet_torch.evaluate_time --niters in the bf16 phase (its default is 500)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``at_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -216,7 +255,7 @@ def bound_fields(nbytes: float, flops: float, peak_flops: float = PEAK_F32):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_split(fn, calls: int = 10, attempts: int = 3):
+def kernel_split(fn, calls: int = 10, attempts: int = 5):
     """The device kernels of one ``fn()`` call by name: ``{name: {"launches":
     per call, "ms": device ms per call}}``, from torch.profiler (CUPTI) over
     ``calls`` back-to-back calls of ``fn``. A profiler session now and then
@@ -1582,9 +1621,9 @@ def check_kernels_bf16(config, geoms, batch: int, mode: str = "online_eval", ful
             line = held("fused_loftr", (N, L, S, C, H), fused_loftr.fused_loftr(x, src, p, H),
                         loftr_apply(x, src, p, H))
             plan = fused_loftr.launch_plan(N, L, S, C, H, bf16)
-            if full:
-                line.update(pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H)))
             line.update(ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
+                        **(pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H))
+                           if full else {}),
                         plan={key: plan[key] for key in (
                             "tm", "cl", "units", "rounds", "blocks_per_sm", "smem", "sum_split",
                             "sum_groups", "sum_blocks", "sum_smem")},

@@ -504,18 +504,104 @@ def test_fused_loftr_bf16_refuses_unaligned_weights(gen):
         fused_loftr.fused_loftr(x, x, p._replace(wq=wq.t()), 4)
 
 
-def test_bf16_backwards_raise(gen):
-    """The bf16 variants are forward only (the bf16 train step is ROADMAP
-    §A 2c): each gradient raises NotImplementedError naming it."""
-    q = _randn(gen, 1, 8, 4, 8).bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="2c"):
-        linear_attention.linear_attention(q, q, q).sum().backward()
-    x = _randn(gen, 1, 9, 10, 4).bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="2c"):
-        dwconv.depthwise_conv2d(x, (0.05 * _randn(gen, 4, 1, 7, 7)).bfloat16()).sum().backward()
-    x = _randn(gen, 2, 8, 32).bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="2c"):
-        fused_loftr.fused_loftr(x, x, _loftr_params_bf16(gen, 32), 4).sum().backward()
+@pytest.mark.parametrize("kernel,shape", [("linear_attention", (16, 884, 576, 4, 32)),
+                                          ("dwconv", (16, 26, 34, 128, 7)),
+                                          ("fused_loftr", (576, 16, 16, 128, 4))])
+def test_bf16_backward_at_a_train_shape(gen, kernel, shape):
+    """Each kernel's bf16 gradients at one shape of the bf16 train step
+    against autograd of its bf16 plain twin, in bf16, one forward launch
+    (dwconv: and one more for dx)."""
+    bf16 = torch.bfloat16
+    if kernel == "linear_attention":
+        N, L, S, H, D = shape
+        ins = [_randn(gen, N, n, H, D).to(bf16).requires_grad_() for n in (L, S, S)]
+        fn, plain, want = linear_attention.linear_attention, attention_plain, 1
+        g = _randn(gen, N, L, H, D).to(bf16)
+    elif kernel == "dwconv":
+        B, H, W, C, k = shape
+        ins = [_randn(gen, B, H, W, C).to(bf16).requires_grad_(),
+               (0.05 * _randn(gen, C, 1, k, k)).to(bf16).requires_grad_(),
+               _randn(gen, C).to(bf16).requires_grad_()]
+        fn, plain, want = dwconv.depthwise_conv2d, dwconv_plain, 2
+        g = _randn(gen, B, H, W, C).to(bf16)
+    else:
+        N, L, S, C, H = shape
+        stored, _ = _loftr_params(gen, C)
+        stored = {k: v.to(bf16).requires_grad_() for k, v in stored.items()}
+        p = LoFTRParams(**{k: v.t() if v.dim() == 2 else v for k, v in stored.items()})
+        ins = [_randn(gen, N, L, C).to(bf16).requires_grad_(),
+               _randn(gen, N, S, C).to(bf16).requires_grad_(), *stored.values()]
+        fn = lambda x, s, *_: fused_loftr.fused_loftr(x, s, p, H)  # noqa: E731
+        plain = lambda x, s, *_: loftr_apply(x, s, p, H)  # noqa: E731
+        want, g = 1, _randn(gen, N, L, C).to(bf16)
+    kernels.reset_launches()
+    got = torch.autograd.grad(fn(*ins), ins, g)
+    torch.cuda.synchronize()
+    assert launches_of(kernel) == {"bfloat16": want}
+    for a, b in zip(got, torch.autograd.grad(plain(*ins), ins, g)):
+        _assert_close_bf16(a, b)
+
+
+def launches_of(kernel):
+    return dict({"linear_attention": linear_attention, "dwconv": dwconv,
+                 "fused_loftr": fused_loftr}[kernel].launches_by_dtype)
+
+
+def _small_train(compute_dtype="bfloat16"):
+    """The production-width model at the tiny config's geometry (train
+    48x64 of native 64x96, 2x2 zones), bs 2, the deterministic weights:
+    (model, state, step, batch) of ``train/steps.py`` on the card."""
+    from cfpnet_torch import weights
+    from cfpnet_torch.bench import smoke_config
+    from cfpnet_torch.evaluate_time import make_train_batch
+    from cfpnet_torch.models.deltar import make_model
+    from cfpnet_torch.train import steps
+
+    config = smoke_config().replace(tiny_model=False, mode="train", bs=2, input_height=48,
+                                    input_width=64, train_zone_num=2, train_patch_px=16,
+                                    disable_clip_grad=True, hist_encoder_10x=True,
+                                    compute_dtype=compute_dtype)
+    geoms = model_geometries(config, "train")
+    model = make_model(config, device="cuda")
+    model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
+    state = steps.create_train_state(model, config, 100)
+    return model, state, steps.make_train_step(model, config, geoms), make_train_batch(
+        config, 2, "cuda")
+
+
+def test_bf16_train_step_launches_only_bf16_kernels(gen):
+    """One production bf16 train step at the small geometry: 3 attention,
+    3 + 3 dwconv and 9 fused-LoFTR launches, every one on bf16 tensors; a
+    finite loss; the parameters move and stay float32."""
+    model, state, step, batch = _small_train()
+    before = model.decoder.conv0.weight.detach().clone()
+    kernels.reset_launches()
+    loss = step(state, batch, 7)
+    torch.cuda.synchronize()
+    assert {k: launches_of(k) for k in ("linear_attention", "dwconv", "fused_loftr")} == {
+        "linear_attention": {"bfloat16": 3}, "dwconv": {"bfloat16": 6},
+        "fused_loftr": {"bfloat16": 9}}
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert not torch.equal(model.decoder.conv0.weight.detach(), before)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+
+
+def test_bf16_train_steps_repeat_bitwise(gen):
+    """Two bf16 steps from the same state, each on its own copy of the
+    model, under deterministic algorithms: the same loss, parameters,
+    statistics and moments, bit for bit."""
+    from chip_smoke import deterministic_algorithms, flat_state
+
+    got = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            model, state, step, batch = _small_train()
+            loss = step(state, batch, 7)
+            got.append((loss, *flat_state(state)))
+    (loss_a, flat_a, step_a), (loss_b, flat_b, step_b) = got
+    assert torch.equal(loss_a, loss_b) and step_a == step_b == 1
+    assert flat_a.keys() == flat_b.keys()
+    assert [k for k in flat_a if not torch.equal(flat_a[k], flat_b[k])] == []
 
 
 def test_kernels_refuse_mixed_dtypes(gen):

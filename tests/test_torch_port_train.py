@@ -535,10 +535,13 @@ def test_flops_train_counts(tiny):
 
 # ---- the golden production step -------------------------------------------------
 
-def write_train_golden(path, x64: bool = True):
+def write_train_golden(path, x64: bool = True, compute_dtype: str = "float32"):
     """One production train step of the JAX package, float64 on the CPU
     (float32 with ``x64=False``: the reference's own rounding, which sets
-    how far a float32 step can be from the golden):
+    how far a float32 step can be from the golden; with ``compute_dtype``
+    "bfloat16" its mixed-precision step on float32 masters, compiled with
+    ``xla_allow_excess_precision`` off so that each op rounds to its dtype,
+    as in tests/test_torch_port_bf16.py):
     ``chip_smoke.golden_train_config`` (bs 2 at 416x544), the deterministic
     weights, ``chip_smoke.golden_train_batch``, the crop offsets the port's
     generator draws at the golden seed (handed to the JAX model through
@@ -553,6 +556,7 @@ def write_train_golden(path, x64: bool = True):
 
     pt_cfg = chip_smoke.golden_train_config()
     cfg = JxConfig(**{f.name: getattr(pt_cfg, f.name) for f in dataclasses.fields(JxConfig)})
+    cfg = cfg.replace(compute_dtype=compute_dtype)
     geoms = model_geometries(cfg, "train")
     b = chip_smoke.golden_train_batch(pt_cfg)
     offsets = chip_smoke.golden_crop_offsets(pt_cfg, chip_smoke.GOLDEN_TRAIN_SEED)
@@ -565,6 +569,11 @@ def write_train_golden(path, x64: bool = True):
         return draws
 
     dtype = np.float64 if x64 else np.float32
+    options = {} if compute_dtype == "float32" else {"xla_allow_excess_precision": False}
+
+    def run(fn, *args):
+        return jax.jit(fn).lower(*args).compile(compiler_options=options)(*args)
+
     try:
         with enable_x64() if x64 else contextlib.nullcontext():
             shapes = jax.eval_shape(
@@ -576,20 +585,21 @@ def write_train_golden(path, x64: bool = True):
                                                  s.shape).astype(dtype), shapes)
             batch = _jx_batch(b)
             draws = replay()
-            (loss, _), grads = jax.jit(jax.value_and_grad(
-                jx_steps.make_loss_fn(model, cfg, geoms), has_aux=True))(
-                    variables["params"], variables["batch_stats"], batch, jax.random.key(0))
+            (loss, _), grads = run(jax.value_and_grad(
+                jx_steps.make_loss_fn(model, cfg, geoms), has_aux=True),
+                variables["params"], variables["batch_stats"], batch, jax.random.key(0))
             assert next(draws, None) is None
             tx = jx_optim.make_optimizer(cfg, chip_smoke.GOLDEN_TRAIN_TOTAL_STEPS)
             state = jx_steps.TrainState.create(apply_fn=model.apply, params=variables["params"],
                                                batch_stats=variables["batch_stats"], tx=tx)
             draws = replay()
-            state, step_loss = jax.jit(jx_steps.make_train_step(model, cfg, geoms, jit=False))(
-                state, batch, jax.random.key(0))
+            state, step_loss = run(jx_steps.make_train_step(model, cfg, geoms, jit=False),
+                                   state, batch, jax.random.key(0))
             assert next(draws, None) is None
     finally:
         jax.random.randint = real_randint
-    np.testing.assert_allclose(float(step_loss), float(loss), rtol=0 if x64 else 1e-6)
+    np.testing.assert_allclose(float(step_loss), float(loss),
+                               rtol=0 if x64 else 1e-6 if compute_dtype == "float32" else 1e-3)
     to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     g = weights.from_flax(to_np(grads), None, pt_cfg)
     after = weights.from_flax(to_np(state.params), to_np(state.batch_stats), pt_cfg)
@@ -608,26 +618,27 @@ def write_train_golden(path, x64: bool = True):
     return out
 
 
-def golden_tolerance(f32_path):
-    """``chip_smoke.TRAIN_GOLDEN_TOL`` from the same comparison on the CPU in
-    float32: the port's step (``train_golden_errors(device="cpu")``) and the
-    JAX package's own float32 step (written to ``f32_path``), each against
+def golden_tolerance(path, compute_dtype="float32"):
+    """``chip_smoke.TRAIN_GOLDEN_TOL`` (float32) or ``TRAIN_GOLDEN_TOL_BF16``
+    (``compute_dtype`` "bfloat16") from the same comparison on the CPU: the
+    port's step in that dtype (``train_golden_errors(device="cpu")``) and
+    the JAX package's own step in it (written to ``path``), each against
     the float64 golden; the tolerance of each kind is 4 times the larger,
     rounded up to two digits."""
     import math
 
     import chip_smoke
 
-    write_train_golden(f32_path, x64=False)
+    write_train_golden(path, x64=False, compute_dtype=compute_dtype)
     ref = np.load(chip_smoke.GOLDEN_TRAIN)
-    jax_f32 = chip_smoke.golden_errors(np.load(f32_path), ref)
-    port_f32 = chip_smoke.train_golden_errors(device="cpu")[0]
+    jax_errs = chip_smoke.golden_errors(np.load(path), ref)
+    port_errs = chip_smoke.train_golden_errors(device="cpu", compute_dtype=compute_dtype)[0]
     tol = {}
-    for k in sorted(port_f32):
-        v = 4 * max(port_f32[k], jax_f32[k])
+    for k in sorted(port_errs):
+        v = 4 * max(port_errs[k], jax_errs[k])
         e = math.floor(math.log10(v)) - 1
         tol[k] = math.ceil(v / 10 ** e) * 10 ** e
-    return port_f32, jax_f32, tol
+    return port_errs, jax_errs, tol
 
 
 @pytest.mark.slow
@@ -646,15 +657,19 @@ if __name__ == "__main__":
     # python tests/test_torch_port_train.py              write the golden (float64)
     # python tests/test_torch_port_train.py --f32 PATH   the same step in float32
     # python tests/test_torch_port_train.py --tolerance  chip_smoke.TRAIN_GOLDEN_TOL
+    #                                                    and TRAIN_GOLDEN_TOL_BF16
     import json
     import tempfile
 
     jax.config.update("jax_platforms", "cpu")
     if sys.argv[1:2] == ["--tolerance"]:
+        out = {}
         with tempfile.TemporaryDirectory() as tmp:
-            port_f32, jax_f32, tol = golden_tolerance(os.path.join(tmp, "f32.npz"))
-        print(json.dumps(dict(port_f32_cpu=port_f32, jax_f32_cpu=jax_f32, tolerance=tol),
-                         indent=1))
+            for dt, sfx in (("float32", "f32"), ("bfloat16", "bf16")):
+                port, jax_own, tol = golden_tolerance(os.path.join(tmp, f"{sfx}.npz"), dt)
+                out.update({f"port_{sfx}_cpu": port, f"jax_{sfx}_cpu": jax_own,
+                            "tolerance" + ("" if dt == "float32" else "_bf16"): tol})
+        print(json.dumps(out, indent=1))
         sys.exit(0)
     if sys.argv[1:2] == ["--f32"]:
         target, x64 = sys.argv[2], False
