@@ -88,6 +88,7 @@ from .config import parse_config
 from .data.datasets import SyntheticDataset, collate, make_dataset, sample_image_f32
 from .evaluate_all import eval_dataset_config
 from .graphs import CapturedForward
+from .kernels.dtypes import dtype_name
 from .models.convnext import LargeKernelDWConv
 from .models.deltar import cast_to_compute_dtype, make_model, model_geometries
 from .models.deltar import compute_dtype as dtype_of
@@ -252,7 +253,7 @@ def timed_train_step(config, niters: int = 40, K: int = 10, warmup: int = 3,
     deterministic ones."""
     cfg = config.replace(mode="train")
     if compute_dtype is not None:
-        cfg = cfg.replace(compute_dtype=dtype_name(compute_dtype))
+        cfg = cfg.replace(compute_dtype=dtype_name(dtype_of(compute_dtype)))
     model = make_model(cfg, tiny=tiny, device=device)
     model.load_state_dict(state_dict if state_dict is not None
                           else weights.deterministic_state_dict(cfg, tiny=tiny), strict=True)
@@ -265,12 +266,6 @@ def timed_train_step(config, niters: int = 40, K: int = 10, warmup: int = 3,
         train_step(state, batch, next(seeds))
     return train_latency_ms(lambda: train_step(state, batch, next(seeds)), niters, K,
                             cuda=torch.device(device).type == "cuda")
-
-
-def dtype_name(dtype) -> str:
-    """The ``--compute_dtype`` name ("float32", "bfloat16") of a dtype or a
-    name."""
-    return str(dtype_of(dtype)).replace("torch.", "")
 
 
 def train_latency_ms(step, niters: int, K: int, cuda: bool = True) -> float:
@@ -381,7 +376,7 @@ def train_main(config, args, state_dict, device) -> Dict[str, object]:
     images/s, and with ``--profile_flops`` the operations a step
     (``flops_train``, the same in either dtype)."""
     cfg = config.replace(mode="train")
-    dtype = dtype_name(cfg.compute_dtype)
+    dtype = dtype_name(dtype_of(cfg.compute_dtype))
     ms = timed_train_step(cfg, niters=args.niters, state_dict=state_dict, device=device,
                           tiny=cfg.tiny_model)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu, host clock"

@@ -23,7 +23,13 @@ def check_dtypes(kernel: str, tensors) -> None:
                             "kernel takes one element type")
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """The name of a torch dtype ("float32", "bfloat16"), as
+    ``--compute_dtype`` and numpy spell it."""
+    return str(dtype).replace("torch.", "")
+
+
 def count_launch(by_dtype: Dict[str, int], dtype: torch.dtype) -> None:
     """Adds one launch on ``dtype`` ("float32", "bfloat16") to ``by_dtype``."""
-    key = str(dtype).replace("torch.", "")
+    key = dtype_name(dtype)
     by_dtype[key] = by_dtype.get(key, 0) + 1

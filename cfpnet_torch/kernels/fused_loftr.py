@@ -44,7 +44,7 @@ import torch
 
 from ..ops.loftr import LoFTRParams, loftr_apply
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch
+from .dtypes import DTYPES, check_dtypes, count_launch, dtype_name
 from .dwconv import (MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK, SMEM_PER_SM,
                      SMEM_RESERVED, SMS)
 
@@ -189,7 +189,7 @@ def launch_plan(N: int, L: int, S: int, C: int, H: int,
     if dtype == torch.bfloat16 and split == 1:
         groups = -(-N * hg // SUM_BLOCKS)
     return MappingProxyType(dict(
-        dtype=str(dtype).replace("torch.", ""), cl=cl, tm=tm, tiles=tiles, units=units,
+        dtype=dtype_name(dtype), cl=cl, tm=tm, tiles=tiles, units=units,
         grid=cl * units, resident=resident, blocks_per_sm=per_sm, rounds=-(-tiles // units),
         cols=cols, heads=cols // D, smem=smem, sum_split=split, sum_groups=groups,
         sum_blocks=hg * split * -(-N // groups), sum_smem=summary_smem(C, D, dtype)))

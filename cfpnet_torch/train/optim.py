@@ -37,6 +37,8 @@ from typing import Callable, Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from ..kernels.dtypes import dtype_name
+
 B2 = 0.999
 EPS = 1e-8
 CLIP_NORM = 0.1
@@ -121,7 +123,7 @@ class AdamW:
         ``lr_fn(count) * scale``), cast to ``dtype`` with b2, eps and wd, and
         ``1 - b1``, ``1 - b1**t``, ``1 - b2**t`` (t = count + 1) computed in
         ``dtype``. Python floats that hold those values exactly."""
-        dt = np.dtype(str(dtype).replace("torch.", "")).type
+        dt = np.dtype(dtype_name(dtype)).type
         b1, b2, one, t = dt(self.mom_fn(self.count)), dt(B2), dt(1), dt(self.count + 1)
         lr = {g: float(dt(self.lr_fn(self.count) * np.float32(scale)))
               for g, scale in LR_SCALE.items()}

@@ -641,6 +641,44 @@ def golden_tolerance(path, compute_dtype="float32"):
     return port_errs, jax_errs, tol
 
 
+def _frozen_statistics(ref, start):
+    return {k: start[k[5:]].double().numpy() for k in ref if k.startswith("stat:")}
+
+
+def _zeroed_trunk_gradients(ref, start):
+    return {k: 0 * ref[k] for k in ref if k.startswith(("grad_at:", "grad_norm:", "grad_sum:"))
+            and not k.split(":", 1)[1].startswith(("depth_head.", "conv_out."))}
+
+
+def _unmoved_trunk_parameters(ref, start):
+    import chip_smoke
+
+    names = [k[9:] for k in ref if k.startswith("param_at:")]
+    return {"param_at:" + n: start[n].double().numpy().ravel()[
+        chip_smoke.leaf_indices(start[n].numel())]
+        for n in names if not n.startswith(("depth_head.", "conv_out."))}
+
+
+@pytest.mark.parametrize("change,key", [
+    (_frozen_statistics, "stat_median"),
+    (_zeroed_trunk_gradients, "trunk_grad_norm_median"),
+    (_unmoved_trunk_parameters, "trunk_param_at_median"),
+])
+def test_golden_budget_fails_a_step_that_left_a_class_unchanged(change, key):
+    """The golden itself with one class set back to where the step started
+    (running statistics frozen, trunk gradients zeroed, trunk parameters
+    unmoved) is out of both card budgets, float32 and bf16, in that class's
+    median: the largest errors of the bf16 budget are wide enough to pass
+    such a step."""
+    import chip_smoke
+
+    ref = dict(np.load(chip_smoke.GOLDEN_TRAIN))
+    start = weights.deterministic_state_dict(chip_smoke.golden_train_config())
+    errs = chip_smoke.golden_errors({**ref, **change(ref, start)}, ref)
+    assert set(errs) == set(chip_smoke.TRAIN_GOLDEN_TOL) == set(chip_smoke.TRAIN_GOLDEN_TOL_BF16)
+    assert errs[key] > chip_smoke.TRAIN_GOLDEN_TOL_BF16[key] >= chip_smoke.TRAIN_GOLDEN_TOL[key]
+
+
 @pytest.mark.slow
 def test_golden_step_on_the_cpu_within_the_card_tolerance():
     """The port's float32 step on the CPU against the golden, within the

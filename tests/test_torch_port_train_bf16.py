@@ -166,29 +166,51 @@ def _assert_f32_state(state):
         assert {t.dtype for t in moments.values()} == {torch.float32}
 
 
-def test_bf16_loss_and_gradients_match_jax(twin):
-    """(a) Measured on this CPU: the port's bf16 loss is 9.0e-5 relative
-    from JAX's bf16 loss, and its gradients 0.036 in global relative L2
-    distance; JAX's own bf16 step is 1.2e-4 and 0.038 from JAX's float32
-    step. The bound is twice the latter."""
-    port, cfg = _port(twin, "bfloat16")
+def _port_loss_and_grads(twin, dtype):
+    """The port's loss and float32 gradients in ``dtype``, and the dtypes
+    of the first convolution's input and weight during the forward."""
+    port, cfg = _port(twin, dtype)
+    conv = next(m for m in port.modules() if isinstance(m, torch.nn.Conv2d))
+    seen = []
+    hook = conv.register_forward_pre_hook(
+        lambda m, args: seen.append((args[0].dtype, m.weight.dtype)))
     with pinned(twin["draws"]):
         loss = pt_steps.make_loss_fn(port, cfg, twin["geoms"])(
             _pt_batch(twin), pt_steps.step_generator(SEED))
+    hook.remove()
     loss.backward()
     assert loss.dtype == torch.float32
     grads = dict(port.named_parameters())
     assert {p.grad.dtype for p in grads.values()} == {torch.float32}
-    got = (float(loss.detach()), {k: p.grad.double() for k, p in grads.items()})
+    return (float(loss.detach()), {k: p.grad.double() for k, p in grads.items()}), set(seen)
+
+
+def test_bf16_loss_and_gradients_match_jax(twin):
+    """(a) Measured on this CPU: the port's bf16 loss is 9.0e-5 relative
+    from JAX's bf16 loss, and its gradients 0.036 in global relative L2
+    distance; JAX's own bf16 step is 1.2e-4 and 0.038 from JAX's float32
+    step. The bound is twice the latter. A step that ran in float32 would
+    be about as near JAX's bf16 one, so the port's bf16 step must also be
+    away from the port's own float32 step (measured 2.5e-5 in the loss, 0.021
+    in the gradients; a float32 step reads 0), by at least a quarter of
+    JAX's bf16-vs-float32 distance, and its first convolution must see bf16
+    activations and weights."""
+    got, seen = _port_loss_and_grads(twin, "bfloat16")
+    assert seen == {(torch.bfloat16, torch.bfloat16)}
+    got32, seen32 = _port_loss_and_grads(twin, "float32")
+    assert seen32 == {(torch.float32, torch.float32)}
     jax16, jax32 = _jax_loss_and_grads(twin, "bfloat16"), _jax_loss_and_grads(twin, "float32")
     assert set(got[1]) == set(jax16[1])
     loss_d, grad_d = _distance(got, jax16)
     jax_loss_d, jax_grad_d = _distance(jax16, jax32)
+    own_loss_d, own_grad_d = _distance(got, got32)
     print(f"port bf16 vs JAX bf16: loss {loss_d:.3g}, grads {grad_d:.3g}; "
-          f"JAX bf16 vs JAX f32: loss {jax_loss_d:.3g}, grads {jax_grad_d:.3g}")
+          f"JAX bf16 vs JAX f32: loss {jax_loss_d:.3g}, grads {jax_grad_d:.3g}; "
+          f"port bf16 vs port f32: loss {own_loss_d:.3g}, grads {own_grad_d:.3g}")
     assert 0 < jax_loss_d and 0 < jax_grad_d  # the bf16 steps did run in bf16
     assert loss_d <= 2 * jax_loss_d
     assert grad_d <= 2 * jax_grad_d
+    assert own_grad_d >= 0.25 * jax_grad_d
 
 
 def test_four_bf16_steps_learn_and_keep_f32_state(twin):
