@@ -6,8 +6,7 @@ Port of ``cfpnet_tpu/data/datasets.py`` (``normalize_image``,
 ``cfpnet_tpu/data/pipeline.py::collate``. Every sample equals the JAX
 package's for the same files, config and generator: the same numpy and PIL
 calls in the same order. The self-supervised pair datasets are not ported
-(``make_dataset`` raises for ``--selfsup``), nor the raw-crop samples of
-``--device_pipeline``.
+(``make_dataset`` raises for ``--selfsup``).
 
 Host-side decode and augmentation, as the reference pipelines:
 - NYU train (reference src/dataloader/nyu.py:91-198): border crop 16/12 px,
@@ -31,6 +30,10 @@ package imports without them.
 
 Sample dict: image [H,W,3] f32 (normalized) or image_u8 [H,W,3] uint8,
 depth [H,W,1] f32 (meters), hist_data [Z,n] f32, mask [Z] bool, focal f32.
+Under ``--device_pipeline`` a train sample is only ``image_raw`` (NYU: the
+uint8 crop; synthetic: f32 in 0..1) and ``depth`` [H,W,1]: flip,
+augmentation, normalization and the ToF simulation run on the device
+(``data/tof_sim_device.py``, applied by ``train/loop.py``).
 Zone geometry is static (see geometry.py) so no per-sample rect/patch_info
 tensors are shipped.
 """
@@ -141,6 +144,8 @@ class NYUV2Dataset:
             img_u8 = np.asarray(image, dtype=np.uint8)
             dep = np.asarray(depth_gt, dtype=np.float32) / 1000.0
             img_u8, dep = self._random_crop(img_u8, dep, cfg.input_height, cfg.input_width)
+            if cfg.device_pipeline:  # the rest runs on the device
+                return dict(image_raw=img_u8, depth=dep[..., None].astype(np.float32))
             img = img_u8.astype(np.float32) / 255.0
             img, dep = self._train_preprocess(img, dep)
         else:
@@ -300,6 +305,8 @@ class SyntheticDataset:
             [dep / dep.max()] * 3, axis=-1
         ) * 0.5 + 0.25 * rng.random((h, w, 3)).astype(np.float32)
         img = np.clip(img, 0, 1).astype(np.float32)
+        if cfg.device_pipeline and self.mode == "train":
+            return dict(image_raw=img, depth=dep[..., None])
         zo = int(self.zone_offset) if self.mode == "train" else 0
         return finalize_sample(img, dep, 500.0, cfg, self.mode, rng, offset=(zo, zo))
 

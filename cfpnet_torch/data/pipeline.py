@@ -12,8 +12,11 @@ for the same step. An exception of the producer is raised in the consumer.
 On a CUDA device the producer copies each batch into pinned host memory and
 the consumer starts its copy to the device with ``non_blocking=True``: the
 host does not wait for it, and the copy runs in stream order before the
-step that reads it. No mesh and no multi-host split: multi-GPU is ROADMAP.md
-§A 9, and ``make_loader`` refuses a mesh.
+step that reads it. Under ``--device_pipeline`` the train batches are the
+raw ``image_raw`` and ``depth`` (``data/datasets.py``), shipped the same
+way; ``train/loop.py`` makes the step's batch of them on the device. No
+mesh and no multi-host split: multi-GPU is ROADMAP.md §A 9, and
+``make_loader`` refuses a mesh.
 """
 
 from __future__ import annotations
@@ -136,8 +139,6 @@ def make_loader(config, mode: str, dataset=None, device="cuda", mesh=None) -> Da
     if mesh is not None:
         raise NotImplementedError("a device mesh: multi-GPU loading is not ported yet "
                                   "(ROADMAP.md §A 9)")
-    if getattr(config, "device_pipeline", False):
-        raise NotImplementedError("--device_pipeline is not ported yet (ROADMAP.md §A 8)")
     if dataset is None:
         dataset = make_dataset(config, mode)
     if mode == "train":

@@ -14,20 +14,33 @@ and updates batch statistics (``models/layers.py``) and the fusion layers
 crop their positional encodings at offsets drawn from ``generator``
 (``models/fusion.py``); ``make_model`` returns the model in eval mode and
 the train step switches it (``train/steps.py``).
+
+``remat`` (``--remat``, ``cfpnet_tpu/models/deltar.py:51-53, 69-70``): in
+training the image encoder runs under ``torch.utils.checkpoint`` (not
+reentrant), which keeps its inputs and recomputes its activations in the
+backward. The recompute runs inside ``layers.frozen_running_stats`` (the
+running statistics move once a step) and on the parameters the forward
+saw: the tensors that ``torch.func.functional_call`` swapped in for a bf16
+step are handed to the checkpoint as inputs, so the recompute, which runs
+after that call has put the masters back, uses them again.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..data.geometry import ScaleGeometry, geometry_for
 from .decoder import Decoder, DepthRegression
 from .efficientnetv2 import V2_B3_STAGES, V2_B3_STEM, V2_TINY_STAGES, V2_TINY_STEM
 from .encoder import HistogramEncoder, ImageEncoder
+from .layers import frozen_running_stats
 
 
 class Deltar(nn.Module):
@@ -39,8 +52,9 @@ class Deltar(nn.Module):
                  stem_chs: int = V2_B3_STEM, stages=V2_B3_STAGES,
                  encoder_channels: Sequence[int] = (232, 136, 56, 40, 16),
                  decoder_channels: Sequence[int] = (256, 256, 128, 64, 32),
-                 num_classes: int = 128):
+                 num_classes: int = 128, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.min_val = min_val
         self.max_val = max_val
         self.img_encoder = ImageEncoder(stem_chs, stages)
@@ -54,7 +68,7 @@ class Deltar(nn.Module):
 
     def forward(self, rgb: torch.Tensor, hist_data: torch.Tensor, hist_mask: torch.Tensor,
                 geoms: Dict[int, ScaleGeometry], generator: Optional[torch.Generator] = None):
-        img_features = self.img_encoder(rgb.permute(0, 3, 1, 2))
+        img_features = self.encode_image(rgb.permute(0, 3, 1, 2))
         hist_features = self.hist_encoder(hist_data[..., None])
         unet_out = self.decoder(img_features, hist_features, hist_mask, geoms, generator)
         bin_widths_normed, range_attention_maps = self.depth_head(unet_out)
@@ -73,6 +87,19 @@ class Deltar(nn.Module):
             return bin_edges, pred.permute(0, 2, 3, 1)
         return bin_edges, pred.permute(0, 2, 3, 1), prob.permute(0, 2, 3, 1), None
 
+    def encode_image(self, x: torch.Tensor):
+        """The image encoder; rematerialized in training under ``remat``."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self.img_encoder(x)
+        names, params = zip(*self.img_encoder.named_parameters())
+
+        def run(x, *params):
+            return functional_call(self.img_encoder, dict(zip(names, params)), (x,))
+
+        return checkpoint(run, x, *params, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_running_stats()))
+
 
 def make_model(config, tiny: bool = False, device="cuda") -> Deltar:
     """Model factory (reference src/utils/utils.py:7-10), in eval mode on
@@ -80,6 +107,7 @@ def make_model(config, tiny: bool = False, device="cuda") -> Deltar:
     ``cfpnet_torch.weights``."""
     tiny = tiny or getattr(config, "tiny_model", False)
     kw = dict(
+        remat=getattr(config, "remat", False),
         n_bins=config.n_bins,
         min_val=config.min_depth,
         max_val=config.max_depth,

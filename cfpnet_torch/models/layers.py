@@ -22,14 +22,36 @@ axis (``channel_dim`` 1 for NCHW, -1 for channels-last tokens).
   one bf16 ulp lands in a bf16 step.
 - The output takes the dtype of (x, weight, bias), as flax's
   ``_normalize`` does: bf16 in a bf16 step, whose statistics stay float32.
+- Inside ``frozen_running_stats()`` a training forward normalizes with the
+  batch's statistics and leaves the running ones as they are: the
+  recompute of a rematerialized forward (``models/deltar.py``, ``--remat``)
+  runs there, so the statistics move once a step, as flax's ``nn.remat``
+  discards the recompute's ``batch_stats``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
 
 MOMENTUM = 0.9  # flax: the weight of the old running value
+
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Training forwards of ``BatchNorm`` on this thread leave the running
+    statistics alone while inside."""
+    old = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = old
 
 
 class BatchNorm(nn.Module):
@@ -63,6 +85,8 @@ class BatchNorm(nn.Module):
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xs.mean(axes)
         var = torch.clamp_min((xs * xs).mean(axes) - mean * mean, 0.0)
+        if getattr(_frozen, "on", False):
+            return mean, var
         with torch.no_grad():
             for running, batch in ((self.running_mean, mean), (self.running_var, var)):
                 running.copy_(MOMENTUM * running + (1 - MOMENTUM) * batch)

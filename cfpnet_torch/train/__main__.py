@@ -18,9 +18,18 @@ flag) turns them back on over an argfile's ``--no_logging``.
 validation runs in float32 on the masters and the checkpoints hold float32
 weights, as in the JAX package.
 
+``--device_pipeline`` runs flip, augmentation, normalization and the ToF
+simulation on the card (``data/tof_sim_device.py``); ``--grad_accum N``
+runs each batch as N microbatches (``train/steps.py``); ``--remat``
+recomputes the image encoder's activations in the backward
+(``models/deltar.py``); ``--debug_nans`` runs the training in autograd's
+anomaly mode and checks each step's loss (``train/loop.py``), as the root
+``train.py`` turns on ``jax_debug_nans``.
+
 Refused with ``NotImplementedError``, each naming its ROADMAP.md item:
-``--selfsup``, ``--multihost``, ``--device_pipeline``, ``--spatial_shards >
-1``, ``--debug_nans``, ``--grad_accum > 1`` and ``--remat``. ``--use_pallas`` and
+``--selfsup``, ``--multihost`` and ``--spatial_shards > 1``; and, as the
+JAX loop refuses it, ``--train_zone_random_offset`` with
+``--device_pipeline``. ``--use_pallas`` and
 ``--safe_dw_vjp`` are accepted and change nothing: the port always runs its
 CUDA kernels on the card, and its gradients need no partitioner workaround.
 """
@@ -52,8 +61,6 @@ def refuse(config) -> None:
     if config.multihost:
         raise NotImplementedError("--multihost: multi-GPU training is not ported yet "
                                   "(ROADMAP.md §A 9)")
-    if config.debug_nans:
-        raise NotImplementedError("--debug_nans is not ported yet (ROADMAP.md §A 3)")
 
 
 def main(argv: Optional[List[str]] = None):
@@ -73,7 +80,9 @@ def main(argv: Optional[List[str]] = None):
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    return run_training(config, device=device)
+    # anomaly mode for the run under --debug_nans, the previous mode after it
+    with torch.autograd.set_detect_anomaly(bool(config.debug_nans)):
+        return run_training(config, device=device)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,17 @@ device: epochs of ``train/steps.py`` steps over the prefetching loader,
 validation with the nine metrics every ``validate_every`` epochs and always
 at the last, ``{ep}_{rmse:.3f}`` and ``best`` checkpoints, resume with the
 optimizer state and the step, JSONL logs. Not ported: ``evaluate_sharded``
-and the meshes (multi-GPU, ROADMAP.md §A 9), ``--device_pipeline`` (§A 8).
+and the meshes (multi-GPU, ROADMAP.md §A 9).
+
+``--device_pipeline`` (``cfpnet_tpu/train/loop.py:486-500, 515-517``): the
+loader ships raw crops and ``data/tof_sim_device.py::preprocess_batch``
+makes each step's batch on its device, between the loader and the step,
+with draws from a generator on that device seeded from (seed, step)
+(``prep_generator``), so that a resumed run draws what the uninterrupted
+one drew. ``--debug_nans`` reads each step's loss on the host and raises
+``FloatingPointError`` naming the step where it is not finite, or where
+autograd's anomaly mode (``train/__main__.py``) found a NaN in the
+backward; without it the step reads nothing.
 
 The step runs in ``--compute_dtype`` (``train/steps.py``); validation runs
 the float32 model on its float32 masters in every case, as the JAX loop's
@@ -25,11 +35,13 @@ import os
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..data import native
-from ..data.geometry import zone_offset_for
+from ..data.geometry import geometry_for, zone_offset_for
 from ..data.pipeline import make_loader
+from ..data.tof_sim_device import preprocess_batch
 from ..models.deltar import make_model, model_geometries
 from .checkpoint import load_checkpoint, save_checkpoint, save_weights
 from .losses import RunningAverageDict
@@ -191,6 +203,36 @@ def make_grouped_eval(model, config, dataset, protocol: str = "validate", device
     return eval_fn
 
 
+def prep_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s device-pipeline draws, on
+    ``device``: seeded from (seed, step, 777), the JAX loop's
+    ``fold_in(fold_in(key(seed), step), 777)``."""
+    state = np.random.SeedSequence([int(seed), int(step), 777]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def debug_nans_step(train_step):
+    """``train_step`` with ``--debug_nans``'s checks: the loss read on the
+    host after the step and ``FloatingPointError`` naming the step (the
+    optimizer's count before it) where it is not finite; anomaly mode's
+    error on a NaN in the backward raised as ``FloatingPointError`` naming
+    the step."""
+
+    def checked(state, batch, seed):
+        step = state.step
+        try:
+            loss = train_step(state, batch, seed)
+        except RuntimeError as e:
+            if "nan" not in str(e).lower():
+                raise
+            raise FloatingPointError(f"--debug_nans: step {step}: {e}") from e
+        if not bool(torch.isfinite(loss)):
+            raise FloatingPointError(f"--debug_nans: step {step}: the loss is {float(loss)}")
+        return loss
+
+    return checked
+
+
 def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] = None,
                  device="cuda", init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  trace: Optional[List[dict]] = None,
@@ -212,6 +254,11 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
     if getattr(config, "spatial_shards", 0) > 1:
         raise NotImplementedError("--spatial_shards > 1: spatial sharding is not ported yet "
                                   "(ROADMAP.md §A 9)")
+    zone_off = int(getattr(config, "train_zone_random_offset", 0) or 0)
+    if zone_off > 0 and config.device_pipeline:
+        raise NotImplementedError(
+            "--train_zone_random_offset with --device_pipeline is not wired (the on-device "
+            "ToF sim uses one static geometry); drop one of the two flags")
     device = torch.device(device)
     train_loader = make_loader(config, "train", device=device)
     eval_loader = make_loader(config, "online_eval", device=device)
@@ -230,14 +277,15 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
         state, start_epoch, best_rmse = load_checkpoint(config.resume, state)
         print(f"resumed from {config.resume} at epoch {start_epoch}")
 
-    zone_off = int(getattr(config, "train_zone_random_offset", 0) or 0)
     step_fns = {}
 
     def train_step_for(o: int):
         if o not in step_fns:
-            step_fns[o] = make_train_step(model, config,
-                                          model_geometries(config, "train", (o, o)))
+            step = make_train_step(model, config, model_geometries(config, "train", (o, o)))
+            step_fns[o] = debug_nans_step(step) if config.debug_nans else step
         return step_fns[o]
+
+    pix_geom = geometry_for(config, "train") if config.device_pipeline else None
 
     logger = JsonlLogger(
         None if config.no_logging else os.path.join(config.save_dir, "train_log.jsonl"))
@@ -263,6 +311,9 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
                         break
                     o = zone_offset_for(config.seed, epoch, n_steps, zone_off) if zone_off else 0
                     lr = float(state.tx.lr_fn(state.tx.count))
+                    if pix_geom is not None:
+                        batch = preprocess_batch(batch, config, pix_geom,
+                                                 prep_generator(config.seed, step, device))
                     loss = train_step_for(o)(state, batch, config.seed + step)
                     loss_sum += loss
                     if trace is not None:

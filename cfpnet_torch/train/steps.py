@@ -18,8 +18,15 @@ bf16 copies of the floating parameters, cast inside the step with autograd
 through the cast, so the gradients land in float32 on the float32 masters;
 the image and the histograms are cast, the mask and the depth are not; the
 BatchNorm statistics stay float32 and uncast; the depth tail, the loss and
-the optimizer run in float32. Not ported, and refused: ``--grad_accum > 1``
-and ``--remat`` (ROADMAP §A).
+the optimizer run in float32.
+
+``--grad_accum N`` is the JAX step's microbatch loop
+(``cfpnet_tpu/train/steps.py:131-197``): the batch's N slices of bs/N rows
+run in order, each with its own crop offsets, and the BatchNorm running
+statistics thread through them (the in-place update); their unscaled
+losses are backpropagated into ``.grad``, which sums them, and the sum is
+divided by N once before the optimizer; the step's loss is the mean of
+the N losses. ``--remat`` is the model's (``models/deltar.py``).
 """
 
 from __future__ import annotations
@@ -36,14 +43,6 @@ from ..models.deltar import compute_dtype
 from ..ops.interp import resize_bilinear_align_corners
 from .losses import compute_errors, silog_loss
 from .optim import AdamW, make_optimizer
-
-
-def refuse_unported(config) -> None:
-    """Raises for the train options the port does not have yet."""
-    if int(getattr(config, "grad_accum", 1) or 1) > 1:
-        raise NotImplementedError("--grad_accum > 1 is not ported yet (ROADMAP.md §A)")
-    if getattr(config, "remat", False):
-        raise NotImplementedError("--remat is not ported yet (ROADMAP.md §A)")
 
 
 def step_generator(seed: int) -> torch.Generator:
@@ -63,7 +62,6 @@ def make_loss_fn(model, config, geoms):
     ``cast_params(model, dtype)`` and the image and histograms cast to it
     (module docstring); the model's own parameters and statistics stay
     float32."""
-    refuse_unported(config)
     cdt = compute_dtype(config.compute_dtype)
 
     def forward(image, hist, mask, generator):
@@ -106,21 +104,39 @@ class TrainState:
 def create_train_state(model, config, total_steps: int) -> TrainState:
     """``model`` as it is (weights loaded or torch's init) with a fresh
     ``make_optimizer`` over its parameters."""
-    refuse_unported(config)
     return TrainState(model, make_optimizer(model, config, total_steps))
 
 
 def make_train_step(model, config, geoms):
     """Returns ``train_step(state, batch, seed) -> loss``: forward, loss,
     backward and one optimizer step, in place on ``state``; the loss comes
-    back as a 0-d tensor on the device, with no host sync."""
+    back as a 0-d tensor on the device, with no host sync. Under
+    ``--grad_accum N`` the batch runs as N microbatches (module docstring);
+    ``ValueError`` where N does not divide the batch."""
     loss_fn = make_loss_fn(model, config, geoms)
+    accum = int(getattr(config, "grad_accum", 1) or 1)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int) -> torch.Tensor:
         for p in state.tx.params:
             p.grad = None
-        loss = loss_fn(batch, step_generator(seed))
-        loss.backward()
+        generator = step_generator(seed)
+        if accum <= 1:
+            loss = loss_fn(batch, generator)
+            loss.backward()
+        else:
+            bs = next(iter(batch.values())).shape[0]
+            if bs % accum != 0:
+                raise ValueError(f"--grad_accum {accum} does not divide batch size {bs}")
+            mb = bs // accum
+            loss = None
+            for i in range(accum):  # the generator draws each microbatch's own offsets
+                part = loss_fn({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
+                               generator)
+                part.backward()  # .grad sums the microbatches' gradients
+                loss = part.detach() if loss is None else loss + part.detach()
+            grads = [p.grad for p in state.tx.params if p.grad is not None]
+            torch._foreach_div_(grads, float(accum))
+            loss = loss / accum
         state.tx.step()
         return loss.detach()
 

@@ -121,6 +121,24 @@ line:
     ``BENCH_TRAIN_ITERS`` train iterations prints its line (bf16 headline
     keys and f32 ones; the train keys of the bf16 step, ``train_dtype``
     "bfloat16", and of the f32 step under ``_f32``).
+14. train options (``train_options_phase``, run after phase 10, beside
+    whose loop it reports): ``--device_pipeline``'s transform
+    (``data/tof_sim_device.py``) on one raw bs-16 batch at 416x544 on the
+    production train geometry: its device ms (CUDA events), its device
+    kernels, no copy to the host and no sync, the host producer's ms a
+    batch with and without the option, ``get_hist`` on the card against
+    the host's ``tof_sim.get_hist`` and the transform on the card against
+    itself on the CPU with the same draws; one bf16 ``--device_pipeline``
+    epoch of ``run_training`` (launch counters set to 0 before it and read
+    after: 6 / 12 / 18 a step on bf16, the validation's on f32; loop ms
+    a step, loader waits and producer ms beside phase 10's) and its resume
+    from the epoch-0 checkpoint, bit for bit under deterministic
+    algorithms; the
+    bs-16 step with ``--grad_accum 2`` and ``4`` and with ``--remat`` in
+    f32 and bf16 beside the plain step (ms, peak memory, launches), and
+    the remat step bit for bit the plain one under deterministic
+    algorithms; a planted NaN under ``--debug_nans`` raising
+    ``FloatingPointError``.
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -129,7 +147,8 @@ step's forward: ``ms_train``, ``bound_ms_train``, ``max_rel_err_train``; its
 backward: ``backward_ms_train``, ``grad_max_rel_err_train``, for dwconv
 ``dx_ms_train``, ``dw_library_ms_train``; and its launches in one train
 step, ``launches_train_step``; and in the loop phase's uninterrupted run,
-``launches_loop``; from the bf16 phase, per bs=1 forward, ``card_ms_bf16``,
+``launches_loop``; in phase 14's bf16 ``--device_pipeline`` run,
+``launches_device_pipeline_loop``; from the bf16 phase, per bs=1 forward, ``card_ms_bf16``,
 ``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
 dense bf16 tensor-core rate for the fused layer's bf16 products),
 ``library_ms_bf16`` (dwconv: cuDNN in bf16; else null), ``bound_by_bf16``,
@@ -1560,6 +1579,312 @@ def loop_bf16_phase(config):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 14: the train options of the one-card driver
+PIPELINE_REPS = 20  # device_preprocess calls timed between CUDA events, after 3 warm ones
+OPTION_STEPS_TIMED = 2  # bs-16 steps timed for each train option, after one warm step
+
+
+def producer_ms(cfg, device_pipeline: bool):
+    """The loader's seconds to make each bs-16 batch of the loop phase's
+    synthetic train set (decode, ToF simulation where the host does it,
+    collate, pin), with or without ``--device_pipeline``, as ms; and the
+    first batch, on the card."""
+    from cfpnet_torch.data.datasets import SyntheticDataset
+    from cfpnet_torch.data.pipeline import DataLoader
+
+    c = cfg.replace(device_pipeline=device_pipeline)
+    loader = DataLoader(SyntheticDataset(c, "train", LOOP_SAMPLES), c.bs, shuffle=True,
+                        drop_last=True, seed=c.seed, device="cuda")
+    batches = [b for b in loader]
+    torch.cuda.synchronize()
+    return [1e3 * s for s in loader.produce_s], batches[0]
+
+
+def device_preprocess_check(tconfig):
+    """``data/tof_sim_device.py`` on one raw bs-16 batch at 416x544 on the
+    production train geometry: its device ms (CUDA events), its device
+    kernels (torch.profiler), no copy to the host and no sync; the
+    producer's ms a batch with and without ``--device_pipeline``; on the
+    batch's depth maps, ``get_hist`` on the card against the host's
+    ``tof_sim.get_hist`` (mask equal, (mu, sigma) within 1e-5 relative),
+    and the whole transform on the card against itself on the CPU with the
+    same draws (depth and mask equal, points and image within 1e-5 of their
+    largest value: the card sums the moments in another order)."""
+    from cfpnet_torch.data import tof_sim
+    from cfpnet_torch.data.geometry import geometry_for
+    from cfpnet_torch.data.tof_sim_device import (device_preprocess, draw_augmentations,
+                                                  get_hist, preprocess_batch)
+    from cfpnet_torch.train.loop import prep_generator
+
+    cfg = loop_config(tconfig)
+    host_ms, _ = producer_ms(cfg, False)
+    raw_ms, raw = producer_ms(cfg, True)
+    if set(raw) != {"image_raw", "depth"}:
+        raise AssertionError(f"a --device_pipeline batch holds {sorted(raw)}")
+    geom = geometry_for(cfg, "train")
+    steps = iter(range(10 ** 6))
+
+    def prep():
+        return preprocess_batch(raw, cfg, geom, prep_generator(cfg.seed, next(steps), "cuda"))
+
+    for _ in range(3):
+        out = prep()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(PIPELINE_REPS):
+        out = prep()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / PIPELINE_REPS
+    events = device_events(prep)
+    with HostWaits() as waits:
+        prep()
+    if waits.counts["d2h"] or waits.counts["syncs"] or waits.counts["h2d_pageable"]:
+        raise AssertionError(f"device_preprocess waited on the host: {waits.counts}")
+    B, H, W = raw["depth"].shape[:3]
+    Z = geom.zone_num ** 2
+    want = dict(image=(B, H, W, 3), depth=(B, H, W, 1), hist_data=(B, Z, cfg.zone_sample_num),
+                mask=(B, Z))
+    if any(tuple(out[k].shape) != s for k, s in want.items()) or not all(
+            torch.isfinite(out[k]).all() for k in ("image", "hist_data")):
+        raise AssertionError(f"device_preprocess gave "
+                             f"{ {k: tuple(v.shape) for k, v in out.items()} }")
+
+    # get_hist on the card against the host's on the same depth maps
+    depth = raw["depth"][..., 0]
+    fh, mask = get_hist(depth, geom, cfg.simu_max_distance)
+    host = [tof_sim.get_hist(d, geom, cfg.simu_max_distance) for d in depth.cpu().numpy()]
+    hfh = np.stack([h[0] for h in host])
+    hmask = np.stack([h[2] for h in host])
+    fh, mask = fh.cpu().numpy(), mask.cpu().numpy()
+    # np.allclose's rule at rtol 1e-5, atol 1e-6, as tests/test_torch_port_device_pipeline.py
+    over = float(np.max(np.abs(fh - hfh) - 1e-5 * np.abs(hfh)))
+    if not np.array_equal(mask, hmask) or over > 1e-6:
+        raise AssertionError(f"get_hist on the card against the host: masks equal "
+                             f"{np.array_equal(mask, hmask)}, max |diff| - 1e-5 |host| {over}")
+
+    # the transform on the card against itself on the CPU, same inputs and draws
+    draws = draw_augmentations(prep_generator(cfg.seed, 0, "cuda"), B, Z, cfg)
+    kw = dict(max_distance=cfg.simu_max_distance, zone_sample_num=cfg.zone_sample_num,
+              drop_hist=cfg.drop_hist, noise_prob=cfg.noise_prob, noise_mean=cfg.noise_mean,
+              noise_sigma=cfg.noise_sigma, sample_uniform=cfg.sample_uniform)
+    card = device_preprocess(raw["image_raw"], depth, draws, geom, **kw)
+    cpu = device_preprocess(raw["image_raw"].cpu(), depth.cpu(),
+                            {k: v.cpu() for k, v in draws.items()}, geom, **kw)
+    rel = {k: float((card[k].cpu() - cpu[k]).abs().max() / cpu[k].abs().max())
+           for k in ("image", "hist_data")}
+    same = {k: bool(torch.equal(card[k].cpu(), cpu[k])) for k in ("depth", "mask")}
+    if not all(same.values()) or max(rel.values()) > 1e-5:
+        raise AssertionError(f"device_preprocess on the card against the CPU: equal {same}, "
+                             f"max rel {rel}")
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(batch=B, size=[H, W], zones=Z, image_raw_dtype=str(raw["image_raw"].dtype),
+                ms=ms, reps=PIPELINE_REPS, device_kernels=sum(e.count for e in device),
+                profiled_device_ms=sum(e.self_device_time_total for e in device) / 1e3,
+                host_waits=waits.counts, producer_ms_host_pipeline=host_ms,
+                producer_ms_device_pipeline=raw_ms,
+                get_hist_vs_host=dict(masks_equal=True, max_abs=float(np.max(np.abs(fh - hfh))),
+                                      valid_zones=int(mask.sum()), zones=int(mask.size)),
+                card_vs_cpu=dict(equal=same, max_rel=rel))
+
+
+def loop_device_pipeline_check(tconfig, loop):
+    """``run_training`` with ``--compute_dtype bfloat16 --device_pipeline``
+    at the loop phase's configuration: run A (one epoch, no profiler; the
+    launch counters set to 0 before it and read after: each step 6 / 12 /
+    18 on bf16 tensors, the validation's on float32), then under
+    ``deterministic_algorithms`` run D (two epochs) and run R resumed from
+    D's epoch-0 checkpoint, equal to D bit for bit in its losses and final
+    state. Loop ms a step, the producer's ms and the loader's waits beside
+    phase 10's (its run A's, epochs 0 and 1; each epoch's first step waits
+    for the loader in both). The transform's own host waits are
+    ``device_preprocess_check``'s, phase 10's a loop step's."""
+    import shutil
+    import tempfile
+
+    from cfpnet_torch import kernels, weights
+
+    cfg = loop_config(tconfig).replace(compute_dtype="bfloat16", device_pipeline=True,
+                                       name="chip_smoke_dp", save_dir="results/chip_smoke_dp")
+    init = weights.deterministic_state_dict(cfg)
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=ROOT)
+    os.chdir(work)
+    try:
+        probe, trace_a = LoopProbe(cuda=False), []
+        kernels.reset_launches()
+        state_a, log_a, seconds_a = loop_run(cfg.replace(epochs=1), init, trace_a, probe)
+        total, by_dtype = launch_counts(), launches_by_dtype()
+        losses = [float(t["loss"]) for t in trace_a]
+        if len(losses) != LOOP_SAMPLES // cfg.bs or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"device-pipeline loop losses {losses}")
+        bad = {t["step"]: probe.launches[t["step"]] for t in trace_a
+               if probe.launches[t["step"]] != TRAIN_LAUNCHES}
+        eval_images = min(LOOP_SAMPLES, 64)
+        want = {k: {"bfloat16": len(trace_a) * TRAIN_LAUNCHES[k],
+                    "float32": eval_images * EVAL_LAUNCHES[k]} for k in TRAIN_LAUNCHES}
+        if bad or by_dtype != want:
+            raise AssertionError(f"device-pipeline loop launched {by_dtype} (steps off: {bad}), "
+                                 f"expected {want}")
+        del state_a
+        with deterministic_algorithms() as caught:
+            trace_d, trace_r = [], []
+            cfg_d = cfg.replace(name=cfg.name + "_d", save_dir=cfg.save_dir + "_d")
+            state_d, log_d, seconds_d = loop_run(cfg_d, init, trace_d)
+            val_d = next(line for line in log_d if line["kind"] == "val")
+            ckpt0 = f"checkpoints/{cfg_d.name}/0_{val_d['rmse']:.3f}"
+            state_r, log_r, seconds_r = loop_run(
+                cfg.replace(name=cfg.name + "_r", save_dir=cfg.save_dir + "_r", resume=ckpt0),
+                init, trace_r)
+        tail = [t for t in trace_d if t["epoch"] == LOOP_EPOCHS - 1]
+        loss_differs = [t["step"] for t, u in zip(trace_r, tail)
+                        if t["indices"] != u["indices"] or not torch.equal(t["loss"], u["loss"])]
+        differs = state_differs(state_r, state_d)
+        if len(trace_r) != len(tail) or loss_differs or differs:
+            raise AssertionError(f"the resumed device-pipeline run is not the uninterrupted one "
+                                 f"bit for bit: steps {loss_differs}, state {differs[:5]} "
+                                 f"({len(differs)} entries); warnings {caught[:3]}")
+        (epoch,) = [line for line in log_a if line["kind"] == "epoch"]
+        ms = epoch["train_s"] * 1e3 / epoch["steps"]
+        return dict(batch=cfg.bs, samples=LOOP_SAMPLES, dtype=cfg.compute_dtype, losses=losses,
+                    launches_run=total, launches_by_dtype=by_dtype,
+                    launches_a_step={t["step"]: probe.launches[t["step"]] for t in trace_a},
+                    loop_ms_a_step=ms, loop_ms_a_step_phase10_f32=loop["loop_ms_a_step"],
+                    loader_wait_ms_each_step=epoch["loader_wait_ms"],
+                    loader_wait_ms_each_step_phase10=loop["loader_wait_ms_each_step"],
+                    producer_ms_each_batch=epoch["producer_ms"],
+                    producer_ms_each_batch_phase10=loop["producer_ms_each_batch"],
+                    run_s=dict(a=seconds_a, d=seconds_d, resumed=seconds_r),
+                    resume=dict(checkpoint=os.path.basename(ckpt0), steps=len(trace_r),
+                                resumed_bit_equal_deterministic=True,
+                                deterministic_warnings=sorted({str(w.message)[:200]
+                                                               for w in caught})))
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def step_options_check(tconfig):
+    """The bs-16 step (416x544, deterministic weights, one synthetic batch)
+    plain, with ``--grad_accum 2`` and ``4`` and with ``--remat``, in f32
+    and bf16: ms a step (``OPTION_STEPS_TIMED`` steps between CUDA events
+    after one warm step; a loss that is not finite raises), the peak of
+    allocated memory, the launches of the warm step. Then, under
+    ``deterministic_algorithms``, one remat step against one plain step
+    from the same weights in each dtype: loss, every gradient and every
+    running statistic bit for bit."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.train import steps
+
+    init = weights.deterministic_state_dict(tconfig)
+    model = make_model(tconfig, device="cuda")
+    geoms = model_geometries(tconfig, "train")
+    batch = make_train_batch(tconfig, tconfig.bs)
+    seeds = iter(range(tconfig.seed, tconfig.seed + 10 ** 6))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for name, option in (("plain", {}), ("grad_accum_2", dict(grad_accum=2)),
+                             ("grad_accum_4", dict(grad_accum=4)), ("remat", dict(remat=True))):
+            cfg = tconfig.replace(compute_dtype=dtype, **option)
+            model.load_state_dict(init, strict=True)
+            model.remat = cfg.remat
+            state = steps.create_train_state(model, cfg, GOLDEN_TRAIN_TOTAL_STEPS)
+            step = steps.make_train_step(model, cfg, geoms)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launches()
+            first = float(step(state, batch, next(seeds)))
+            launches = launch_counts()
+            ms = train_latency_ms(lambda: step(state, batch, next(seeds)), OPTION_STEPS_TIMED,
+                                  OPTION_STEPS_TIMED)
+            accum = cfg.grad_accum
+            if not math.isfinite(first) or launches != {k: accum * v
+                                                        for k, v in TRAIN_LAUNCHES.items()}:
+                raise AssertionError(f"{dtype} {name}: first loss {first}, launches {launches}")
+            out[f"{name}_{dtype}"] = dict(
+                ms_a_step=ms, first_loss=first, launches_a_step=launches,
+                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                allocated_before_gib=base / 2 ** 30)
+            del state, step
+    model.remat = False
+
+    def one_step(cfg, remat):
+        model.load_state_dict(init, strict=True)
+        model.remat = remat
+        state = steps.create_train_state(model, cfg, GOLDEN_TRAIN_TOTAL_STEPS)
+        loss = steps.make_train_step(model, cfg, geoms)(state, batch, tconfig.seed)
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        stats = {k: v.detach().clone() for k, v in model.named_buffers()}
+        return loss, grads, stats
+
+    equal = {}
+    with deterministic_algorithms() as caught:
+        for dtype in ("float32", "bfloat16"):
+            cfg = tconfig.replace(compute_dtype=dtype)
+            plain, remat = one_step(cfg, False), one_step(cfg.replace(remat=True), True)
+            differ = [k for k in plain[1] if not torch.equal(plain[1][k], remat[1][k])]
+            differ += [k for k in plain[2] if not torch.equal(plain[2][k], remat[2][k])]
+            if not torch.equal(plain[0], remat[0]) or differ:
+                raise AssertionError(f"{dtype}: the remat step is not the plain one bit for bit: "
+                                     f"loss {float(plain[0])} / {float(remat[0])}, "
+                                     f"{differ[:5]} ({len(differ)} entries)")
+            equal[dtype] = dict(loss=float(plain[0]), gradients=len(plain[1]),
+                                statistics=len(plain[2]), bit_equal=True)
+    model.remat = False
+    del model
+    return dict(steps=out, remat_equals_plain=equal,
+                deterministic_warnings=sorted({str(w.message)[:200] for w in caught}))
+
+
+def debug_nans_check(tconfig):
+    """``--debug_nans`` on the card: a bs-2 step on a batch with a planted
+    NaN, in anomaly mode, through ``train/loop.py::debug_nans_step``,
+    raises ``FloatingPointError`` naming the step; the same batch without
+    the NaN passes."""
+    from cfpnet_torch import weights
+    from cfpnet_torch.evaluate_time import make_train_batch
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.train import steps
+    from cfpnet_torch.train.loop import debug_nans_step
+
+    cfg = tconfig.replace(bs=2, debug_nans=True)
+    model = make_model(cfg, device="cuda")
+    model.load_state_dict(weights.deterministic_state_dict(cfg), strict=True)
+    state = steps.create_train_state(model, cfg, GOLDEN_TRAIN_TOTAL_STEPS)
+    step = debug_nans_step(steps.make_train_step(model, cfg, model_geometries(cfg, "train")))
+    batch = make_train_batch(cfg, 2)
+    with torch.autograd.set_detect_anomaly(True):
+        clean = float(step(state, batch, cfg.seed))
+        batch["image"][0, 0, 0, 0] = float("nan")
+        try:
+            step(state, batch, cfg.seed + 1)
+        except FloatingPointError as e:
+            message = str(e)
+        else:
+            raise AssertionError("--debug_nans let a planted NaN through")
+    if "step 1" not in message:
+        raise AssertionError(f"--debug_nans named another step: {message[:200]}")
+    return dict(clean_loss=clean, raised="FloatingPointError", message=message[:160])
+
+
+def train_options_phase(tconfig, loop):
+    """Phase 14: ``--device_pipeline``, ``--grad_accum``, ``--remat`` and
+    ``--debug_nans`` on the card (``device_preprocess_check``,
+    ``loop_device_pipeline_check``, ``step_options_check``,
+    ``debug_nans_check``)."""
+    t0 = time.perf_counter()
+    out = dict(phase="train_options", device_preprocess=device_preprocess_check(tconfig))
+    out["loop_device_pipeline"] = loop_device_pipeline_check(tconfig, loop)
+    out["step_options"] = step_options_check(tconfig)
+    out["debug_nans"] = debug_nans_check(tconfig)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def check_kernels_bf16(config, geoms, batch: int, mode: str = "online_eval"):
     """The bf16 phase's kernels: each bf16 variant at every main-path shape
     of the forward in ``mode`` at ``batch`` (the eval forward, or the bf16
@@ -1977,6 +2302,14 @@ def main() -> int:
     for r in rows:
         r["launches_loop"] = loop["launches_run"][r["name"]]
     emit(loop_bf16_phase(tconfig))
+
+    # 14. the train options: --device_pipeline (the device transform, a
+    # bf16 loop and its resume), --grad_accum, --remat, --debug_nans
+    options = train_options_phase(tconfig, loop)
+    emit(options)
+    for r in rows:
+        r["launches_device_pipeline_loop"] = options["loop_device_pipeline"]["launches_run"][
+            r["name"]]
 
     # 11. bf16: the bf16 kernels, the bf16 forward's launches, drift and
     # graphs, evaluate_time --compute_dtype bfloat16, device time by kind

@@ -241,8 +241,37 @@ def test_make_dataset_names_and_refusals(nyu_tree, zju_tree):
         pt_ds.make_dataset(pt_cfg.replace(selfsup=True), "train")
     with pytest.raises(NotImplementedError, match="mesh"):
         pt_pipe.make_loader(pt_cfg, "train", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="device_pipeline"):
-        pt_pipe.make_loader(pt_cfg.replace(device_pipeline=True), "train", device="cpu")
+    # --device_pipeline: the train loader ships the raw crops
+    raw = pt_pipe.make_loader(pt_cfg.replace(dataset="nyu", device_pipeline=True), "train",
+                              device="cpu")
+    assert isinstance(raw.dataset, pt_ds.NYUV2Dataset) and raw.batch_size == pt_cfg.bs
+    assert set(raw.dataset[0]) == {"image_raw", "depth"}
+
+
+@pytest.mark.parametrize("mode", ["train", "online_eval"])
+def test_device_pipeline_raw_samples_equal_jax(nyu_tree, mode):
+    """Under ``--device_pipeline`` a train sample is the raw crop and its
+    depth: NYU's uint8 crop (after the border crop, the rotation and the
+    random crop, drawn as before) and the synthetic set's float32 image,
+    equal to the JAX package's, the generator's state too; eval samples
+    are the full ones, as without the option."""
+    jx_cfg, pt_cfg = configs(**nyu_tree[0], device_pipeline=True)
+    jx, pt = jx_ds.NYUV2Dataset(jx_cfg, mode), pt_ds.NYUV2Dataset(pt_cfg, mode)
+    for i in (0, 2, 1):
+        got = pt[i]
+        assert_same_sample(got, jx[i], f"nyu {mode} {i}")
+    assert pt.rng.bit_generator.state == jx.rng.bit_generator.state
+    syn_jx = jx_ds.SyntheticDataset(jx_cfg, mode, 3)
+    syn_pt = pt_ds.SyntheticDataset(pt_cfg, mode, 3)
+    for i in range(3):
+        assert_same_sample(syn_pt[i], syn_jx[i], f"synthetic {mode} {i}")
+    if mode == "train":
+        assert set(got) == {"image_raw", "depth"} and got["image_raw"].dtype == np.uint8
+        assert got["image_raw"].shape == (pt_cfg.input_height, pt_cfg.input_width, 3)
+        assert got["depth"].shape == (pt_cfg.input_height, pt_cfg.input_width, 1)
+        assert syn_pt[0]["image_raw"].dtype == np.float32
+    else:
+        assert "image_u8" in got and "image" in syn_pt[0]
 
 
 # ---- the loader ----------------------------------------------------------------

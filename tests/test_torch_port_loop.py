@@ -4,7 +4,9 @@ equals the normalized image), grouped eval over a mixed-rig ZJUL5 set,
 ``run_training``'s checkpoints and logs, a resume that equals the
 uninterrupted run bit for bit, the JAX package's stale ``best_rmse`` in the
 epoch checkpoint, ``weights.opt_state_from_optax`` against optax in float64,
-and the entry point's refusals."""
+the entry point's refusals, its one-card options (``--device_pipeline``,
+``--grad_accum``, ``--remat``, ``--debug_nans``), a planted NaN, and the
+device pipeline's resume bit for bit."""
 
 import json
 import os
@@ -438,14 +440,97 @@ ENTRY = ["--tiny_model", "--n_bins", "16", "--native_height", "64", "--native_wi
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--selfsup"], "§A 11"), (["--multihost"], "§A 9"), (["--device_pipeline"], "§A 8"),
-    (["--spatial_shards", "2"], "§A 9"), (["--debug_nans"], "§A 3"),
-    (["--grad_accum", "2"], "§A"), (["--remat"], "§A")])
+    (["--selfsup"], "§A 11"), (["--multihost"], "§A 9"), (["--spatial_shards", "2"], "§A 9"),
+    (["--device_pipeline", "--train_zone_random_offset", "1"], "drop one of the two flags")])
 def test_entry_point_refusals(flags, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         pt_train_main.main(ENTRY + flags)
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--device_pipeline"], ["--grad_accum", "2"], ["--remat"], ["--debug_nans"],
+    ["--compute_dtype", "bfloat16", "--device_pipeline", "--grad_accum", "2", "--remat",
+     "--debug_nans"]])
+def test_entry_point_runs_the_one_card_options(flags, tmp_path, monkeypatch):
+    """``--device_pipeline``, ``--grad_accum``, ``--remat`` and
+    ``--debug_nans``, alone and together in bf16: a finite step, the batch
+    made on the device under ``--device_pipeline``, anomaly mode only
+    during a ``--debug_nans`` run."""
+    monkeypatch.chdir(tmp_path)
+    made, anomaly = [], []
+    real = pt_loop.preprocess_batch
+
+    def prep(batch, *a):
+        made.append(sorted(batch))
+        anomaly.append(torch.is_anomaly_enabled())
+        return real(batch, *a)
+
+    monkeypatch.setattr(pt_loop, "preprocess_batch", prep)
+    trace = []
+    real_run = pt_loop.run_training
+    monkeypatch.setattr(pt_train_main, "run_training",
+                        lambda cfg, **kw: real_run(cfg, trace=trace, **kw))
+    state = pt_train_main.main(ENTRY + flags)
+    assert state.step == 1 and np.isfinite(float(trace[0]["loss"]))
+    assert made == ([["depth", "image_raw"]] if "--device_pipeline" in flags else [])
+    assert all(a == ("--debug_nans" in flags) for a in anomaly)
+    assert not torch.is_anomaly_enabled()
+
+
+def test_debug_nans_names_the_step_of_a_planted_nan(tmp_path, monkeypatch):
+    """A NaN planted in the image of the second step's batch: with
+    ``--debug_nans`` the run stops there with ``FloatingPointError`` naming
+    step 1; without it the run goes on with a NaN loss."""
+    monkeypatch.chdir(tmp_path)
+    real = pt_ds.SyntheticDataset.__getitem__
+    calls = []
+
+    def planted(self, i):
+        s = real(self, i)
+        if self.mode == "train":
+            calls.append(i)
+            if len(calls) == 3:  # the first sample of the second batch
+                s["image"][0, 0, 0] = np.nan
+        return s
+
+    monkeypatch.setattr(pt_ds.SyntheticDataset, "__getitem__", planted)
+    argv = ENTRY + ["--synthetic_length", "4"]  # two steps
+    with pytest.raises(FloatingPointError, match="step 1"):
+        pt_train_main.main(argv + ["--debug_nans"])
+    assert not torch.is_anomaly_enabled()
+    calls.clear()
+    trace = []
+    real_run = pt_loop.run_training
+    monkeypatch.setattr(pt_train_main, "run_training",
+                        lambda cfg, **kw: real_run(cfg, trace=trace, **kw))
+    pt_train_main.main(argv)
+    assert [np.isfinite(float(t["loss"])) for t in trace] == [True, False]
+
+
+def test_device_pipeline_resume_equals_the_uninterrupted_run_bit_for_bit(tmp_path,
+                                                                         monkeypatch):
+    """``--device_pipeline`` over 2 epochs, and the same run resumed from its
+    epoch-0 checkpoint: the draws come from (seed, step), so the resumed
+    epoch's losses and the final state are equal bit for bit; the losses
+    are finite and differ from the host pipeline's."""
+    cfg, full, trace = _run(tmp_path, monkeypatch, device_pipeline=True, synthetic_length=8,
+                            drop_hist=0.34, noise_prob=0.3, noise_sigma=0.2, noise_mean=0.17)
+    assert all(np.isfinite(float(t["loss"])) for t in trace) and len(trace) == 8
+    ckpt0 = next(c for c in os.listdir("checkpoints/t") if c.startswith("0_"))
+    resumed_trace = []
+    resumed = pt_loop.run_training(cfg.replace(resume=f"checkpoints/t/{ckpt0}"), tiny=True,
+                                   device="cpu", trace=resumed_trace)
+    tail = [t for t in trace if t["epoch"] == 1]
+    assert len(tail) == len(resumed_trace) == 4
+    for a, b in zip(tail, resumed_trace):
+        assert a["indices"] == b["indices"] and torch.equal(a["loss"], b["loss"])
+    _same(_state(resumed), _state(full))
+    host = pt_loop.run_training(cfg.replace(device_pipeline=False, epochs=1, no_logging=True),
+                                tiny=True, device="cpu", trace=(host_trace := []))
+    assert host.step == 4
+    assert not any(torch.equal(a["loss"], b["loss"]) for a, b in zip(trace, host_trace))
 
 
 def test_entry_point_runs_with_accepted_no_ops(tmp_path, monkeypatch):

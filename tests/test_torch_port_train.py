@@ -127,8 +127,8 @@ def tiny():
     return dict(cfg=cfg, pt_cfg=PtConfig(**TINY), geoms=geoms, model=model, variables=variables)
 
 
-def _port(tiny):
-    port = pt_make_model(tiny["pt_cfg"], tiny=True, device="cpu").double()
+def _port(tiny, **options):
+    port = pt_make_model(tiny["pt_cfg"].replace(**options), tiny=True, device="cpu").double()
     v = tiny["variables"]
     port.load_state_dict(weights.from_flax(v["params"], v["batch_stats"], tiny["pt_cfg"]),
                          strict=True)
@@ -451,16 +451,172 @@ def test_attention_gradient_is_the_plain_versions(monkeypatch):
         close(a.numpy(), np.asarray(j))
 
 
-# ---- what is not ported raises ------------------------------------------------
+# ---- --grad_accum and --remat ------------------------------------------------------
 
-@pytest.mark.parametrize("option", [dict(grad_accum=2), dict(remat=True)])
-def test_unported_options_raise(tiny, option):
-    cfg = tiny["pt_cfg"].replace(**option)
-    port = pt_make_model(cfg, tiny=True, device="meta")
-    with pytest.raises(NotImplementedError):
-        pt_steps.make_train_step(port, cfg, tiny["geoms"])
-    with pytest.raises(NotImplementedError):
-        pt_steps.create_train_state(port, cfg, 10)
+def _jx_state(tiny, cfg, total_steps=20):
+    v = tiny["variables"]
+    return jx_steps.TrainState.create(apply_fn=tiny["model"].apply, params=v["params"],
+                                      batch_stats=v["batch_stats"],
+                                      tx=jx_optim.make_optimizer(cfg, total_steps=total_steps))
+
+
+def _assert_state_equals_jax(port, jx_state, pt_cfg, atol, what=""):
+    ref = weights.from_flax(jax.tree_util.tree_map(np.asarray, jx_state.params),
+                            jax.tree_util.tree_map(np.asarray, jx_state.batch_stats), pt_cfg)
+    for k, s in port.state_dict().items():
+        np.testing.assert_allclose(s.numpy(), ref[k].numpy(), rtol=1e-7, atol=atol,
+                                   err_msg=f"{what}{k}")
+
+
+def test_grad_accum_step_matches_jax_f64(tiny, monkeypatch):
+    """One ``--grad_accum 2`` step at bs 4 (clipping on): two microbatches of
+    2 in order, each with its own crop offsets, the statistics threaded
+    through them, the summed gradients divided by 2 once; loss, parameters
+    and statistics against the JAX step. The JAX step runs its microbatch
+    loop unrolled (``pre_split``, the batch split [2, 2, ...] on the host:
+    the same body), so that the recorded offsets replay in order."""
+    cfg = tiny["cfg"].replace(grad_accum=2, disable_clip_grad=False)
+    pt_cfg = tiny["pt_cfg"].replace(grad_accum=2, disable_clip_grad=False)
+    geoms = tiny["geoms"]
+    b = _batch(cfg, 30, batch=4)
+    port = _port(tiny)
+    state = pt_steps.create_train_state(port, pt_cfg, total_steps=20)
+    offsets = RecordedOffsets(monkeypatch)
+    loss = pt_steps.make_train_step(port, pt_cfg, geoms)(state, _pt_batch(b), seed=7)
+    assert len(offsets.drawn) == 6 and offsets.drawn[:3] != offsets.drawn[3:]
+    left = offsets.replay_in_jax()
+    with enable_x64():
+        jx_step = jx_steps.make_train_step(tiny["model"], cfg, geoms, jit=False, pre_split=True)
+        split = {k: v.reshape((2, 2) + v.shape[1:]) for k, v in _jx_batch(b).items()}
+        jx_state, ref_loss = jax.jit(jx_step)(_jx_state(tiny, cfg), split, jax.random.key(0))
+    assert next(left, None) is None
+    assert state.step == int(jx_state.step) == 1
+    close(float(loss), float(ref_loss))
+    _assert_state_equals_jax(port, jx_state, pt_cfg, atol=cfg.lr * 2.0 ** -22)
+
+
+def test_grad_accum_sums_then_divides_once(tiny):
+    """The step's gradients are (g0 + g1) / 2 of the two microbatches'
+    unscaled losses, bit for bit, and its loss their mean."""
+    pt_cfg = tiny["pt_cfg"].replace(grad_accum=2)
+    b = _pt_batch(_batch(tiny["cfg"], 31, batch=4))
+    port = _port(tiny)
+    loss_fn = pt_steps.make_loss_fn(port, pt_cfg, tiny["geoms"])
+    generator, want, losses = pt_steps.step_generator(3), {}, []
+    for i in range(2):
+        part = loss_fn({k: v[2 * i:2 * i + 2] for k, v in b.items()}, generator)
+        grads = torch.autograd.grad(part, list(port.parameters()))
+        for (k, _), g in zip(port.named_parameters(), grads):
+            want[k] = g if i == 0 else want[k] + g
+        losses.append(part.detach())
+    port = _port(tiny)  # the statistics as they were
+    state = pt_steps.create_train_state(port, pt_cfg, total_steps=20)
+    loss = pt_steps.make_train_step(port, pt_cfg, tiny["geoms"])(state, b, seed=3)
+    assert torch.equal(loss, (losses[0] + losses[1]) / 2)
+    for k, p in port.named_parameters():
+        assert torch.equal(p.grad, want[k] / 2), k
+
+
+def test_grad_accum_must_divide_the_batch(tiny):
+    pt_cfg = tiny["pt_cfg"].replace(grad_accum=3)
+    port = _port(tiny)
+    state = pt_steps.create_train_state(port, pt_cfg, total_steps=20)
+    step = pt_steps.make_train_step(port, pt_cfg, tiny["geoms"])
+    with pytest.raises(ValueError, match="--grad_accum 3 does not divide batch size 4"):
+        step(state, _pt_batch(_batch(tiny["cfg"], 32, batch=4)), seed=0)
+
+
+def _loss_and_grads(port, pt_cfg, geoms, b, seed=11):
+    loss = pt_steps.make_loss_fn(port, pt_cfg, geoms)(b, pt_steps.step_generator(seed))
+    loss.backward()
+    return (loss.detach(), {k: p.grad for k, p in port.named_parameters()},
+            _bn_stats(port.state_dict()))
+
+
+def test_remat_step_equals_the_plain_step_and_jax_f64(tiny, monkeypatch):
+    """``--remat``: the image encoder recomputed in the backward. Loss,
+    every gradient and every running statistic equal the plain step's bit
+    for bit, and the JAX remat model's (``nn.remat``) at rtol 1e-7; the
+    statistics moved once. A recompute that updates the statistics again
+    (``frozen_running_stats`` taken out) moves the encoder's twice, and the
+    comparison sees it."""
+    from cfpnet_torch.models import deltar as pt_deltar
+
+    cfg, pt_cfg, geoms = tiny["cfg"].replace(remat=True), tiny["pt_cfg"], tiny["geoms"]
+    b = _batch(cfg, 33)
+    plain = _loss_and_grads(_port(tiny), pt_cfg, geoms, _pt_batch(b))
+    port = _port(tiny, remat=True)
+    assert port.remat
+    offsets = RecordedOffsets(monkeypatch)
+    remat = _loss_and_grads(port, pt_cfg.replace(remat=True), geoms, _pt_batch(b))
+    for got, want in zip(remat, plain):
+        if isinstance(got, dict):
+            assert got.keys() == want.keys()
+            assert all(torch.equal(got[k], want[k]) for k in got)
+        else:
+            assert torch.equal(got, want)
+    offsets.replay_in_jax()
+    v = tiny["variables"]
+    with enable_x64():
+        jx_model = jx_make_model(cfg, tiny=True)
+        jx_loss = jx_steps.make_loss_fn(jx_model, cfg, geoms)
+        (ref_loss, updates), grads = jax.jit(jax.value_and_grad(jx_loss, has_aux=True))(
+            v["params"], v["batch_stats"], _jx_batch(b), jax.random.key(0))
+    monkeypatch.undo()
+    close(float(remat[0]), float(ref_loss))
+    ref_grads = weights.from_flax(jax.tree_util.tree_map(np.asarray, grads), None, pt_cfg)
+    for k, g in remat[1].items():
+        np.testing.assert_allclose(g.numpy(), ref_grads[k].numpy(), rtol=1e-7, atol=1e-12,
+                                   err_msg=k)
+    ref_stats = weights.from_flax({}, jax.tree_util.tree_map(np.asarray, updates["batch_stats"]),
+                                  pt_cfg)
+    for k, s in remat[2].items():
+        np.testing.assert_allclose(s.numpy(), ref_stats[k].numpy(), rtol=1e-7, atol=1e-12,
+                                   err_msg=k)
+
+    # the planted fault: the recompute moves the statistics a second time
+    import contextlib
+
+    monkeypatch.setattr(pt_deltar, "frozen_running_stats", contextlib.nullcontext)
+    twice = _loss_and_grads(_port(tiny, remat=True), pt_cfg.replace(remat=True), geoms,
+                            _pt_batch(b))[2]
+    moved = [k for k in twice if not np.allclose(twice[k].numpy(), ref_stats[k].numpy(),
+                                                 rtol=1e-7, atol=1e-12)]
+    assert moved and all(k.startswith("img_encoder.") for k in moved)
+
+
+@pytest.mark.parametrize("option", [dict(remat=True), dict(grad_accum=2)])
+def test_bf16_remat_and_grad_accum_keep_float32_masters(tiny, option):
+    """In a bf16 step: the remat step equals the plain bf16 step bit for bit
+    (the recompute runs on the bf16 copies the forward saw, not on the
+    float32 masters put back by then); the ``--grad_accum 2`` step leaves
+    float32 gradients on the float32 masters and moves them."""
+    pt_cfg = tiny["pt_cfg"].replace(compute_dtype="bfloat16")
+    b = _pt_batch(_batch(tiny["cfg"], 34, batch=4), torch.float32)
+
+    def port():
+        m = pt_make_model(pt_cfg.replace(**option), tiny=True, device="cpu")
+        m.load_state_dict({k: v.float() for k, v in _port(tiny).state_dict().items()})
+        return m
+
+    if option.get("remat"):
+        plain = _loss_and_grads(port().float(), pt_cfg, tiny["geoms"], b)
+        m = port()
+        assert m.remat
+        remat = _loss_and_grads(m, pt_cfg.replace(remat=True), tiny["geoms"], b)
+        assert torch.equal(remat[0], plain[0])
+        assert all(torch.equal(remat[1][k], plain[1][k]) for k in plain[1])
+        assert all(torch.equal(remat[2][k], plain[2][k]) for k in plain[2])
+        return
+    m = port()
+    before = {k: p.detach().clone() for k, p in m.named_parameters()}
+    cfg = pt_cfg.replace(**option)
+    state = pt_steps.create_train_state(m, cfg, total_steps=20)
+    loss = pt_steps.make_train_step(m, cfg, tiny["geoms"])(state, b, seed=5)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert {p.grad.dtype for p in m.parameters()} == {p.dtype for p in m.parameters()} == {
+        torch.float32}
+    assert sum(not torch.equal(p, before[k]) for k, p in m.named_parameters()) > 0.9 * len(before)
 
 
 def test_train_mode_forward_returns_edges_and_pred(tiny):
