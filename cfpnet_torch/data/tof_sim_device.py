@@ -29,12 +29,12 @@ transform makes no copy to the host and no sync.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.interp import device_constant
 from .datasets import IMAGENET_MEAN, IMAGENET_STD
 from .geometry import ZoneGeometry
 from .tof_sim import BIN_WIDTH, NOISE_FLOOR, _std_normal_icdf_grid
@@ -86,10 +86,15 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.addcmul(c.double(), a.double(), b.double()).float()
 
 
-@functools.lru_cache(maxsize=None)
+_ON_DEVICE: Dict[tuple, torch.Tensor] = {}
+
+
 def _on_device(device: torch.device, make, *args) -> torch.Tensor:
-    """``make(*args)`` (float32) copied to ``device`` once."""
-    return torch.from_numpy(np.ascontiguousarray(make(*args), np.float32)).to(device)
+    """``make(*args)`` (float32) copied to ``device`` once
+    (``ops/interp.py::device_constant``: never one a trace made)."""
+    return device_constant(
+        _ON_DEVICE, (device, make, *args),
+        lambda: torch.from_numpy(np.ascontiguousarray(make(*args), np.float32)).to(device))
 
 
 def _zone_patches(depth: torch.Tensor, geom: ZoneGeometry) -> torch.Tensor:

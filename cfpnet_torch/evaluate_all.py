@@ -2,11 +2,12 @@
 
     python -m cfpnet_torch.evaluate_all @configs/X.txt [--selected_epoch best] \\
         [--test_dataset nyu|zjuL5|synthetic] [--device cpu] \\
-        [--save_pred] [--save_rgb] [--save_error_map]
+        [--save_pred] [--save_rgb] [--save_error_map] [--serving_artifact DIR]
 
 Port of the root ``evaluate_all.py``: ``main`` (``:163-242``),
-``write_reports`` (``:245-262``), ``make_save_hook`` (``:33-84``) and
-``zju_overrides`` (``:148-160``). Users run it after training
+``write_reports`` (``:245-262``), ``make_save_hook`` (``:33-84``),
+``artifact_eval_steps`` (``:87-135``) and ``zju_overrides``
+(``:148-160``). Users run it after training
 (``python -m cfpnet_torch.train``, whose loop writes
 ``weights/{name}/{ep}_{rmse:.3f}`` and ``weights/{name}/best``,
 ``train/loop.py::run_training``).
@@ -29,8 +30,11 @@ Port of the root ``evaluate_all.py``: ``main`` (``:163-242``),
 - ``--save_pred``, ``--save_rgb`` and ``--save_error_map`` write PNGs into
   per-scene folders under ``--save_dir`` (``make_save_hook``); they need
   Pillow and matplotlib, imported only when a flag is set.
-- ``--serving_artifact`` is refused: serving is not ported (ROADMAP.md
-  §A 10). ``--shard_eval`` acts only with more than one process
+- ``--serving_artifact DIR`` (root ``:182-193``) sweeps the eval set once
+  through an exported artifact (``serve/export.py``; weights inside, no
+  checkpoint read) instead of the weights files: ``artifact_eval_steps``,
+  one row whose epoch is ``artifact``. ``--shard_eval`` acts only with more
+  than one process
   (``:219``), so with one it is a no-op, as in the JAX package; with more
   it is refused, as is ``--multihost`` (multi-GPU, ROADMAP.md §A 9).
 - The forward runs in float32 whatever ``--compute_dtype`` says, as the
@@ -51,9 +55,11 @@ import torch
 
 from . import weights
 from .config import parse_config
-from .data.datasets import make_dataset
-from .models.deltar import make_model
-from .train.loop import make_grouped_eval
+from .data.datasets import IMAGENET_MEAN, IMAGENET_STD, make_dataset
+from .data.pipeline import make_loader
+from .models.deltar import make_model, model_geometries
+from .train.loop import evaluate, make_grouped_eval
+from .train.steps import make_metric_step
 
 METRICS = ["a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel"]
 
@@ -100,9 +106,6 @@ def process_count() -> int:
 
 def refuse_unported(config) -> None:
     """Raises for what the sweep does not have yet."""
-    if config.serving_artifact:
-        raise NotImplementedError("--serving_artifact: serving is not ported yet "
-                                  "(ROADMAP.md §A 10)")
     if config.multihost:
         raise NotImplementedError("--multihost: multi-GPU is not ported yet (ROADMAP.md §A 9)")
     if config.shard_eval and process_count() > 1:
@@ -157,6 +160,59 @@ def make_save_hook(config, dataset):
     return hook
 
 
+def artifact_eval_steps(config, loader, artifact_path: str, device="cuda"):
+    """(eval_step, metric_step) backed by an exported serving artifact: the
+    metric sweep runs through the program that will serve (weights inside),
+    not through live weights (root ``evaluate_all.py:87-135``).
+
+    The artifact's input is raw uint8 RGB (what a deployed client sends);
+    float-sourced eval images (synthetic) are quantized to uint8 at the
+    boundary, as a client would send them. The metric valid mask follows
+    the artifact's post-processing protocol (``manifest['protocol']``), so
+    the prediction and its mask stay the matched pair of
+    ``steps.make_eval_step`` and ``make_metric_step``. Raises ``ValueError``
+    where the eval set's zone geometry is not the artifact's, or its batch
+    size not exported; ``ServingModel`` raises where ``device`` is not the
+    artifact's."""
+    from .serve import ServingModel
+    from .serve.export import geometry_dict
+
+    m = ServingModel(artifact_path, device)
+    man_geo = m.manifest.get("geometry")
+    if man_geo is not None:
+        # the artifact bakes its zone geometry in; a dataset whose geometry
+        # differs (measured ZJUL5 rig against the config grid, or a
+        # zone_type ablation) would mis-place every zone
+        live = getattr(getattr(loader, "dataset", None), "scale_geoms", None)
+        if live is None:
+            live = model_geometries(config, "online_eval")
+        if geometry_dict(live) != man_geo["scales"]:
+            raise ValueError(
+                f"artifact zone geometry ({man_geo['source']}, "
+                f"{man_geo['zone_num']}x{man_geo['zone_num']}) does not match "
+                "the eval dataset's geometry: export again with the matching "
+                "--test_dataset/zone flags (python -m cfpnet_torch.export_serving reads "
+                "measured ZJUL5 rects when --test_dataset zjuL5)")
+    bs = getattr(loader, "batch_size", 1)
+    if bs not in m.batch_sizes:
+        raise ValueError(
+            f"artifact exports batch sizes {m.batch_sizes}; evaluation uses "
+            f"--eval_bs {bs}: export again with it or change --eval_bs")
+    protocol = m.manifest.get("protocol", "validate")
+    mean, std = (torch.as_tensor(a, device=m.device) for a in (IMAGENET_MEAN, IMAGENET_STD))
+
+    def eval_step(batch):
+        if "image_u8" in batch:
+            img = batch["image_u8"]
+        else:
+            raw = batch["image"] * std + mean
+            img = torch.clamp(torch.round(raw * 255.0), 0, 255).to(torch.uint8)
+        pred = m.call(img, batch["hist_data"].to(torch.float32), batch["mask"])
+        return pred[..., None], None
+
+    return eval_step, make_metric_step(config, protocol=protocol)
+
+
 def weight_files(config) -> List[Tuple[int, str]]:
     """(epoch, path) of each weights file of the sweep (root ``:207-216``)."""
     weights_dir = os.path.join("weights", config.name)
@@ -205,10 +261,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    model = make_model(config, device=device)
     dataset = make_dataset(config, "online_eval")
-    eval_fn = make_grouped_eval(model, config, dataset, protocol="evaluate_all", device=device)
     hook = make_save_hook(config, dataset)
+    if config.serving_artifact:
+        return artifact_main(config, dataset, hook, device)
+
+    model = make_model(config, device=device)
+    eval_fn = make_grouped_eval(model, config, dataset, protocol="evaluate_all", device=device)
 
     rows, unrounded = [], []
     files = weight_files(config)
@@ -222,6 +281,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         rows.append([ep] + [results[m] for m in METRICS])
     return dict(rows=rows, metrics=unrounded, weights=[path for _, path in files],
                 reports=write_reports(config, rows))
+
+
+def artifact_main(config, dataset, hook, device) -> Dict[str, object]:
+    """``--serving_artifact``: one sweep through the artifact, one row whose
+    epoch is ``artifact``, no weights file read (root ``:182-193``)."""
+    loader = make_loader(config, "online_eval", dataset=dataset, device=device)
+    steps = artifact_eval_steps(config, loader, config.serving_artifact, device)
+    results = evaluate(None, config, loader, steps=steps, per_image_hook=hook)
+    unrounded = dict(results)
+    results = {k: round(v, 3) for k, v in results.items()}
+    print(f"Metrics (serving artifact): {results}")
+    print(",".join(str(results[m]) for m in METRICS))
+    rows = [["artifact"] + [results[m] for m in METRICS]]
+    return dict(rows=rows, metrics=[unrounded], weights=[], reports=write_reports(config, rows))
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@
         [--compute_dtype bfloat16] [--test_dataset zjuL5|nyu|synthetic]
     python -m cfpnet_torch.evaluate_time @configs/train_cfpnet_combine1.txt --train \\
         [--compute_dtype bfloat16] [--profile_flops] [--device cpu] [--niters N]
+    python -m cfpnet_torch.evaluate_time --serving_artifact DIR [--device cpu] [--niters N]
 
 Port of the root ``evaluate_time.py`` (``timed_forward``,
 ``graph_flops_eval``, ``timed_train_step``, ``graph_flops_train`` and its
@@ -68,9 +69,12 @@ times the ZJUL5 configuration (``zju_overrides``: 480x640, 256 bins), as
 the root ``__main__`` does (``:325-328``); ``--train`` times the train
 step's own configuration and does not. Weights: ``--weight_path``
 (``weights.load_reference_checkpoint``), else the golden tests'
-deterministic ones. ``--serving_artifact`` is not ported (ROADMAP §A item
-10). Runs on the card unless ``--device cpu``, where only ``--eager`` can
-run: a CUDA graph needs a card.
+deterministic ones. ``--serving_artifact DIR`` times an exported artifact
+instead (``timed_serving``, the root ``:220-260, 319-337``): its bs=1
+program's graph replayed as ``replay_latency_ms`` replays the forward's,
+or on the CPU its module timed by the host clock; it prints
+``"<ms> ms (serving artifact)"``. Runs on the card unless ``--device
+cpu``, where only ``--eager`` can run: a CUDA graph needs a card.
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ from . import weights
 from .config import parse_config
 from .data.datasets import SyntheticDataset, collate, make_dataset, sample_image_f32
 from .evaluate_all import eval_dataset_config
-from .graphs import CapturedForward
+from .graphs import CapturedCall, CapturedForward
 from .kernels.dtypes import dtype_name
 from .models.convnext import LargeKernelDWConv
 from .models.deltar import cast_to_compute_dtype, make_model, model_geometries
@@ -155,25 +159,63 @@ def eager_latency_ms(model, inputs: Inputs, geoms, niters: int, warmup: int = 5)
     return float(np.mean(trimmed))
 
 
-def replay_latency_ms(captured: CapturedForward, niters: int = 500, K: int = 100) -> float:
-    """Milliseconds a replay of ``captured`` on the inputs in its buffers:
-    ``min(K, niters)`` replays between two CUDA events, ``max(4, niters //
-    K)`` times, trimmed mean of the sorted repetitions ``[1:-1]``."""
+def replay_latency_ms(captured: CapturedCall, niters: int = 500, K: int = 100) -> float:
+    """Milliseconds a replay of ``captured`` on the inputs in its buffers
+    (``repeated_latency_ms`` of its ``replay``)."""
+    return repeated_latency_ms(captured.replay, niters, K)
+
+
+def repeated_latency_ms(fn, niters: int = 500, K: int = 100, cuda: bool = True) -> float:
+    """Milliseconds a call of ``fn()``, after one call: ``min(K, niters)``
+    calls between two CUDA events (the host clock where not ``cuda``),
+    ``max(4, niters // K)`` times, trimmed mean of the sorted repetitions
+    ``[1:-1]``."""
     K = max(1, min(K, niters))
-    captured.replay()
-    torch.cuda.synchronize()
+    fn()
+    if cuda:
+        torch.cuda.synchronize()
     times = []
     for _ in range(max(4, niters // K)):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(K):
-            captured.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / K)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(K):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / K)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(K):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / K)
     times.sort()
     return float(np.mean(times[1:-1]))
+
+
+def timed_serving(artifact_path: str, niters: int = 500, batch_size: int = 1, K: int = 100,
+                  device=None) -> float:
+    """Milliseconds a call of an exported serving artifact's program at
+    ``batch_size`` (the root ``timed_serving``), on a zero uint8 image,
+    histograms of 2.0 and all zones valid: on the card its CUDA graph
+    (``ServingModel.captured``) replayed as ``replay_latency_ms`` replays
+    the forward's; on the CPU its module, timed by the host clock
+    (``repeated_latency_ms``). ``device`` must be the artifact's (default:
+    it)."""
+    from .serve import ServingModel
+
+    m = ServingModel(artifact_path, device)
+    if m.device.type == "cuda":
+        return replay_latency_ms(m.captured(batch_size), niters, K)
+    module = m.module(batch_size)
+    spec = m.manifest["input"]
+    h, w = spec["image_u8"][1:3]
+    zones, s = spec["hist"][1:3]
+    inputs = (torch.zeros(batch_size, h, w, 3, dtype=torch.uint8),
+              torch.full((batch_size, zones, s), 2.0), torch.ones(batch_size, zones, dtype=torch.bool))
+    with torch.no_grad():
+        return repeated_latency_ms(lambda: module(*inputs), niters, K, cuda=False)
 
 
 def graphed_latency_ms(model, inputs: Inputs, geoms, config, niters: int = 500,
@@ -344,19 +386,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     config = parse_config(rest).replace(mode="online_eval")
     if not args.train:
         config = eval_dataset_config(config)
-    if config.serving_artifact:
-        raise NotImplementedError("--serving_artifact: serving is not ported yet "
-                                  "(ROADMAP.md §A item 10)")
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu, host clock"
+    if config.serving_artifact:
+        ms = timed_serving(config.serving_artifact, niters=args.niters, device=device)
+        print(f"{ms:.3f} ms (serving artifact)")
+        print(f"{1000.0 / ms:.2f} frames/sec/chip" if device.type == "cuda"
+              else f"{1000.0 / ms:.2f} frames/sec on the CPU")
+        print(f"(bs=1, {config.serving_artifact}; {where})")
+        return dict(latency_ms_bs1=ms, serving_artifact=config.serving_artifact, device=where,
+                    niters=args.niters)
     sd = weights.load_reference_checkpoint(config.weight_path) if config.weight_path else None
     if args.train:
         return train_main(config, args, sd, device)
     ms = timed_forward(config, niters=args.niters, graphed=not args.eager, state_dict=sd,
                        device=device)
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu, host clock"
     out: Dict[str, object] = dict(latency_ms_bs1=ms, graphed=not args.eager, device=where,
                                   niters=args.niters, dtype=config.compute_dtype)
     print(f"{ms:.3f} ms")

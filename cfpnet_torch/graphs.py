@@ -38,27 +38,81 @@ What the graph bakes in:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Sequence
 
 import torch
 
 from .data.geometry import ScaleGeometry
 
-WARMUP = 3  # eager forwards before the capture
+WARMUP = 3  # eager calls before the capture
 
 
-class CapturedForward:
+class CapturedCall:
+    """``fn(*inputs)`` captured once in one ``torch.cuda.CUDAGraph`` over the
+    static CUDA tensors ``inputs`` (named ``names``), without autograd.
+
+    It warms ``fn`` up with ``WARMUP`` eager calls on a side stream, then
+    captures one call into a memory pool of its own. ``replay()`` runs the
+    graph on what the input buffers hold and returns its static outputs; a
+    call ``captured(*tensors)`` copies the tensors into the buffers first,
+    and raises ``ValueError`` on other shapes or dtypes. The next replay
+    overwrites the outputs: clone what must outlive it. An error during
+    capture propagates; it never runs eagerly instead.
+    """
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], names: Sequence[str]):
+        device = inputs[0].device
+        if device.type != "cuda":
+            raise ValueError(f"{type(self).__name__} needs inputs on a CUDA device, got {device}")
+        self._inputs, self.names = tuple(inputs), tuple(names)
+
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.no_grad(), torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                fn(*self.inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(self.graph):
+            self.outputs = fn(*self.inputs)
+        self.graph.replay()
+        torch.cuda.synchronize(device)
+
+    @property
+    def inputs(self):
+        """The static input buffers."""
+        return self._inputs
+
+    def replay(self):
+        """One replay on the inputs already in the static buffers."""
+        self.graph.replay()
+        return self.outputs
+
+    def __call__(self, *tensors: torch.Tensor):
+        for name, got, static in zip(self.names, tensors, self.inputs):
+            if got.shape != static.shape or got.dtype != static.dtype:
+                raise ValueError(f"{type(self).__name__}: {name} {tuple(got.shape)} {got.dtype}; "
+                                 f"the graph was captured for {tuple(static.shape)} "
+                                 f"{static.dtype}")
+            static.copy_(got)
+        return self.replay()
+
+
+class CapturedForward(CapturedCall):
     """The eval forward of ``model`` at ``batch_size`` images of the
-    config's native size, captured in one ``torch.cuda.CUDAGraph``.
+    config's native size, captured in one ``torch.cuda.CUDAGraph``
+    (``CapturedCall``).
 
     A call ``captured(image, hist, mask)`` copies the inputs into the graph's
-    static buffers, replays it and returns its static outputs
-    ``(bin_edges, pred, prob, None)``. The next replay overwrites those
-    outputs: clone what must outlive it. Raises ``ValueError`` on a model
-    that is not on a CUDA device and on inputs of other shapes or dtypes
-    (image and histogram in the model's dtype, the mask bool); an error
-    during capture propagates. It never runs eagerly instead.
+    static buffers ``image``, ``hist`` and ``mask``, replays it and returns
+    its static outputs ``(bin_edges, pred, prob, None)``. Raises
+    ``ValueError`` on a model that is not on a CUDA device and on inputs of
+    other shapes or dtypes (image and histogram in the model's dtype, the
+    mask bool).
     """
+
+    names = ("image", "hist", "mask")
 
     def __init__(self, model: torch.nn.Module, geoms: Dict[int, ScaleGeometry],
                  batch_size: int, config):
@@ -72,31 +126,9 @@ class CapturedForward:
         self.hist = torch.zeros(batch_size, zones, config.zone_sample_num, device=device,
                                 dtype=dtype)
         self.mask = torch.ones(batch_size, zones, dtype=torch.bool, device=device)
-        args = (self.image, self.hist, self.mask, geoms)
+        super().__init__(lambda image, hist, mask: model(image, hist, mask, geoms),
+                         self.inputs, self.names)
 
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.no_grad(), torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                model(*args)
-        torch.cuda.current_stream(device).wait_stream(side)
-
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph):
-            self.outputs: Tuple = model(*args)
-        self.graph.replay()
-        torch.cuda.synchronize(device)
-
-    def replay(self) -> Tuple:
-        """One replay on the inputs already in the static buffers."""
-        self.graph.replay()
-        return self.outputs
-
-    def __call__(self, image: torch.Tensor, hist: torch.Tensor, mask: torch.Tensor) -> Tuple:
-        for name, got, static in (("image", image, self.image), ("hist", hist, self.hist),
-                                  ("mask", mask, self.mask)):
-            if got.shape != static.shape or got.dtype != static.dtype:
-                raise ValueError(f"CapturedForward: {name} {tuple(got.shape)} {got.dtype}; the "
-                                 f"graph was captured for {tuple(static.shape)} {static.dtype}")
-            static.copy_(got)
-        return self.replay()
+    @property
+    def inputs(self):
+        return (self.image, self.hist, self.mask)

@@ -1,6 +1,7 @@
-"""The element types the kernels take, shared by the three wrappers: the C
+"""What the three wrappers share: the element types the kernels take (the C
 entry suffix of each, the check that a call's tensors share one of them,
-and the launch count by element type."""
+the launch count by element type), the output of an op under a trace, and
+the operations of an op as ``torch.utils.flop_counter`` counts them."""
 
 from __future__ import annotations
 
@@ -33,3 +34,32 @@ def count_launch(by_dtype: Dict[str, int], dtype: torch.dtype) -> None:
     """Adds one launch on ``dtype`` ("float32", "bfloat16") to ``by_dtype``."""
     key = dtype_name(dtype)
     by_dtype[key] = by_dtype.get(key, 0) + 1
+
+
+def traced_output(kernel: str, like: torch.Tensor) -> torch.Tensor:
+    """The fake implementation of a kernel's op: under a trace
+    (``torch.export``, whose tensors are fake), an empty tensor like
+    ``like``, the output's shape and dtype. A meta tensor outside a trace
+    raises as the kernel's checks do for any tensor off a CUDA device: an op
+    computes on the card or, for a CPU tensor, by its plain version, and on
+    nothing else."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if not is_fake(like):
+        raise ValueError(f"{kernel}: the kernel takes tensors on a CUDA device, got {like.device}")
+    return torch.empty_like(like)
+
+
+def meta(shape) -> torch.Tensor:
+    """An f32 tensor of ``shape`` on the meta device: a shape to compute on."""
+    return torch.empty(shape, device="meta")
+
+
+def plain_flops(fn, *args) -> int:
+    """The operations ``torch.utils.flop_counter`` counts in ``fn(*args)``:
+    an op's flop formula, from its plain version on meta tensors."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return counter.get_total_flops()

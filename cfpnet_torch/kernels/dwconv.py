@@ -9,11 +9,13 @@ its plain version is ``cfpnet_torch/ops/dwconv.py::depthwise_conv2d``.
 fusion path's token layout, so no permute), weight [C, 1, k, k] (torch
 depthwise layout) and bias [C], all float32 or all bfloat16 (the bf16
 variant: f32 taps and bias on the bf16 values, the output rounded once, as
-the Pallas kernel computes in bf16). A CPU tensor goes through the plain
-version; a CUDA tensor goes through the kernel or raises. The gradient
-(``_DepthwiseConv2d``, in the inputs' dtype) takes dx from the same kernel
-on the rotated taps (its bf16 variant in bf16) and dW from one PyTorch
-call (its depthwise weight-gradient kernel) on NCHW copies.
+the Pallas kernel computes in bf16). It is the ``torch.library`` op
+``cfpnet::dwconv2d``: a CPU tensor goes through the plain version, a CUDA
+tensor through the kernel or raises, and ``torch.export`` keeps the call as
+one node (its fake implementation gives the output's shape). The gradient
+(registered on the op, in the inputs' dtype) takes dx from the same op on
+the rotated taps (its bf16 variant in bf16) and dW from one PyTorch call
+(its depthwise weight-gradient kernel) on NCHW copies.
 
 ``TILING`` holds the one choice of tiling per k; ``kernels/build.py``
 compiles its fixed part into the kernel (``nvcc_defines``), and
@@ -34,7 +36,7 @@ import torch
 
 from ..ops.dwconv import depthwise_conv2d as depthwise_conv2d_plain
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch
+from .dtypes import DTYPES, check_dtypes, count_launch, traced_output
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use
@@ -178,25 +180,42 @@ def _kernel(dtype: torch.dtype):
 def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SAME-padded stride-1 depthwise conv plus bias, NHWC; differentiable
-    in x, weight and bias."""
-    return _DepthwiseConv2d.apply(x, weight, bias)
+    in x, weight and bias. One call of the op ``cfpnet::dwconv2d``."""
+    return dwconv2d(x, weight, bias)
 
 
-def _conv(x, weight, bias):
-    """The forward conv: the plain version for a CPU tensor, else the kernel."""
-    if x.device.type == "cpu":
-        return depthwise_conv2d_plain(x, weight, bias)
+@torch.library.custom_op("cfpnet::dwconv2d", mutates_args=(), device_types="cuda")
+def dwconv2d(x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The op: the kernel on a CUDA tensor (``_launch``), the plain version
+    on a CPU one; ``torch.export`` keeps it as one node."""
     return _launch(x, weight, bias)
 
 
-class _DepthwiseConv2d(torch.autograd.Function):
-    """The conv and its gradient, as the JAX package's XLA path takes it (the
-    TPU kernel has no VJP):
+@dwconv2d.register_kernel("cpu")
+def _(x, weight, bias):
+    return depthwise_conv2d_plain(x, weight, bias)
+
+
+@dwconv2d.register_fake
+def _(x, weight, bias):
+    return traced_output("dwconv", x)
+
+
+def _setup_context(ctx, inputs, output):
+    x, weight, bias = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.has_bias = bias is not None
+
+
+def _backward(ctx, gy):
+    """The gradient, as the JAX package's XLA path takes it (the TPU kernel
+    has no VJP):
 
     - dx: the same conv of dy with the taps rotated by 180 degrees and no
       bias: for odd k and symmetric SAME padding the transpose of a
       correlation is the correlation with the rotated taps, so the forward
-      kernel computes it (a second launch a call on the card);
+      op computes it (a second launch a call on the card);
     - dW: one PyTorch call, ``torch.nn.grad.conv2d_weight``, where XLA
       computes it in the JAX package, on NCHW copies of x and dy: PyTorch
       then runs its own depthwise weight-gradient kernel, while on the
@@ -205,28 +224,22 @@ class _DepthwiseConv2d(torch.autograd.Function):
       plain twin's autograd would be k*k full-size passes;
     - db: dy summed over batch, rows and columns.
     """
+    x, weight = ctx.saved_tensors
+    gy = gy.contiguous()
+    dx = dw = db = None
+    if ctx.needs_input_grad[0]:
+        dx = dwconv2d(gy, weight.flip(-1, -2), None)
+    if ctx.needs_input_grad[1]:
+        k, C = weight.shape[-1], weight.shape[0]
+        dw = torch.nn.grad.conv2d_weight(
+            x.permute(0, 3, 1, 2).contiguous(), weight.shape,
+            gy.permute(0, 3, 1, 2).contiguous(), padding=k // 2, groups=C)
+    if ctx.has_bias and ctx.needs_input_grad[2]:
+        db = gy.sum((0, 1, 2))
+    return dx, dw, db
 
-    @staticmethod
-    def forward(ctx, x, weight, bias):
-        ctx.save_for_backward(x, weight)
-        ctx.has_bias = bias is not None
-        return _conv(x, weight, bias)
 
-    @staticmethod
-    def backward(ctx, gy):
-        x, weight = ctx.saved_tensors
-        gy = gy.contiguous()
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = _conv(gy, weight.flip(-1, -2), None)
-        if ctx.needs_input_grad[1]:
-            k, C = weight.shape[-1], weight.shape[0]
-            dw = torch.nn.grad.conv2d_weight(
-                x.permute(0, 3, 1, 2).contiguous(), weight.shape,
-                gy.permute(0, 3, 1, 2).contiguous(), padding=k // 2, groups=C)
-        if ctx.has_bias and ctx.needs_input_grad[2]:
-            db = gy.sum((0, 1, 2))
-        return dx, dw, db
+dwconv2d.register_autograd(_backward, setup_context=_setup_context)
 
 
 def _launch(x, weight, bias):

@@ -13,13 +13,16 @@ storage, as ``LoFTREncoderLayer.loftr_params`` gives them (the kernel reads
 the ``nn.Linear`` weights as they are stored), all float32 or all bfloat16
 (the bf16 variant rounds where the Pallas kernel does: the message before
 the merge, LN1's output, the ReLU output and the output; its products are
-bf16 x bf16 with f32 sums). A CPU tensor goes through the plain version; a
-CUDA tensor goes through the kernel or raises.
+bf16 x bf16 with f32 sums). It is the ``torch.library`` op
+``cfpnet::fused_loftr`` (the weights a list in ``LoFTRParams`` order): a
+CPU tensor goes through the plain version, a CUDA tensor through the
+kernel or raises, and ``torch.export`` keeps the call as one node.
 
 One wrapper call is two kernel launches on the card (the per-group KV
 summary, then the row pass, which starts before the summary ends by
 programmatic dependent launch and waits for it only where it reads the
-summary); ``launches`` counts wrapper calls that launched. The gradient is that of the plain version, recomputed from the
+summary); ``launches`` counts wrapper calls that launched. The gradient,
+registered on the op, is that of the plain version, recomputed from the
 saved inputs, as the JAX package's custom VJP takes the VJP of
 ``loftr_apply_xla``; in bf16 that of the bf16 plain version, so the
 gradients come back in bf16.
@@ -38,13 +41,15 @@ from __future__ import annotations
 import ctypes
 import functools
 from types import MappingProxyType
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..ops.loftr import LoFTRParams, loftr_apply
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch, dtype_name
+from .dtypes import (DTYPES, check_dtypes, count_launch, dtype_name, meta, plain_flops,
+                     traced_output)
 from .dwconv import (MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK, SMEM_PER_SM,
                      SMEM_RESERVED, SMS)
 
@@ -232,27 +237,56 @@ def resident(C: int, D: int, tm: int, cl: int) -> int:
 def fused_loftr(x: torch.Tensor, source: torch.Tensor, p: LoFTRParams, nhead: int,
                 eps: float = 1e-6) -> torch.Tensor:
     """One unmasked LoFTR encoder layer. x: [N, L, C]; source: [N, S, C].
-    Returns [N, L, C]; differentiable in x, source and every weight."""
-    return _FusedLoFTR.apply(x, source, nhead, eps, *p)
+    Returns [N, L, C]; differentiable in x, source and every weight. One
+    call of the op ``cfpnet::fused_loftr``."""
+    return fused_loftr_op(x, source, list(p), nhead, eps)
 
 
-class _FusedLoFTR(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, source, nhead, eps, *weights):
-        ctx.save_for_backward(x, source, *weights)
-        ctx.nhead, ctx.eps = nhead, eps
-        p = LoFTRParams(*weights)
-        if x.device.type == "cpu":
-            return loftr_apply(x, source, p, nhead, eps)
-        return _launch(x, source, p, nhead, eps)
+@torch.library.custom_op("cfpnet::fused_loftr", mutates_args=(), device_types="cuda")
+def fused_loftr_op(x: torch.Tensor, source: torch.Tensor, weights: List[torch.Tensor],
+                   nhead: int, eps: float) -> torch.Tensor:
+    """The op, its ten weights in ``LoFTRParams`` order: the kernel on a
+    CUDA tensor (``_launch``, which allocates its KV scratch itself), the
+    plain version on a CPU one; ``torch.export`` keeps it as one node."""
+    return _launch(x, source, LoFTRParams(*weights), nhead, eps)
 
-    @staticmethod
-    def backward(ctx, grad):
-        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = loftr_apply(saved[0], saved[1], LoFTRParams(*saved[2:]), ctx.nhead, ctx.eps)
-            grads = torch.autograd.grad(out, saved, grad)
-        return (grads[0], grads[1], None, None, *grads[2:])
+
+@fused_loftr_op.register_kernel("cpu")
+def _(x, source, weights, nhead, eps):
+    return loftr_apply(x, source, LoFTRParams(*weights), nhead, eps)
+
+
+@fused_loftr_op.register_fake
+def _(x, source, weights, nhead, eps):
+    return traced_output("fused_loftr", x)
+
+
+def _setup_context(ctx, inputs, output):
+    x, source, weights, nhead, eps = inputs
+    ctx.save_for_backward(x, source, *weights)
+    ctx.nhead, ctx.eps = nhead, eps
+
+
+def _backward(ctx, grad):
+    """The gradient of the plain version, recomputed from the saved inputs."""
+    saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+    with torch.enable_grad():
+        out = loftr_apply(saved[0], saved[1], LoFTRParams(*saved[2:]), ctx.nhead, ctx.eps)
+        grads = torch.autograd.grad(out, saved, grad)
+    return grads[0], grads[1], list(grads[2:]), None, None
+
+
+fused_loftr_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.cfpnet.fused_loftr)
+def _flop_formula(x_shape, source_shape, weight_shapes, nhead, eps, out_shape=None,
+                  **kwargs) -> int:
+    """The operations ``torch.utils.flop_counter`` counts in the plain
+    version at these shapes (to the counter the op is one node, which it
+    would count as nothing)."""
+    return plain_flops(loftr_apply, meta(x_shape), meta(source_shape),
+                       LoFTRParams(*map(meta, weight_shapes)), nhead, eps)
 
 
 def _launch(x, source, p, nhead, eps):

@@ -9,12 +9,13 @@ is ``cfpnet_torch/csrc/linear_attention.cu``; its plain version is
 ``linear_attention(q, k, v)`` takes the JAX layout [N, L, H, D] (which is
 [N, L, C] in memory, C = H*D), all float32 or all bfloat16 (the bf16
 variant rounds where the Pallas kernel holds bf16: elu(q)+1, elu(k)+1,
-v / S, the key sum and the output; every product accumulates in f32). A
-CPU tensor goes through the plain version; a CUDA tensor goes through the
-kernel or raises. On the card the gradient is autograd of the plain
-version in the inputs' dtype, recomputed from the saved inputs, as
-``kernels/fused_loftr.py`` takes its own: the TPU kernel has no backward
-kernel to port.
+v / S, the key sum and the output; every product accumulates in f32). It
+is the ``torch.library`` op ``cfpnet::linear_attention``: a CPU tensor
+goes through the plain version, a CUDA tensor through the kernel or
+raises, and ``torch.export`` keeps the call as one node. The gradient,
+registered on the op, is autograd of the plain version in the inputs'
+dtype, recomputed from the saved inputs, as ``kernels/fused_loftr.py``
+takes its own: the TPU kernel has no backward kernel to port.
 
 ``launch_plan(N, L, S, H, D)`` owns the geometry of a call's two device
 kernels (the summary pass's head groups, clusters, cluster sums, key tiles
@@ -32,10 +33,11 @@ from types import MappingProxyType
 from typing import Dict, Mapping
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..ops.attention import linear_attention as linear_attention_plain
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch
+from .dtypes import DTYPES, check_dtypes, count_launch, meta, plain_flops, traced_output
 from .dwconv import (MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK,
                      SMEM_PER_SM, SMEM_RESERVED, SMS)
 
@@ -171,30 +173,55 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      eps: float = 1e-6) -> torch.Tensor:
     """Unmasked multi-head elu+1 linear attention. q: [N, L, H, D];
-    k, v: [N, S, H, D]. Returns [N, L, H, D]; differentiable in q, k and v."""
-    if q.device.type == "cpu":
-        return linear_attention_plain(q, k, v, eps=eps)
-    return _LinearAttention.apply(q, k, v, eps)
+    k, v: [N, S, H, D]. Returns [N, L, H, D]; differentiable in q, k and v.
+    One call of the op ``cfpnet::linear_attention``."""
+    return linear_attention_op(q, k, v, eps)
 
 
-class _LinearAttention(torch.autograd.Function):
-    """The kernel forward; the backward is autograd of the plain version,
-    recomputed from the saved q, k, v (the TPU kernel has no VJP; the JAX
-    train step differentiates the XLA path)."""
+@torch.library.custom_op("cfpnet::linear_attention", mutates_args=(), device_types="cuda")
+def linear_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        eps: float) -> torch.Tensor:
+    """The op: the kernel on a CUDA tensor (``_launch``), the plain version
+    on a CPU one; ``torch.export`` keeps it as one node."""
+    return _launch(q, k, v, eps)
 
-    @staticmethod
-    def forward(ctx, q, k, v, eps):
-        ctx.save_for_backward(q, k, v)
-        ctx.eps = eps
-        return _launch(q, k, v, eps)
 
-    @staticmethod
-    def backward(ctx, grad):
-        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = linear_attention_plain(*saved, eps=ctx.eps)
-            grads = torch.autograd.grad(out, saved, grad)
-        return (*grads, None)
+@linear_attention_op.register_kernel("cpu")
+def _(q, k, v, eps):
+    return linear_attention_plain(q, k, v, eps=eps)
+
+
+@linear_attention_op.register_fake
+def _(q, k, v, eps):
+    return traced_output("linear_attention", q)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, eps = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.eps = eps
+
+
+def _backward(ctx, grad):
+    """Autograd of the plain version, recomputed from the saved q, k, v (the
+    TPU kernel has no VJP; the JAX train step differentiates the XLA
+    path)."""
+    saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+    with torch.enable_grad():
+        out = linear_attention_plain(*saved, eps=ctx.eps)
+        grads = torch.autograd.grad(out, saved, grad)
+    return (*grads, None)
+
+
+linear_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.cfpnet.linear_attention)
+def _flop_formula(q_shape, k_shape, v_shape, eps, out_shape=None, **kwargs) -> int:
+    """The operations ``torch.utils.flop_counter`` counts in the plain
+    version at these shapes (to the counter the op is one node, which it
+    would count as nothing)."""
+    return plain_flops(linear_attention_plain, *map(meta, (q_shape, k_shape, v_shape)))
 
 
 def _launch(q, k, v, eps):

@@ -10,12 +10,16 @@ another order and would not).
 Each matrix is copied to its device once, per (in size, out size, dtype,
 device), and kept there: a copy from the host on every call would make the
 forward wait for the card at each resize (a copy from pageable memory
-synchronizes the stream) and could not be captured in a CUDA graph.
+synchronizes the stream) and could not be captured in a CUDA graph. The
+copies are kept by ``device_constant``, which makes them outside any trace
+(``torch.export``): a tensor a trace made is fake, and an eager call that
+read it afterwards would compute on it.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Callable, Dict, Hashable
 
 import numpy as np
 import torch
@@ -43,12 +47,33 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=None)
+def device_constant(cache: Dict[Hashable, torch.Tensor], key: Hashable,
+                    make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``cache[key]``, made by ``make()`` at its first call. Under a trace
+    (``torch.export``) ``make()`` runs outside it, with the trace's modes
+    off: the tensor kept is a real one, never a trace's fake stand-in, and
+    the trace takes it in as a constant of its graph (a device constant in
+    an exported program, not a copy from the host at each call)."""
+    t = cache.get(key)
+    if t is None:
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            t = make()
+        cache[key] = t
+    return t
+
+
+_DEVICE_MATRICES: Dict[tuple, torch.Tensor] = {}
+
+
 def _device_matrix(in_size: int, out_size: int, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
     """``_interp_matrix`` cast once to ``dtype`` on ``device``; shared by
     every call, never written."""
-    return torch.as_tensor(_interp_matrix(in_size, out_size), dtype=dtype, device=device)
+    return device_constant(
+        _DEVICE_MATRICES, (in_size, out_size, dtype, device),
+        lambda: torch.as_tensor(_interp_matrix(in_size, out_size), dtype=dtype, device=device))
 
 
 def _matrix(in_size: int, out_size: int, like: torch.Tensor) -> torch.Tensor:

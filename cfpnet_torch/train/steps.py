@@ -31,7 +31,6 @@ the N losses. ``--remat`` is the model's (``models/deltar.py``).
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Dict
 
@@ -40,7 +39,7 @@ import torch
 from torch.func import functional_call
 
 from ..models.deltar import compute_dtype
-from ..ops.interp import resize_bilinear_align_corners
+from ..ops.interp import device_constant, resize_bilinear_align_corners
 from .losses import compute_errors, silog_loss
 from .optim import AdamW, make_optimizer
 
@@ -152,49 +151,71 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-@functools.lru_cache(maxsize=None)
+_IMAGENET_STATS: Dict[tuple, torch.Tensor] = {}
+
+
 def _imagenet_stats(device: torch.device):
-    """(mean, std) as f32 tensors on ``device``, copied there once."""
-    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
-            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+    """(mean, std) as f32 tensors on ``device``, copied there once
+    (``ops/interp.py::device_constant``: never one a trace made)."""
+    return tuple(device_constant(_IMAGENET_STATS, (name, device),
+                                 lambda: torch.tensor(values, dtype=torch.float32, device=device))
+                 for name, values in (("mean", IMAGENET_MEAN), ("std", IMAGENET_STD)))
+
+
+def normalize_image_u8(u8: torch.Tensor) -> torch.Tensor:
+    """Raw uint8 RGB [B, H, W, 3] normalized on its device in f32 with the
+    JAX package's operations."""
+    mean, std = _imagenet_stats(u8.device)
+    return (u8.to(torch.float32) / 255.0 - mean) / std
 
 
 def eval_batch_image(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Normalized f32 image of an eval batch: ``image_u8`` (raw uint8, as
-    the NYU and ZJUL5 eval samples ship it) normalized on the device with
-    the JAX package's operations, or the batch's normalized ``image``."""
+    the NYU and ZJUL5 eval samples ship it) through ``normalize_image_u8``,
+    or the batch's normalized ``image``."""
     if "image_u8" in batch:
-        u8 = batch["image_u8"]
-        mean, std = _imagenet_stats(u8.device)
-        return (u8.to(torch.float32) / 255.0 - mean) / std
+        return normalize_image_u8(batch["image_u8"])
     return batch["image"]
 
 
-def make_eval_step(model, config, geoms, protocol: str = "evaluate_all"):
-    """Returns ``batch -> (pred_full [B,H,W,1], prob)``, the model in eval
-    mode; the image is ``eval_batch_image(batch)``.
+def eval_prediction(model, config, geoms, protocol: str, image: torch.Tensor,
+                    hist: torch.Tensor, mask: torch.Tensor, dtype=None):
+    """``(pred_full [B,H,W,1], prob)``: the eval forward on a normalized
+    image, image and histograms cast to ``dtype`` where it is given (the
+    model's compute dtype), and the protocol's post-processing.
 
     protocol='evaluate_all': clip to [min_depth, max_depth], then
     align-corners upsample to the input size (reference evaluate_all.py:37-44).
     protocol='validate': upsample first, then NaN -> min / Inf -> max and clip
     to the eval bounds (reference train.py:187-195).
     """
+    if dtype is not None:
+        image, hist = image.to(dtype), hist.to(dtype)
+    _, pred, prob, _ = model(image, hist, mask, geoms)
+    H, W = image.shape[1], image.shape[2]
+    if protocol == "evaluate_all":
+        pred = torch.clamp(pred, config.min_depth, config.max_depth)
+        pred = resize_bilinear_align_corners(pred, H, W)
+    else:
+        pred = resize_bilinear_align_corners(pred, H, W)
+        pred = torch.where(torch.isinf(pred), config.max_depth_eval, pred)
+        pred = torch.where(torch.isnan(pred), config.min_depth_eval, pred)
+        pred = torch.clamp(pred, config.min_depth_eval, config.max_depth_eval)
+    return pred, prob
+
+
+def make_eval_step(model, config, geoms, protocol: str = "evaluate_all", compute_dtype=None):
+    """Returns ``batch -> (pred_full [B,H,W,1], prob)``, the model in eval
+    mode: ``eval_prediction`` on ``eval_batch_image(batch)``. The JAX eval
+    step casts nothing, and neither does this one unless ``compute_dtype``
+    is given (a model cast by ``models/deltar.py::cast_to_compute_dtype``:
+    the serving forward's arithmetic, ``serve/export.py``)."""
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        image = eval_batch_image(batch)
-        _, pred, prob, _ = model(image, batch["hist_data"], batch["mask"], geoms)
-        H, W = image.shape[1], image.shape[2]
-        if protocol == "evaluate_all":
-            pred = torch.clamp(pred, config.min_depth, config.max_depth)
-            pred = resize_bilinear_align_corners(pred, H, W)
-        else:
-            pred = resize_bilinear_align_corners(pred, H, W)
-            pred = torch.where(torch.isinf(pred), config.max_depth_eval, pred)
-            pred = torch.where(torch.isnan(pred), config.min_depth_eval, pred)
-            pred = torch.clamp(pred, config.min_depth_eval, config.max_depth_eval)
-        return pred, prob
+        return eval_prediction(model, config, geoms, protocol, eval_batch_image(batch),
+                               batch["hist_data"], batch["mask"], compute_dtype)
 
     return eval_step
 

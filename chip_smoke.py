@@ -139,6 +139,22 @@ line:
     the remat step bit for bit the plain one under deterministic
     algorithms; a planted NaN under ``--debug_nans`` raising
     ``FloatingPointError``.
+15. serving (``serving_phase``, run after phase 12): the production model on
+    the deterministic weights exported (``cfpnet_torch/serve``) in bf16 at
+    bs 1 and 8 and in f32 at bs 1 into a temporary directory, each reloaded
+    by a fresh ``ServingModel``: each program calls the custom ops
+    ``cfpnet::linear_attention`` / ``dwconv2d`` / ``fused_loftr`` 6 / 6 / 18
+    times; one eager call of its module (launch counters set to 0 just
+    before, read just after) launches 6 / 6 / 18 kernels on its dtype; a
+    profiled replay of the bs=1 serving graph runs the kernels' device
+    functions (``SERVING_DEVICE_KERNELS``); ``predict`` equals the live eval
+    step bit for bit at bs=1 and bs=8; the bs=1 program holds the golden
+    (``serving_golden``: f32 at its tolerance, bf16 within ``BF16_DRIFT``);
+    3 rows padded into the bs=8 program equal the live padded step and, in
+    tolerance, their own bs=1 predictions. Prints export seconds and bytes,
+    the serving replay's ms against the live graph's in each dtype, bs=8
+    images/s, and one HTTP run (8 clients x 16 bs=1 requests, 2 ms window:
+    requests/s, p50/p99 ms, batches and rows).
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -148,7 +164,8 @@ backward: ``backward_ms_train``, ``grad_max_rel_err_train``, for dwconv
 ``dx_ms_train``, ``dw_library_ms_train``; and its launches in one train
 step, ``launches_train_step``; and in the loop phase's uninterrupted run,
 ``launches_loop``; in phase 14's bf16 ``--device_pipeline`` run,
-``launches_device_pipeline_loop``; from the bf16 phase, per bs=1 forward, ``card_ms_bf16``,
+``launches_device_pipeline_loop``; in phase 15's eager call of each bs=1
+serving program, ``launches_serving`` by dtype; from the bf16 phase, per bs=1 forward, ``card_ms_bf16``,
 ``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
 dense bf16 tensor-core rate for the fused layer's bf16 products),
 ``library_ms_bf16`` (dwconv: cuDNN in bf16; else null), ``bound_by_bf16``,
@@ -2161,6 +2178,309 @@ def sweep_phase(work: str):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 15: serving
+SERVING_ARTIFACTS = (("bfloat16", (1, 8)), ("float32", (1,)))
+SERVING_OPS = {"cfpnet::linear_attention": 6, "cfpnet::dwconv2d": 6, "cfpnet::fused_loftr": 18}
+# device kernels of one replay of the bs=1 serving graph, by name
+SERVING_DEVICE_KERNELS = {"attention_sum_kernel": 6, "attention_apply_kernel": 6,
+                          "dwconv_kernel": 6, "summary_kernel": 18, "rows_kernel": 18}
+SERVING_ITERS = 200  # replays timed for each graph (K = 50 a repetition)
+HTTP_CLIENTS = 8
+HTTP_REQUESTS = 16  # bs=1 requests a client
+
+
+def quantize(image: np.ndarray) -> np.ndarray:
+    """A normalized f32 image as the uint8 image nearest it, as
+    ``evaluate_all.artifact_eval_steps`` quantizes one at the serving
+    boundary."""
+    from cfpnet_torch.data.datasets import IMAGENET_MEAN, IMAGENET_STD
+
+    return np.clip(np.round((image * IMAGENET_STD + IMAGENET_MEAN) * 255.0), 0,
+                   255).astype(np.uint8)
+
+
+def normalized_image_node(gm):
+    """The node of an exported serving graph that holds the normalized f32
+    image: ``image_u8`` -> to(f32) -> / 255 -> - mean -> / std
+    (``train/steps.py::normalize_image_u8``)."""
+    node = next(n for n in gm.graph.nodes if n.op == "placeholder" and n.name == "image_u8")
+    for want in ("aten.to.dtype", "aten.div.Tensor", "aten.sub.Tensor", "aten.div.Tensor"):
+        node = next(u for u in node.users if str(u.target) == want)
+    return node
+
+
+def artifact_on_float_image(gm, image: torch.Tensor, hist: torch.Tensor, mask: torch.Tensor):
+    """The half-resolution prediction [h, w] (float64, on the host) of an
+    exported bs=1 serving graph run on a normalized f32 image that no uint8
+    image gives: the graph runs node by node (``torch.fx.Interpreter``) with
+    its normalized-image node (``normalized_image_node``) replaced by
+    ``image``, and the model's prediction is recovered from the graph's
+    output, its align-corners upsample to the input size, by least squares
+    through the two interpolation matrices (both of full column rank). The
+    graph's clamp to the eval bounds must not have acted."""
+    from cfpnet_torch.ops.interp import _interp_matrix
+
+    node = normalized_image_node(gm)
+
+    class Substituted(torch.fx.Interpreter):
+        def run_node(self, n):
+            return image if n is node else super().run_node(n)
+
+    placeholder = torch.zeros(image.shape, dtype=torch.uint8, device=image.device)
+    with torch.no_grad():
+        out = Substituted(gm).run(placeholder, hist, mask)
+    depth = (out[0] if isinstance(out, (tuple, list)) else out)[0].double().cpu().numpy()
+    H, W = depth.shape
+    h, w = H // 2, W // 2
+    mh, mw = _interp_matrix(h, H), _interp_matrix(w, W)
+    return np.linalg.pinv(mh) @ depth @ np.linalg.pinv(mw).T
+
+
+def serving_golden(gm, args, dtype: str):
+    """The golden of the bs=1 forward (``tests/golden/full_forward.npz``)
+    held by an exported serving graph on the golden's own inputs
+    (``artifact_on_float_image``): in float32 its every-16th-pixel slice and
+    mean within the golden's tolerance (rtol 5e-4, atol 5e-5), in bfloat16
+    within ``BF16_DRIFT`` of the f32 golden (``bf16_drift``)."""
+    img, hist, mask = args
+    pred = artifact_on_float_image(gm, img, hist, mask)
+    if dtype == "bfloat16":
+        return bf16_drift(torch.from_numpy(pred)[None, :, :, None])
+    ref = np.load(GOLDEN_FULL)
+    got = dict(pred_slice=pred[::16, ::16], pred_mean=np.asarray([pred.mean()]))
+    diffs = {}
+    for key, val in got.items():
+        np.testing.assert_allclose(val, ref[key], rtol=5e-4, atol=5e-5,
+                                   err_msg=f"serving artifact against the golden in {key}")
+        diffs[key] = float(np.abs(val - ref[key]).max())
+    return dict(max_abs_diff=diffs)
+
+
+def replay_device_kernels(replay, attempts: int = 5):
+    """The ported kernels' device launches in one ``replay()`` by name
+    (``SERVING_DEVICE_KERNELS``' keys, matched as substrings), from
+    torch.profiler; a session that records another count is run again, up
+    to ``attempts`` times (a session now and then records no device event,
+    ``kernel_split``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    replay()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        counts = {k: 0 for k in SERVING_DEVICE_KERNELS}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for k in counts:
+                    if k in e.key:
+                        counts[k] += e.count
+        if counts == SERVING_DEVICE_KERNELS:
+            break
+    return counts
+
+
+def same_prediction(got: np.ndarray, want: np.ndarray, what: str):
+    """Raises unless two predictions are equal bit for bit, naming the gap."""
+    if not np.array_equal(got, want):
+        gap = np.abs(got.astype(np.float64) - want)
+        raise AssertionError(f"{what}: max abs {gap.max()}, max rel "
+                             f"{(gap / np.maximum(np.abs(want), 1e-30)).max()}")
+
+
+def http_run(dst: str, image: np.ndarray, hist: np.ndarray, mask: np.ndarray):
+    """``cfpnet_torch.serve.http`` on 127.0.0.1 at a free port over the
+    artifact ``dst`` with a 2 ms micro-batching window: ``HTTP_CLIENTS``
+    concurrent clients, each sending ``HTTP_REQUESTS`` bs=1 requests one
+    after the other. Every request must be answered with a finite [1, H, W]
+    depth. Returns requests/s over the run, the p50 and p99 of the
+    requests' ms, and the micro-batcher's batches and rows."""
+    import io
+    import threading
+    import urllib.request
+
+    from cfpnet_torch.serve import http
+
+    server = http.make_server(dst, port=0, batch_wait_ms=2.0, device="cuda", host="127.0.0.1")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    latencies, failures = [], []
+    try:
+        def client(c):
+            buf = io.BytesIO()
+            np.savez(buf, image_u8=image[c % len(image)][None], hist=hist[c % len(hist)][None],
+                     mask=mask[c % len(mask)][None])
+            body = buf.getvalue()
+            for _ in range(HTTP_REQUESTS):
+                t = time.perf_counter()
+                try:
+                    req = urllib.request.Request(url, data=body, method="POST")
+                    with np.load(io.BytesIO(urllib.request.urlopen(req, timeout=120).read())) as z:
+                        depth = z["depth"]
+                    if depth.shape != (1,) + image.shape[1:3] or not np.isfinite(depth).all():
+                        failures.append(f"client {c}: depth {depth.shape}")
+                except Exception as e:  # every failure is reported below
+                    failures.append(f"client {c}: {e!r}")
+                latencies.append((time.perf_counter() - t) * 1e3)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        seconds = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("HTTP: a client did not finish in 300 s")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+    n = HTTP_CLIENTS * HTTP_REQUESTS
+    if failures or len(latencies) != n:
+        raise AssertionError(f"HTTP: {len(latencies)} of {n} requests, failures {failures[:5]}")
+    return dict(clients=HTTP_CLIENTS, requests=n, seconds=seconds, requests_a_s=n / seconds,
+                p50_ms=float(np.percentile(latencies, 50)),
+                p99_ms=float(np.percentile(latencies, 99)),
+                batches_run=server.batcher.batches_run, rows_run=server.batcher.rows_run,
+                batch_wait_ms=2.0)
+
+
+def serving_phase(config, geoms, args):
+    """Phase 15: serving (``cfpnet_torch/serve``) on the card, the
+    production model on the deterministic weights exported into a
+    temporary directory (removed after): bs 1 and 8 in bf16 (the headline
+    dtype) and bs 1 in f32, each reloaded by a fresh ``ServingModel``.
+
+    - graph: each program calls the three custom ops 6 / 6 / 18 times;
+    - eager launches: one eager call of each program's module, the launch
+      counters set to 0 just before and read just after, launches 6 / 6 /
+      18 kernels, all on the artifact's dtype;
+    - the replayed graph: a profiled replay of the bs=1 serving graph runs
+      the kernels' device functions at ``SERVING_DEVICE_KERNELS``' counts;
+    - agreement: ``predict`` at bs=1 (the golden's inputs, the image
+      quantized) and bs=8 (8 synthetic images, quantized) equals the live
+      eval step (``make_eval_step`` on the model cast to the dtype) bit for
+      bit, or the phase fails, naming the gap;
+    - the golden: ``serving_golden`` on the bs=1 program;
+    - padding: ``predict`` of 3 rows, which runs them padded in the bs=8
+      program, equals the live bs=8 step on that padded batch bit for bit,
+      and each row's own bs=1 ``predict`` within the golden's tolerance in
+      f32 or ``BF16_DRIFT`` in bf16 (batch sizes change the sums);
+    - times: export seconds and artifact bytes for each (bs, dtype); the
+      bs=1 serving replay against the live ``CapturedForward`` replay in
+      each dtype (``replay_latency_ms``, ``SERVING_ITERS``); bs=8 images/s;
+      and one HTTP run (``http_run``) over the bf16 artifact."""
+    import copy
+    import shutil
+    import tempfile
+
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.data.datasets import SyntheticDataset, collate
+    from cfpnet_torch.evaluate_time import replay_latency_ms
+    from cfpnet_torch.graphs import CapturedForward
+    from cfpnet_torch.models.deltar import cast_to_compute_dtype, make_model
+    from cfpnet_torch.serve.export import ServingModel, custom_op_calls, export_serving_artifact
+    from cfpnet_torch.train.steps import make_eval_step
+
+    t_phase = time.perf_counter()
+    sd = weights.deterministic_state_dict(config)
+    img, hist, mask = args
+    one = (quantize(img.cpu().numpy()), hist.cpu().numpy(), mask.cpu().numpy())
+    samples = SyntheticDataset(config, "online_eval", 8)
+    batch = collate([samples[i] for i in range(8)])
+    eight = (quantize(batch["image"]), batch["hist_data"], batch["mask"])
+    three = tuple(a[:3] for a in eight)
+    padded = tuple(np.concatenate([a[:3], np.zeros((5,) + a.shape[1:], a.dtype)]) for a in eight)
+    live32 = make_model(config, device="cuda")
+    live32.load_state_dict(sd, strict=True)
+
+    def live_step(dtype):
+        model = live32 if dtype == torch.float32 else cast_to_compute_dtype(
+            copy.deepcopy(live32), dtype)
+        return model, make_eval_step(model, config, geoms, protocol="validate",
+                                     compute_dtype=dtype)
+
+    def as_batch(arrays):
+        return {k: torch.from_numpy(a).cuda() for k, a in zip(("image_u8", "hist_data", "mask"),
+                                                             arrays)}
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    out = dict(phase="serving", artifacts={})
+    try:
+        for dtype_name_, sizes in SERVING_ARTIFACTS:
+            dtype = getattr(torch, dtype_name_)
+            dst = os.path.join(work, dtype_name_)
+            t0 = time.perf_counter()
+            export_serving_artifact(config, sd, dst, batch_sizes=sizes, compute_dtype=dtype_name_,
+                                    device="cuda")
+            export_s = time.perf_counter() - t0
+            m = ServingModel(dst, "cuda")
+            model, step = live_step(dtype)
+            rec = dict(export_s=export_s, bytes={
+                str(bs): os.path.getsize(os.path.join(dst, m.manifest["files"][str(bs)]))
+                for bs in sizes}, per_batch_size={})
+            for bs in sizes:
+                inputs = one if bs == 1 else eight
+                calls = custom_op_calls(m.exported(bs))
+                if calls != SERVING_OPS:
+                    raise AssertionError(f"{dtype_name_} bs={bs} program calls {calls}")
+                tensors = tuple(torch.from_numpy(a).cuda() for a in inputs)
+                kernels.reset_launches()
+                with torch.no_grad():
+                    m.module(bs)(*tensors)
+                torch.cuda.synchronize()
+                by_dtype = launches_by_dtype()
+                want = {k: {dtype_name_: v} for k, v in EVAL_LAUNCHES.items()}
+                if by_dtype != want:
+                    raise AssertionError(f"{dtype_name_} bs={bs} module launched {by_dtype}")
+                got = m.predict(*inputs)
+                same_prediction(got, step(as_batch(inputs))[0][..., 0].cpu().numpy(),
+                                f"{dtype_name_} bs={bs} predict against the live eval step")
+                entry = dict(custom_op_calls=calls, eager_launches=by_dtype,
+                             predict_equals_live_step=True)
+                if bs == 1:
+                    entry["replay_device_kernels"] = replay_device_kernels(m.captured(1).replay)
+                    if entry["replay_device_kernels"] != SERVING_DEVICE_KERNELS:
+                        raise AssertionError(f"{dtype_name_} serving replay ran "
+                                             f"{entry['replay_device_kernels']}")
+                    entry["golden"] = serving_golden(m.module(1), args, dtype_name_)
+                    entry["serving_replay_ms"] = replay_latency_ms(m.captured(1), SERVING_ITERS, 50)
+                    live = CapturedForward(model, geoms, 1, config)
+                    live(img.to(dtype), hist.to(dtype), mask)
+                    entry["live_replay_ms"] = replay_latency_ms(live, SERVING_ITERS, 50)
+                    del live
+                else:
+                    entry["serving_replay_ms"] = replay_latency_ms(m.captured(bs), SERVING_ITERS,
+                                                                   50)
+                    entry["images_a_s"] = bs * 1000.0 / entry["serving_replay_ms"]
+                    got3 = m.predict(*three)
+                    same_prediction(got3, step(as_batch(padded))[0][..., 0].cpu().numpy()[:3],
+                                    f"{dtype_name_} 3 rows padded to bs=8 against the live step")
+                    rows = np.concatenate([m.predict(*(a[i:i + 1] for a in three))
+                                           for i in range(3)])
+                    gap = np.abs(got3.astype(np.float64) - rows)
+                    entry["padding"] = dict(
+                        equals_live_padded_step=True, max_abs_vs_bs1=float(gap.max()),
+                        max_rel_vs_bs1=float((gap / np.abs(rows)).max()),
+                        median_rel_vs_bs1=float(np.median(gap / (np.abs(rows) + 1e-2))))
+                    if dtype == torch.float32:
+                        np.testing.assert_allclose(got3, rows, rtol=5e-4, atol=5e-5)
+                    elif not (entry["padding"]["median_rel_vs_bs1"] < BF16_DRIFT["median_rel"]
+                              and np.median(gap) < BF16_DRIFT["median_abs"]):
+                        raise AssertionError(f"bf16 padded rows against bs=1: {entry['padding']}")
+                    entry["http"] = http_run(dst, *eight)
+                rec["per_batch_size"][str(bs)] = entry
+            out["artifacts"][dtype_name_] = rec
+            del m, model, step
+        kernels.reset_launches()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
@@ -2321,6 +2641,16 @@ def main() -> int:
 
     # 12. the epoch sweep over the loop's weights
     emit(sweep_phase(sweep_dir))
+
+    # 15. serving: the production model exported (bf16 bs 1 and 8, f32 bs 1),
+    # reloaded, its custom ops, launches, replayed kernels, agreement with the
+    # live eval step, golden, padding, times and one HTTP run
+    serving = serving_phase(config, geoms, args)
+    emit(serving)
+    for r in rows:
+        r["launches_serving"] = {
+            dt: a["per_batch_size"]["1"]["eager_launches"][r["name"]].get(dt, 0)
+            for dt, a in serving["artifacts"].items()}
 
     # 13. the headline benchmark at reduced iterations (its own JSON line),
     # with the root bench's train keys: the bf16 step's, the f32 step's

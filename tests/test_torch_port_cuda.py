@@ -411,6 +411,40 @@ def test_captured_forward_refuses(gen):
         CapturedForward(model.cpu(), geoms, 1, config)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serving_artifact_on_the_card(gen, dtype, tmp_path):
+    """The production-width model at 64x96 exported for the card at bs 1 and
+    2: each program calls the three custom ops 3 / 3 / 9 times, an eager
+    call of its module launches the kernels, and ``predict`` of 3 rows
+    (chunked 2 + 1, each replayed from a CUDA graph) equals the live eval
+    step at those batch sizes bit for bit."""
+    from cfpnet_torch import weights
+    from cfpnet_torch.models.deltar import cast_to_compute_dtype
+    from cfpnet_torch.serve.export import ServingModel, custom_op_calls, export_serving_artifact
+    from cfpnet_torch.train.steps import make_eval_step
+
+    config, model, geoms, inputs = _captured_model()
+    export_serving_artifact(config, weights.deterministic_state_dict(config), str(tmp_path),
+                            batch_sizes=(1, 2), compute_dtype=dtype, device="cuda")
+    m = ServingModel(str(tmp_path), "cuda")
+    image = (inputs[0][:3].clamp(-2, 2) * 60 + 128).to(torch.uint8)
+    hist, mask = inputs[1][:3], inputs[2][:3]
+    for bs in (1, 2):
+        assert custom_op_calls(m.exported(bs)) == {
+            "cfpnet::linear_attention": 3, "cfpnet::dwconv2d": 3, "cfpnet::fused_loftr": 9}
+        kernels.reset_launches()
+        with torch.no_grad():
+            m.module(bs)(image[:bs], hist[:bs], mask[:bs])
+        assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 3, 9)
+    got = m.predict(image.cpu().numpy(), hist.cpu().numpy(), mask.cpu().numpy())
+    cast_to_compute_dtype(model, getattr(torch, dtype))
+    step = make_eval_step(model, config, geoms, protocol="validate",
+                          compute_dtype=getattr(torch, dtype))
+    for rows in (slice(0, 2), slice(2, 3)):
+        want = step({"image_u8": image[rows], "hist_data": hist[rows], "mask": mask[rows]})[0]
+        assert (got[rows] == want[..., 0].cpu().numpy()).all()
+
+
 # bf16 variants: max |kernel - plain| <= 2^-7 max |plain|, one bf16 ulp at the
 # top of the range (kernel and plain version round at the same points; their
 # f32 sums run in another order, so a value near a rounding boundary may land

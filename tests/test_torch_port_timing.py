@@ -39,19 +39,22 @@ def _tiny_forward(cfg, model, batch=1):
                      torch.ones(batch, Z, dtype=torch.bool), model_geometries(cfg, "online_eval"))
 
 
-def test_interp_matrices_built_once_per_key(tiny_config):
+def test_interp_matrices_built_once_per_key(tiny_config, monkeypatch):
     """The first forward builds each resize matrix once; a second forward
     builds none (on the card each build is a copy from the host, which waits
     for the card)."""
     model = make_model(tiny_config, tiny=True, device="cpu")
-    interp._device_matrix.cache_clear()
+    calls, builds = [], []
+    device_matrix, interp_matrix = interp._device_matrix, interp._interp_matrix
+    monkeypatch.setattr(interp, "_device_matrix", lambda *a: calls.append(a) or device_matrix(*a))
+    monkeypatch.setattr(interp, "_interp_matrix", lambda *a: builds.append(a) or interp_matrix(*a))
+    monkeypatch.setattr(interp, "_DEVICE_MATRICES", {})
     _tiny_forward(tiny_config, model)
-    first = interp._device_matrix.cache_info()
-    assert first.misses == first.currsize > 0
+    first_calls, first_builds = len(calls), len(builds)
+    assert first_builds == len(interp._DEVICE_MATRICES) > 0
     _tiny_forward(tiny_config, model)
-    second = interp._device_matrix.cache_info()
-    assert second.misses == first.misses
-    assert second.hits == first.hits + (first.hits + first.misses)  # every call of the forward
+    assert len(builds) == first_builds
+    assert len(calls) == 2 * first_calls  # every call of the forward reads the cache
 
 
 @pytest.mark.parametrize("in_size,out_size", [(1, 5), (4, 1), (15, 30), (30, 60), (60, 120),
@@ -159,9 +162,10 @@ def test_evaluate_time_cli_eager_on_cpu(capsys):
 
 
 def test_evaluate_time_cli_refuses(capsys):
-    """A CUDA graph needs a card: no eager stand-in on the CPU; serving is
-    not ported."""
+    """A CUDA graph needs a card: no eager stand-in on the CPU; a serving
+    artifact that is not there is not timed (serving itself:
+    tests/test_torch_port_serving.py)."""
     with pytest.raises(ValueError, match="CUDA"):
         evaluate_time.main(TINY_ARGV)
-    with pytest.raises(NotImplementedError, match="§A item 10"):
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
         evaluate_time.main(TINY_ARGV + ["--eager", "--serving_artifact", "model.bin"])

@@ -425,23 +425,31 @@ def test_dwconv_gradient_only_what_is_asked():
 
 
 def test_attention_gradient_is_the_plain_versions(monkeypatch):
-    """The card's autograd.Function, with its launch replaced by the plain
-    version here: dq, dk and dv equal autograd of the plain version (the
-    backward recomputes it from the saved inputs) and jax.vjp of the JAX
-    package's linear attention, in float64."""
-    launched = []
+    """The gradient registered on the op ``cfpnet::linear_attention``, which
+    the card runs too (the op's CPU implementation is the plain version
+    here): dq, dk and dv equal autograd of the plain version (the backward
+    recomputes it from the saved inputs) and jax.vjp of the JAX package's
+    linear attention, in float64."""
+    backwards = []
+    backward = pt_la._backward
 
-    def launch(q, k, v, eps):
-        launched.append(q.shape)
-        return pt_attention_plain(q, k, v, eps=eps)
+    def recording(ctx, grad):
+        backwards.append(grad.shape)
+        return backward(ctx, grad)
 
-    monkeypatch.setattr(pt_la, "_launch", launch)
+    monkeypatch.setattr(pt_la, "_backward", recording)
+    pt_la.linear_attention_op.register_autograd(lambda ctx, g: pt_la._backward(ctx, g),
+                                                setup_context=pt_la._setup_context)
     rng = np.random.default_rng(2)
     q, k, v, g = (rng.standard_normal(s) for s in ((2, 9, 4, 8), (2, 13, 4, 8), (2, 13, 4, 8),
                                                    (2, 9, 4, 8)))
     ins = [t(a).requires_grad_() for a in (q, k, v)]
-    got = torch.autograd.grad(pt_la._LinearAttention.apply(*ins, 1e-6), ins, t(g))
-    assert launched == [(2, 9, 4, 8)]
+    try:
+        got = torch.autograd.grad(pt_la.linear_attention(*ins), ins, t(g))
+    finally:
+        pt_la.linear_attention_op.register_autograd(backward,
+                                                    setup_context=pt_la._setup_context)
+    assert backwards == [(2, 9, 4, 8)]
     ref = torch.autograd.grad(pt_attention_plain(*ins), ins, t(g))
     with enable_x64():
         _, vjp = jax.vjp(lambda a, b, c: jx_attention(a, b, c), *map(jnp.asarray, (q, k, v)))
