@@ -2,11 +2,11 @@
 
 Port of ``cfpnet_tpu/data/datasets.py`` (``normalize_image``,
 ``sample_image_f32``, ``NYUV2Dataset``, ``ZJUL5Dataset``,
-``SyntheticDataset``, ``finalize_sample``, ``make_dataset``) and of
+``SyntheticDataset``, ``finalize_sample``, ``SyntheticPairDataset``,
+``NYUPairDataset``, ``make_dataset``) and of
 ``cfpnet_tpu/data/pipeline.py::collate``. Every sample equals the JAX
 package's for the same files, config and generator: the same numpy and PIL
-calls in the same order. The self-supervised pair datasets are not ported
-(``make_dataset`` raises for ``--selfsup``).
+calls in the same order.
 
 Host-side decode and augmentation, as the reference pipelines:
 - NYU train (reference src/dataloader/nyu.py:91-198): border crop 16/12 px,
@@ -36,6 +36,13 @@ augmentation, normalization and the ToF simulation run on the device
 (``data/tof_sim_device.py``, applied by ``train/loop.py``).
 Zone geometry is static (see geometry.py) so no per-sample rect/patch_info
 tensors are shipped.
+
+Self-supervised pairs (``--selfsup``, train only) add image_raw and
+src_raw [H,W,3] f32 in 0..1 (the target and the source frame), zone_mu [Z]
+(the sensor's zone means, ``get_hist``'s first column) and K, K_inv
+[3,3]. As in the JAX package, their histograms and zone means stay at zone
+offset 0 under ``--train_zone_random_offset`` (the loader sets the pair
+set's ``zone_offset``, which no pair sample reads).
 """
 
 from __future__ import annotations
@@ -355,13 +362,98 @@ def finalize_sample(
     return out
 
 
+class SyntheticPairDataset:
+    """Synthetic video pairs: the source frame is the same scene under a
+    small camera shift, an image-plane roll of up to 4 px. Deterministic
+    per index."""
+
+    def __init__(self, config, mode: str = "train", length: int = 64):
+        if config.device_pipeline and mode == "train":
+            # the JAX pair set fails here with a KeyError: its base sample
+            # under --device_pipeline carries no normalized image
+            raise NotImplementedError(
+                "--selfsup with --device_pipeline on synthetic pairs: the pair samples are "
+                "made from the normalized image, which the device pipeline's raw samples do "
+                "not carry (the JAX package fails on it too); drop --device_pipeline")
+        self.base = SyntheticDataset(config, mode, length)
+        self.config = config
+        self.mode = mode
+        self.length = length
+        self.zone_offset = 0  # set by the loader, read by no sample
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx) -> Dict[str, np.ndarray]:
+        cfg = self.config
+        rng = np.random.default_rng(cfg.seed * 7 + idx)
+        s = self.base[idx]
+        img_raw = (s["image"] * IMAGENET_STD + IMAGENET_MEAN).astype(np.float32)
+        dy, dx = int(rng.integers(-4, 5)), int(rng.integers(-4, 5))
+        src_raw = np.roll(img_raw, (dy, dx), axis=(0, 1))
+        fx = float(NYU_K[0])
+        h, w = img_raw.shape[:2]
+        K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+        geom = geometry_for(cfg, self.mode)
+        fh, _, _ = tof_sim.get_hist(s["depth"][..., 0], geom, cfg.simu_max_distance)
+        s.update(image_raw=img_raw, src_raw=src_raw, zone_mu=fh[:, 0].astype(np.float32),
+                 K=K, K_inv=np.linalg.inv(K).astype(np.float32))
+        return s
+
+
+class NYUPairDataset(NYUV2Dataset):
+    """NYU video pairs: the source frame is the next sync frame of the same
+    scene directory, else the previous one, else the target itself. No
+    augmentation (the pair must stay geometrically consistent): both frames
+    and the depth are centre-cropped to the train size, and K is shifted by
+    the crop. ``--device_pipeline`` is ignored, as in the JAX package."""
+
+    def __getitem__(self, idx) -> Dict[str, np.ndarray]:
+        from PIL import Image
+
+        cfg = self.config
+        rgb_path, depth_path = self._paths(idx)
+        d = os.path.dirname(rgb_path)
+        num = int(os.path.basename(rgb_path)[4:].split(".")[0])
+        src_path = os.path.join(d, f"rgb_{num + 1:05d}.jpg")
+        if not os.path.exists(src_path):
+            src_path = os.path.join(d, f"rgb_{num - 1:05d}.jpg")
+        if not os.path.exists(src_path):
+            src_path = rgb_path
+
+        img = np.asarray(Image.open(rgb_path), np.float32) / 255.0
+        src = np.asarray(Image.open(src_path), np.float32) / 255.0
+        dep = np.asarray(Image.open(depth_path), np.float32) / 1000.0
+
+        h, w = cfg.image_size_for(self.mode)
+        y0 = (img.shape[0] - h) // 2
+        x0 = (img.shape[1] - w) // 2
+        img = img[y0:y0 + h, x0:x0 + w]
+        src = src[y0:y0 + h, x0:x0 + w]
+        dep = dep[y0:y0 + h, x0:x0 + w]
+
+        s = finalize_sample(img, dep, self.focal, cfg, self.mode, self.rng)
+        geom = geometry_for(cfg, self.mode)
+        fh, _, _ = tof_sim.get_hist(dep, geom, cfg.simu_max_distance)
+        fx, fy, cx, cy = NYU_K
+        K = np.array([[fx, 0, cx - x0], [0, fy, cy - y0], [0, 0, 1]], np.float32)
+        s.update(image_raw=img.astype(np.float32), src_raw=src.astype(np.float32),
+                 zone_mu=fh[:, 0].astype(np.float32), K=K,
+                 K_inv=np.linalg.inv(K).astype(np.float32))
+        return s
+
+
 def make_dataset(config, mode: str):
     """The dataset that ``config`` names for ``mode`` (``--dataset`` for
-    train, ``--dataset_eval`` otherwise)."""
+    train, ``--dataset_eval`` otherwise); under ``--selfsup`` the train set
+    is the pair set of its name."""
     name = config.dataset if mode == "train" else config.dataset_eval
     if config.selfsup and mode == "train":
-        raise NotImplementedError("--selfsup: the self-supervised pair datasets are not "
-                                  "ported yet (ROADMAP.md §A 11)")
+        if name == "nyu":
+            return NYUPairDataset(config, mode)
+        if name == "synthetic":
+            return SyntheticPairDataset(config, mode)
+        raise NotImplementedError(f"self-sup dataset '{name}'")
     if name == "nyu":
         return NYUV2Dataset(config, mode)
     if name in ("zjuL5", "zju", "ZJUL5"):

@@ -39,9 +39,9 @@ def _same_pad(i: int, k: int, s: int) -> Tuple[int, int]:
 class Conv2dSame(nn.Conv2d):
     """Conv2d with TF-style asymmetric SAME padding."""
 
-    def __init__(self, in_chs, out_chs, kernel_size, stride=1, groups=1):
+    def __init__(self, in_chs, out_chs, kernel_size, stride=1, groups=1, bias=False):
         super().__init__(in_chs, out_chs, kernel_size, stride=stride, padding=0,
-                         groups=groups, bias=False)
+                         groups=groups, bias=bias)
 
     def forward(self, x):
         pt, pb = _same_pad(x.shape[-2], self.kernel_size[0], self.stride[0])

@@ -26,12 +26,19 @@ recomputes the image encoder's activations in the backward
 anomaly mode and checks each step's loss (``train/loop.py``), as the root
 ``train.py`` turns on ``jax_debug_nans``.
 
+``--selfsup`` runs the self-supervised variant instead,
+``train/selfsup.py::run_selfsup_training`` (as the root ``train.py``
+does): video pairs (``--dataset synthetic`` or ``nyu``), depth and pose
+trained jointly, a ``selfsup_val`` line an epoch in
+``{save_dir}/selfsup_log.jsonl`` and the depth weights in
+``weights/{name}/``.
+
 Refused with ``NotImplementedError``, each naming its ROADMAP.md item:
-``--selfsup``, ``--multihost`` and ``--spatial_shards > 1``; and, as the
-JAX loop refuses it, ``--train_zone_random_offset`` with
-``--device_pipeline``. ``--use_pallas`` and
-``--safe_dw_vjp`` are accepted and change nothing: the port always runs its
-CUDA kernels on the card, and its gradients need no partitioner workaround.
+``--multihost`` and ``--spatial_shards > 1``; and, as the JAX loop
+refuses it, ``--train_zone_random_offset`` with ``--device_pipeline``.
+``--use_pallas`` and ``--safe_dw_vjp`` are accepted and change nothing: the
+port always runs its CUDA kernels on the card, and its gradients need no
+partitioner workaround.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 
 from ..config import parse_config
 from .loop import run_training
+from .selfsup import run_selfsup_training
 
 
 def set_seeds(seed: int) -> None:
@@ -82,6 +90,8 @@ def main(argv: Optional[List[str]] = None):
         torch.backends.cudnn.allow_tf32 = False
     # anomaly mode for the run under --debug_nans, the previous mode after it
     with torch.autograd.set_detect_anomaly(bool(config.debug_nans)):
+        if config.selfsup:
+            return run_selfsup_training(config, device=device)
         return run_training(config, device=device)
 
 

@@ -216,19 +216,21 @@ def debug_nans_step(train_step):
     host after the step and ``FloatingPointError`` naming the step (the
     optimizer's count before it) where it is not finite; anomaly mode's
     error on a NaN in the backward raised as ``FloatingPointError`` naming
-    the step."""
+    the step. A step that returns a dict of terms
+    (``train/selfsup.py``) is checked on its ``loss``."""
 
     def checked(state, batch, seed):
         step = state.step
         try:
-            loss = train_step(state, batch, seed)
+            out = train_step(state, batch, seed)
         except RuntimeError as e:
             if "nan" not in str(e).lower():
                 raise
             raise FloatingPointError(f"--debug_nans: step {step}: {e}") from e
+        loss = out["loss"] if isinstance(out, dict) else out
         if not bool(torch.isfinite(loss)):
             raise FloatingPointError(f"--debug_nans: step {step}: the loss is {float(loss)}")
-        return loss
+        return out
 
     return checked
 

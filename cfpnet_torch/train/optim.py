@@ -86,8 +86,19 @@ def onecycle_schedules(max_lr: float, total_steps: int, div_factor: float = 25.0
 def param_group_labels(names: Iterable[str], hist_encoder_10x: bool = True) -> Dict[str, str]:
     """'backbone' (lr/10) or 'rest' (lr) for each parameter name, by its
     top-level module (reference deltar.py:68-82): ``img_encoder`` is always
-    slow; ``hist_encoder`` is slow unless ``hist_encoder_10x``."""
+    slow; ``hist_encoder`` is slow unless ``hist_encoder_10x``.
+
+    The self-supervised variant's joint model (``train/selfsup.py``, names
+    ``depth.*`` and ``pose.*``) is labelled as the JAX package labels its
+    ``{"depth", "pose"}`` tree: the depth model's names by their module
+    below ``depth.``, every PoseNet parameter 'rest'."""
+    names = list(names)
     slow = {"img_encoder"} if hist_encoder_10x else {"img_encoder", "hist_encoder"}
+    if {n.split(".", 1)[0] for n in names} == {"depth", "pose"}:
+        depth = param_group_labels([n[len("depth."):] for n in names if n.startswith("depth.")],
+                                   hist_encoder_10x)
+        return {n: depth[n[len("depth."):]] if n.startswith("depth.") else "rest"
+                for n in names}
     return {n: "backbone" if n.split(".", 1)[0] in slow else "rest" for n in names}
 
 

@@ -13,6 +13,12 @@ reference torch graph's, so
 - ``flax_param_spec(config)`` lists every flax leaf (collection, path,
   shape in flax layout) of the model, without JAX, so that weights defined
   on flax paths can be rebuilt here (``deterministic_state_dict``);
+- ``posenet_name_map``, ``posenet_from_flax`` and ``posenet_param_spec``
+  do the same for the self-supervised variant's ``PoseNet``, and
+  ``selfsup_from_flax`` / ``deterministic_selfsup_state_dict`` for the
+  joint ``{"depth": ..., "pose": ...}`` tree of
+  ``cfpnet_tpu/train/selfsup.py::create_selfsup_state``, whose port is
+  ``train/selfsup.py::SelfSupModel`` (keys ``depth.*`` and ``pose.*``);
 - ``load_reference_checkpoint`` reads a reference-trained ``Deltar``
   checkpoint: ``module.`` prefixes, the reference's dead parameters and BN
   ``num_batches_tracked`` counters are dropped, the rest loads as is.
@@ -32,6 +38,7 @@ import torch
 
 from .models.deltar import make_model
 from .models.efficientnetv2 import V2_B3_STAGES, V2_TINY_STAGES
+from .models.posenet import WIDTHS as POSENET_WIDTHS
 from .ops.loftr import LoFTRParams
 
 # kind: "conv" | "dwconv" | "dense" | "conv1d" | "raw" | ("pos", h, w)
@@ -224,20 +231,7 @@ def from_flax(params, batch_stats, config) -> Dict[str, torch.Tensor]:
     """Flax ``params`` / ``batch_stats`` trees (nested dicts of arrays) ->
     the port's state_dict. Paths absent from the trees are skipped, so any
     backbone depth (full or tiny) maps with the same table."""
-    trees = {"params": params, "batch_stats": batch_stats or {}}
-    out = {}
-    for tkey, (fpath, kind, col) in name_map(config).items():
-        node = trees[col]
-        for p in fpath:
-            if not isinstance(node, dict) or p not in node:
-                node = None
-                break
-            node = node[p]
-        if node is None:
-            continue
-        out[tkey] = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(np.asarray(node),
-                                                                           kind)))
-    return out
+    return _from_table(name_map(config), {"params": params, "batch_stats": batch_stats or {}})
 
 
 def flax_param_spec(config, tiny: bool = False) -> List[Tuple[str, Tuple[str, ...],
@@ -279,6 +273,78 @@ def deterministic_state_dict(config, tiny: bool = False) -> Dict[str, torch.Tens
             node = node.setdefault(p, {})
         node[fpath[-1]] = det_leaf("/".join((col,) + fpath), shape)
     return from_flax(trees["params"], trees["batch_stats"], config)
+
+
+def posenet_name_map() -> Dict[str, Entry]:
+    """``models/posenet.py::PoseNet`` key -> (flax path, layout kind,
+    collection) of ``cfpnet_tpu/models/posenet.py::PoseNet``: conv HWIO ->
+    OIHW, the Dense head [256, 6] -> ``Linear.weight`` [6, 256]."""
+    out: Dict[str, Entry] = {}
+    for i in range(len(POSENET_WIDTHS)):
+        out[f"conv{i}.weight"] = ((f"conv{i}", "kernel"), "conv", "params")
+        out[f"conv{i}.bias"] = ((f"conv{i}", "bias"), "raw", "params")
+    out["pose_head.weight"] = (("pose_head", "kernel"), "dense", "params")
+    out["pose_head.bias"] = (("pose_head", "bias"), "raw", "params")
+    return out
+
+
+def _from_table(table, trees) -> Dict[str, torch.Tensor]:
+    out = {}
+    for tkey, (fpath, kind, col) in table.items():
+        node = trees[col]
+        for p in fpath:
+            if not isinstance(node, dict) or p not in node:
+                node = None
+                break
+            node = node[p]
+        if node is None:
+            continue
+        out[tkey] = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(np.asarray(node),
+                                                                           kind)))
+    return out
+
+
+def posenet_from_flax(params) -> Dict[str, torch.Tensor]:
+    """A flax ``PoseNet`` ``params`` tree of numpy arrays -> the port
+    PoseNet's state_dict."""
+    return _from_table(posenet_name_map(), {"params": params})
+
+
+def posenet_param_spec() -> List[Tuple[str, Tuple[str, ...], Tuple[int, ...]]]:
+    """Every flax leaf of ``PoseNet`` as (collection, path, shape in flax
+    layout), without JAX."""
+    spec, c = [], 6
+    for i, w in enumerate(POSENET_WIDTHS):
+        spec += [("params", (f"conv{i}", "kernel"), (3, 3, c, w)),
+                 ("params", (f"conv{i}", "bias"), (w,))]
+        c = w
+    return spec + [("params", ("pose_head", "kernel"), (c, 6)),
+                   ("params", ("pose_head", "bias"), (6,))]
+
+
+def selfsup_from_flax(params, batch_stats, config) -> Dict[str, torch.Tensor]:
+    """The joint tree of ``create_selfsup_state`` (``params`` =
+    ``{"depth": <model tree>, "pose": <PoseNet tree>}``, ``batch_stats`` the
+    depth model's) -> the state_dict of ``train/selfsup.py::SelfSupModel``.
+    A tree without one of the two halves maps the other alone (a gradient
+    tree without statistics, for instance)."""
+    out = {"depth." + k: v for k, v in from_flax(params.get("depth", {}), batch_stats,
+                                                  config).items()}
+    out.update({"pose." + k: v for k, v in posenet_from_flax(params.get("pose", {})).items()})
+    return out
+
+
+def deterministic_selfsup_state_dict(config, tiny: bool = False) -> Dict[str, torch.Tensor]:
+    """``SelfSupModel``'s state_dict filled by ``det_leaf``: the depth
+    model's as ``deterministic_state_dict``, the PoseNet's on the flax paths
+    ``params/pose/...``."""
+    pose = {}
+    for col, fpath, shape in posenet_param_spec():
+        pose.setdefault(fpath[0], {})[fpath[1]] = det_leaf(
+            "/".join((col, "pose") + fpath), shape)
+    out = {"depth." + k: v for k, v in deterministic_state_dict(config, tiny).items()}
+    out.update({"pose." + k: v for k, v in posenet_from_flax(pose).items()})
+    return out
 
 
 def _dead(key: str) -> bool:

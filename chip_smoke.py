@@ -155,6 +155,21 @@ line:
     the serving replay's ms against the live graph's in each dtype, bs=8
     images/s, and one HTTP run (8 clients x 16 bs=1 requests, 2 ms window:
     requests/s, p50/p99 ms, batches and rows).
+16. selfsup (``selfsup_phase``, run after phase 15): the self-supervised
+    variant (``--selfsup``, ``cfpnet_torch/train/selfsup.py``) on the
+    production model. One step at bs 2 (``golden_selfsup_batch``, the
+    deterministic depth and pose weights) against the JAX package's step in
+    ``tests/golden/torch_port_selfsup_step.npz`` (the four loss terms and
+    ``golden_errors``' classes, PoseNet's as ``pose``; within
+    ``SELFSUP_GOLDEN_TOL``), launching 6 attention, 6 + 6 dwconv and 18
+    fused-LoFTR kernels; the bs-16 step on synthetic pairs
+    (``selfsup_step_check``): finite terms, the launch counts of one step
+    (6 / 12 / 18, all float32), ms a step and images/s, peak memory, one
+    profiled step by kind and beside it the objective alone (PoseNet, warp,
+    SSIM, smoothness and zone terms, forward and backward); and one epoch
+    of ``run_selfsup_training`` (``selfsup_loop_check``: 2 steps, 16
+    validation images, the ``selfsup_val`` line, the ``best`` depth weights
+    loaded back bit for bit, the run's launches).
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -165,7 +180,9 @@ backward: ``backward_ms_train``, ``grad_max_rel_err_train``, for dwconv
 step, ``launches_train_step``; and in the loop phase's uninterrupted run,
 ``launches_loop``; in phase 14's bf16 ``--device_pipeline`` run,
 ``launches_device_pipeline_loop``; in phase 15's eager call of each bs=1
-serving program, ``launches_serving`` by dtype; from the bf16 phase, per bs=1 forward, ``card_ms_bf16``,
+serving program, ``launches_serving`` by dtype; in phase 16's bs-16
+self-supervised step, ``launches_selfsup_step``; from the bf16 phase, per
+bs=1 forward, ``card_ms_bf16``,
 ``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
 dense bf16 tensor-core rate for the fused layer's bf16 products),
 ``library_ms_bf16`` (dwconv: cuDNN in bf16; else null), ``bound_by_bf16``,
@@ -205,6 +222,10 @@ GOLDEN_TRAIN = os.path.join(ROOT, "tests", "golden", "torch_port_train_step.npz"
 GOLDEN_TRAIN_BS = 2
 GOLDEN_TRAIN_SEED = 5  # the step's seed: its crop offsets
 GOLDEN_TRAIN_TOTAL_STEPS = 1000  # the OneCycle length (the root timed_train_step's)
+# one self-supervised step of the JAX package (--selfsup) in float64 on the
+# CPU, the same shape, seed and OneCycle length, deterministic depth and pose
+# weights (tests/test_torch_port_selfsup.py::write_selfsup_golden)
+GOLDEN_SELFSUP = os.path.join(ROOT, "tests", "golden", "torch_port_selfsup_step.npz")
 # golden_errors' limits: 4 times the larger error of the same comparison on
 # the CPU in float32, the port's step and the JAX package's own float32 step
 # against the float64 golden (``python tests/test_torch_port_train.py
@@ -302,12 +323,13 @@ def bound_fields(nbytes: float, flops: float, peak_flops: float = PEAK_F32):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_split(fn, calls: int = 10, attempts: int = 5):
+def kernel_split(fn, calls: int = 10, attempts: int = 5, expect=()):
     """The device kernels of one ``fn()`` call by name: ``{name: {"launches":
     per call, "ms": device ms per call}}``, from torch.profiler (CUPTI) over
     ``calls`` back-to-back calls of ``fn``. A profiler session now and then
-    records no device event at all; such a session is run again, up to
-    ``attempts`` times."""
+    records no device event at all, or none of one of ``fn``'s kernels; such
+    a session (one without a kernel whose name holds each string of
+    ``expect``) is run again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -320,9 +342,10 @@ def kernel_split(fn, calls: int = 10, attempts: int = 5):
         split = {e.key: dict(launches=e.count / calls, ms=e.self_device_time_total / 1e3 / calls)
                  for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
-        if split:
+        if split and all(any(e in name for name in split) for e in expect):
             return split
-    raise AssertionError(f"the profiler saw no device kernel in {attempts} sessions")
+    raise AssertionError(f"the profiler saw no device kernel, or none of one of {list(expect)}, "
+                         f"in {attempts} sessions: {sorted(split)}")
 
 
 def pass_split(fn):
@@ -330,9 +353,9 @@ def pass_split(fn):
     (``summary_kernel``, ``rows_kernel``; ``bf16_...`` in bf16), by kernel
     name: the mean over the launches the profiler recorded, each call
     launching each pass once (a session now and then records only some of
-    its calls)."""
+    its calls, or none of one pass: ``kernel_split`` runs it again)."""
     split = dict(summary_ms=0.0, rows_ms=0.0)
-    for name, k in kernel_split(fn).items():
+    for name, k in kernel_split(fn, expect=("summary_kernel", "rows_kernel")).items():
         for key in split:
             if key.replace("_ms", "_kernel") in name:
                 split[key] += k["ms"] / k["launches"]
@@ -487,7 +510,8 @@ def check_kernels(config, geoms, batch: int = 1, full: bool = True, mode: str = 
             ms=device_ms(lambda: linear_attention.linear_attention(q, k, v)),
             **bound_fields(nbytes, flops))
         if full:
-            split = kernel_split(lambda: linear_attention.linear_attention(q, k, v))
+            split = kernel_split(lambda: linear_attention.linear_attention(q, k, v),
+                                 expect=("attention_sum_kernel", "attention_apply_kernel"))
             line.update(
                 device_kernels_a_call=sum(s["launches"] for s in split.values()),
                 device_kernels={name.replace("(anonymous namespace)::", "").split("(")[0]: s
@@ -795,33 +819,38 @@ def leaf_indices(n: int):
     return np.unique(np.linspace(0, n - 1, min(16, n)).round().astype(np.int64))
 
 
-def golden_record(model, loss):
+def golden_record(model, loss, prefix: str = ""):
     """What the golden keeps of a step just taken (``GOLDEN_TRAIN``'s keys):
     the loss; per parameter its gradient's sum and norm, its gradient and
     its value after the step at ``leaf_indices``; every BatchNorm running
-    statistic."""
+    statistic. ``prefix`` goes before each parameter's name."""
     rec = {"loss": float(loss)}
     for k, p in model.named_parameters():
         g = p.grad.detach().double().cpu().numpy().ravel()
         idx = leaf_indices(g.size)
+        k = prefix + k
         rec.update({"grad_sum:" + k: g.sum(), "grad_norm:" + k: np.linalg.norm(g),
                     "grad_at:" + k: g[idx],
                     "param_at:" + k: p.detach().double().cpu().numpy().ravel()[idx]})
     for k, v in model.state_dict().items():
         if k.endswith(("running_mean", "running_var")):
-            rec["stat:" + k] = v.double().cpu().numpy()
+            rec["stat:" + prefix + k] = v.double().cpu().numpy()
     return rec
 
 
-def golden_errors(got, ref):
+def golden_errors(got, ref, start=None, terms=("loss",)):
     """Errors of a step's record ``got`` against ``ref`` (both with the
     golden's keys), each the largest over the parameters of a class:
     ``head`` (``depth_head``, ``conv_out``: downstream of every
-    BatchNorm), ``trunk`` (the rest), and ``zero`` (those whose reference
+    BatchNorm), ``pose`` (the self-supervised variant's PoseNet, names
+    ``pose.*``), ``trunk`` (the rest), and ``zero`` (those whose reference
     gradient is zero in exact arithmetic, a norm below 1e-12 of the global
-    one: a conv bias before a train-mode BatchNorm):
+    one: a conv bias before a train-mode BatchNorm). ``start`` is the
+    state_dict the step started from by the record's names (default: the
+    deterministic weights of ``golden_train_config``):
 
-    - ``loss``: |loss - loss_ref| / |loss_ref|;
+    - each of ``terms`` (the loss, and the self-supervised step's loss
+      terms): |value - value_ref| / |value_ref|;
     - ``<class>_grad_norm``: a gradient's norm, relative;
     - ``<class>_grad_sum``: its sum, over its norm times sqrt(size) (the
       most the sum can be);
@@ -847,7 +876,8 @@ def golden_errors(got, ref):
     from cfpnet_torch.train.optim import LR_SCALE, onecycle_schedules, param_group_labels
 
     config = golden_train_config()
-    start = weights.deterministic_state_dict(config)
+    if start is None:
+        start = weights.deterministic_state_dict(config)
     names = [k.split(":", 1)[1] for k in ref.keys() if k.startswith("grad_norm:")]
     labels = param_group_labels(names, config.hist_encoder_10x)
     lr0 = onecycle_schedules(config.lr, GOLDEN_TRAIN_TOTAL_STEPS, config.div_factor,
@@ -863,7 +893,8 @@ def golden_errors(got, ref):
         if norm <= 1e-12 * global_norm:
             worst("zero_grad_norm", float(got["grad_norm:" + k]) / global_norm)
             continue
-        cls = "head" if k.startswith(("depth_head.", "conv_out.")) else "trunk"
+        cls = ("pose" if k.startswith("pose.") else
+               "head" if k.startswith(("depth_head.", "conv_out.")) else "trunk")
         rms = norm / np.sqrt(n)
         g_ref = ref["grad_at:" + k]
         worst(cls + "_grad_norm", abs(float(got["grad_norm:" + k]) - norm) / norm)
@@ -879,7 +910,7 @@ def golden_errors(got, ref):
         if k.startswith("stat:"):
             moved = np.abs(ref[k] - 0.9 * start[k[5:]].double().numpy()).max()
             worst("stat", np.abs(got[k] - ref[k]) / moved)
-    errs = dict(loss=abs(float(got["loss"]) - float(ref["loss"])) / abs(float(ref["loss"])))
+    errs = {t: abs(float(got[t]) - float(ref[t])) / abs(float(ref[t])) for t in terms}
     for key, parts in values.items():
         every = np.concatenate(parts)
         errs[key], errs[key + "_median"] = float(every.max()), float(np.median(every))
@@ -923,6 +954,107 @@ def train_golden_errors(device="cuda", compute_dtype="float32"):
     if next(pinned, None) is not None:
         raise AssertionError("the step drew fewer crop offsets than the golden holds")
     return golden_errors(golden_record(model, loss), ref), launches, float(loss)
+
+
+def golden_selfsup_config():
+    """The golden self-supervised step's configuration: the production model
+    at the train step's shape, bs ``GOLDEN_TRAIN_BS``, ``--selfsup``."""
+    return golden_train_config().replace(selfsup=True, dataset="synthetic")
+
+
+def golden_selfsup_batch(config):
+    """The golden self-supervised step's batch, numpy, from formulas (no
+    RNG): ``golden_train_batch``'s histograms and mask; a smooth textured
+    target frame in 0..1 (``image_raw``, normalized into ``image``); the
+    source frame, the target rolled by (2, -3) px; the synthetic pairs'
+    intrinsics (``data/datasets.py::SyntheticPairDataset``); zone means
+    1.1 times the zone means of ``golden_train_batch``'s depth."""
+    from cfpnet_torch.data.datasets import NYU_K, normalize_image
+    from cfpnet_torch.data.geometry import geometry_for
+
+    base = golden_train_batch(config)
+    B, h, w = config.bs, config.input_height, config.input_width
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    raw = np.stack([np.stack([0.5 + 0.2 * np.sin(yy / (9.0 + 2 * b + c))
+                              * np.cos(xx / (13.0 - b + 2 * c)) + 0.1 * np.sin((xx + yy) / 5.0)
+                              for c in range(3)], -1) for b in range(B)]).astype(np.float32)
+    fx = float(NYU_K[0])
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    g = geometry_for(config, "train")
+    zn, ph, pw = g.zone_num, g.patch_px_h, g.patch_px_w
+    region = base["depth"][:, g.sy_px:g.sy_px + zn * ph, g.sx_px:g.sx_px + zn * pw, 0]
+    zones = region.reshape(B, zn, ph, zn, pw).transpose(0, 1, 3, 2, 4).reshape(B, zn * zn, -1)
+    return dict(image=normalize_image(raw).astype(np.float32), image_raw=raw,
+                src_raw=np.roll(raw, (2, -3), axis=(1, 2)),
+                hist_data=base["hist_data"], mask=base["mask"],
+                zone_mu=(1.1 * zones.mean(-1)).astype(np.float32),
+                K=np.broadcast_to(K, (B, 3, 3)).copy(),
+                K_inv=np.broadcast_to(np.linalg.inv(K).astype(np.float32), (B, 3, 3)).copy())
+
+
+def selfsup_golden_record(joint, terms):
+    """``golden_record`` of a self-supervised step: the depth model's
+    entries under their own names, PoseNet's under ``pose.*``, and the four
+    loss terms."""
+    from cfpnet_torch.train.selfsup import LOSS_TERMS
+
+    rec = golden_record(joint.depth, terms["loss"])
+    rec.update(golden_record(joint.pose, terms["loss"], prefix="pose."))
+    rec.update({k: float(terms[k]) for k in LOSS_TERMS})
+    return rec
+
+
+def selfsup_golden_start(config):
+    """The deterministic joint weights by the record's names."""
+    from cfpnet_torch import weights
+
+    return {k[len("depth."):] if k.startswith("depth.") else k: v
+            for k, v in weights.deterministic_selfsup_state_dict(config).items()}
+
+
+def selfsup_golden_errors(device="cuda"):
+    """One step of the port's self-supervised step
+    (``train/selfsup.py``) on ``golden_selfsup_batch`` with the
+    deterministic depth and pose weights and the golden's crop offsets,
+    against ``GOLDEN_SELFSUP`` (``golden_errors`` with the four loss
+    terms). Returns (the errors, the launch counts of the step, the
+    terms)."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.data.geometry import geometry_for
+    from cfpnet_torch.models import fusion
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.models.posenet import PoseNet
+    from cfpnet_torch.train import selfsup
+
+    ref = np.load(GOLDEN_SELFSUP)
+    config = golden_selfsup_config()
+    model = make_model(config, device=device)
+    state = selfsup.create_selfsup_state(model, config, GOLDEN_TRAIN_TOTAL_STEPS,
+                                         PoseNet().to(device))
+    state.model.load_state_dict(weights.deterministic_selfsup_state_dict(config), strict=True)
+    step = selfsup.make_selfsup_train_step(state, config, model_geometries(config, "train"),
+                                           geometry_for(config, "train"))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in golden_selfsup_batch(config).items()}
+    offsets = [tuple(o) for o in ref["crop_offsets"].tolist()]
+    if offsets != golden_crop_offsets(config, GOLDEN_TRAIN_SEED):
+        print("chip_smoke: this torch's generator draws other crop offsets than the selfsup "
+              "golden's; the golden's are used", file=sys.stderr)
+    pinned = iter(offsets)
+    real = fusion.crop_offsets
+    fusion.crop_offsets = lambda *args: next(pinned)
+    try:
+        kernels.reset_launches()
+        terms = step(state, batch, GOLDEN_TRAIN_SEED)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+    finally:
+        fusion.crop_offsets = real
+    if next(pinned, None) is not None:
+        raise AssertionError("the selfsup step drew fewer crop offsets than the golden holds")
+    errs = golden_errors(selfsup_golden_record(state.model, terms), ref,
+                         selfsup_golden_start(config), terms=selfsup.LOSS_TERMS)
+    return errs, launches, {k: float(v) for k, v in terms.items()}
 
 
 def golden_diffs(bin_edges, pred):
@@ -2481,6 +2613,198 @@ def serving_phase(config, geoms, args):
     return out
 
 
+# phase 16: the self-supervised variant (--selfsup)
+# selfsup_golden_errors' limits, by TRAIN_GOLDEN_TOL's rule: 4 times the
+# larger error of the port's float32 step on the CPU and the JAX package's own
+# float32 step against the float64 golden (``python
+# tests/test_torch_port_selfsup.py --tolerance``). As in the supervised step,
+# the JAX package's own float32 trunk gradients are 17% off in norm; the loss
+# terms, the head, PoseNet and the running statistics hold to 1e-7..7e-3.
+# ``pose_grad_at_median`` is 0: more than half of PoseNet's sampled gradient
+# entries are exactly 0 in every dtype (ReLUs that are off).
+SELFSUP_GOLDEN_TOL = dict(
+    loss=1.4e-6, photometric=2.1e-5, smooth=8.4e-5, zone=1.4e-6, stat=0.0072,
+    stat_median=5.0e-6, zero_grad_norm=3.4e-7, zero_grad_norm_median=8.1e-11,
+    head_grad_norm=9.3e-5, head_grad_norm_median=4.1e-6, head_grad_sum=2.4e-6,
+    head_grad_sum_median=4.8e-7, head_grad_at=2.0e-4, head_grad_at_median=1.6e-6,
+    head_param_at=6.0e-4, head_param_at_median=8.8e-5, pose_grad_norm=1.9e-4,
+    pose_grad_norm_median=1.7e-4, pose_grad_sum=1.6e-4, pose_grad_sum_median=8.0e-6,
+    pose_grad_at=1.8e-3, pose_grad_at_median=0.0, pose_param_at=6.2e-4,
+    pose_param_at_median=1.1e-4, trunk_grad_norm=0.67, trunk_grad_norm_median=0.054,
+    trunk_grad_sum=0.13, trunk_grad_sum_median=0.0032, trunk_grad_at=2.8,
+    trunk_grad_at_median=0.18, trunk_param_at=0.36, trunk_param_at_median=0.005)
+SELFSUP_WARM_STEPS = 3  # bs-16 steps before the launch count and the timing
+SELFSUP_STEPS_TIMED = 10  # bs-16 steps between CUDA events, K = 5
+SELFSUP_LOOP_STEPS = 2  # run_selfsup_training's steps in its one epoch
+SELFSUP_EVAL_IMAGES = 16  # synthetic images of its validation
+
+
+def selfsup_config(tconfig):
+    """Phase 16's configuration: the production train step's (bs 16 at
+    416x544) with ``--selfsup`` on synthetic pairs, validated on synthetic
+    images."""
+    return tconfig.replace(selfsup=True, dataset="synthetic", dataset_eval="synthetic",
+                           synthetic_length=SELFSUP_EVAL_IMAGES, epochs=1, no_logging=False,
+                           name="chip_smoke_selfsup", save_dir="results/chip_smoke_selfsup")
+
+
+def selfsup_step_check(cfg, device="cuda"):
+    """The bs-16 self-supervised step on synthetic pairs
+    (``SyntheticPairDataset``) with the deterministic depth and pose
+    weights: ``SELFSUP_WARM_STEPS`` steps with finite terms; one step's
+    launches (counters set to 0 just before, read just after), which must
+    be 6 attention, 6 + 6 dwconv and 18 fused-LoFTR launches, all on
+    float32; ms a step (``SELFSUP_STEPS_TIMED`` steps between CUDA events)
+    and images/s; the peak of allocated memory; one profiled step by kind,
+    and beside it the objective on its own (``selfsup_terms``: PoseNet, the
+    warp, SSIM, the smoothness and zone terms, forward and backward, on a
+    fixed depth map), timed and profiled. ``device="cpu"`` runs the steps
+    alone (a dry run at a tiny size)."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.data.datasets import SyntheticPairDataset, collate
+    from cfpnet_torch.data.geometry import geometry_for
+    from cfpnet_torch.evaluate_time import train_latency_ms
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.models.posenet import PoseNet
+    from cfpnet_torch.train import selfsup
+
+    cuda = torch.device(device).type == "cuda"
+    model = make_model(cfg, device=device)
+    state = selfsup.create_selfsup_state(model, cfg, GOLDEN_TRAIN_TOTAL_STEPS,
+                                         PoseNet().to(device))
+    state.model.load_state_dict(weights.deterministic_selfsup_state_dict(cfg), strict=True)
+    pixel_geom = geometry_for(cfg, "train")
+    step = selfsup.make_selfsup_train_step(state, cfg, model_geometries(cfg, "train"),
+                                           pixel_geom)
+    pairs = SyntheticPairDataset(cfg, "train")
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in collate([pairs[i] for i in range(cfg.bs)]).items()}
+    seeds = iter(range(cfg.seed, cfg.seed + 10 ** 6))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    warm = [{k: float(v) for k, v in step(state, batch, next(seeds)).items()}
+            for _ in range(SELFSUP_WARM_STEPS)]
+    if not all(math.isfinite(v) for terms in warm for v in terms.values()):
+        raise AssertionError(f"selfsup terms of the warm steps: {warm}")
+    kernels.reset_launches()
+    step(state, batch, next(seeds))
+    if not cuda:
+        return dict(batch=cfg.bs, warm_terms=warm)
+    torch.cuda.synchronize()
+    launches, by_dtype = launch_counts(), launches_by_dtype()
+    if launches != TRAIN_LAUNCHES or any(d != {"float32": launches[k]}
+                                         for k, d in by_dtype.items()):
+        raise AssertionError(f"a selfsup step launched {by_dtype}, expected {TRAIN_LAUNCHES} "
+                             "on float32")
+    ms = train_latency_ms(lambda: step(state, batch, next(seeds))["loss"],
+                          SELFSUP_STEPS_TIMED, 5)
+    events = device_events(lambda: step(state, batch, next(seeds)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    depth_full = (1.0 + 3.0 * batch["image_raw"][..., :1]).requires_grad_()
+
+    def objective():
+        loss = selfsup.selfsup_terms(state.model.pose, cfg, pixel_geom, batch, depth_full)["loss"]
+        loss.backward()
+        return loss.detach()
+
+    objective_ms = train_latency_ms(objective, SELFSUP_STEPS_TIMED, 5)
+    objective_events = device_events(objective)
+    device_share = busy(objective_events, objective_ms)
+    return dict(batch=cfg.bs, size=[cfg.input_height, cfg.input_width], warm_terms=warm,
+                launches_a_step=launches, launches_by_dtype=by_dtype, ms_a_step=ms,
+                images_a_s=cfg.bs * 1000.0 / ms, steps_timed=SELFSUP_STEPS_TIMED,
+                max_memory_allocated_gib=peak, profiled_step=busy(events, ms),
+                profiled_step_by_kind=by_kind(events),
+                pose_warp_photometric=dict(
+                    what="selfsup_terms forward and backward on a fixed depth map: PoseNet, "
+                         "the warp, SSIM, smoothness and zone terms (inside the step above)",
+                    ms=objective_ms, device_ms=device_share.get("device_ms"),
+                    kernel_launches=device_share.get("kernel_launches"),
+                    by_kind=by_kind(objective_events)))
+
+
+def selfsup_loop_check(cfg, device="cuda"):
+    """``run_selfsup_training`` for one epoch of ``SELFSUP_LOOP_STEPS``
+    steps and a validation on ``SELFSUP_EVAL_IMAGES`` synthetic images, in
+    a temporary working directory: one ``selfsup_val`` line with finite
+    metrics; the epoch's and the ``best`` depth weights, ``best`` loaded
+    back into the eval model equal bit for bit to the trained depth model;
+    the run's launches (counters set to 0 just before, read just after):
+    the steps' and the validation forwards'."""
+    import shutil
+    import tempfile
+
+    from cfpnet_torch import kernels
+    from cfpnet_torch.models.deltar import make_model
+    from cfpnet_torch.train import checkpoint, selfsup
+
+    cuda = torch.device(device).type == "cuda"
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_selfsup_", dir=ROOT)
+    os.chdir(work)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state = selfsup.run_selfsup_training(cfg, max_steps_per_epoch=SELFSUP_LOOP_STEPS,
+                                             device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(os.path.join(cfg.save_dir, "selfsup_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        if ([x["kind"] for x in log] != ["selfsup_val"] or log[0]["step"] != SELFSUP_LOOP_STEPS
+                or not all(math.isfinite(log[0][k]) for k in EVAL_METRICS + ("loss",))):
+            raise AssertionError(f"selfsup log: {log}")
+        saved = sorted(os.listdir(f"weights/{cfg.name}"))
+        if len(saved) != 2 or saved[-1] != "best":
+            raise AssertionError(f"selfsup weights: {saved}")
+        eval_model = make_model(cfg, device=device)
+        eval_model.load_state_dict(checkpoint.load_weights(f"weights/{cfg.name}/best"),
+                                   strict=True)
+        trained = state.model.depth.state_dict()
+        differ = [k for k, v in eval_model.state_dict().items() if not torch.equal(v, trained[k])]
+        if differ:
+            raise AssertionError(f"best weights loaded back differ in {differ[:5]}")
+        if cuda:
+            want = {k: SELFSUP_LOOP_STEPS * TRAIN_LAUNCHES[k]
+                    + min(SELFSUP_EVAL_IMAGES, 64) * EVAL_LAUNCHES[k] for k in TRAIN_LAUNCHES}
+            if launches != want:
+                raise AssertionError(f"run_selfsup_training launched {launches}, expected {want}")
+        return dict(steps=SELFSUP_LOOP_STEPS, eval_images=min(SELFSUP_EVAL_IMAGES, 64),
+                    run_s=seconds, launches_run=launches, weights_files=saved,
+                    best_loaded_bit_equal=True,
+                    selfsup_val={k: log[0][k] for k in ("loss", "rmse", "a1", "abs_rel")})
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def selfsup_phase(tconfig):
+    """Phase 16: the self-supervised variant on the card. (a) one step at
+    bs 2 against the JAX package's float64 golden
+    (``selfsup_golden_errors``, within ``SELFSUP_GOLDEN_TOL``; 6 / 6 + 6 /
+    18 launches); (b) the bs-16 step on synthetic pairs
+    (``selfsup_step_check``); (c) a short ``run_selfsup_training``
+    (``selfsup_loop_check``)."""
+    t0 = time.perf_counter()
+    errs, golden_launches, terms = selfsup_golden_errors()
+    if golden_launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"the selfsup golden step launched {golden_launches}")
+    if set(errs) != set(SELFSUP_GOLDEN_TOL) or not all(
+            v <= SELFSUP_GOLDEN_TOL[k] for k, v in errs.items()):
+        raise AssertionError(f"selfsup step against the golden: {errs}, tolerance "
+                             f"{SELFSUP_GOLDEN_TOL}")
+    golden = dict(golden=os.path.relpath(GOLDEN_SELFSUP, ROOT), terms=terms,
+                  launches=golden_launches, errors=errs)
+    cfg = selfsup_config(tconfig)
+    step = selfsup_step_check(cfg)
+    loop = selfsup_loop_check(cfg)
+    return dict(phase="selfsup", golden_step=golden, step=step, loop=loop,
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
@@ -2651,6 +2975,13 @@ def main() -> int:
         r["launches_serving"] = {
             dt: a["per_batch_size"]["1"]["eager_launches"][r["name"]].get(dt, 0)
             for dt, a in serving["artifacts"].items()}
+
+    # 16. the self-supervised variant: the golden step, the bs-16 step on
+    # synthetic pairs, a short run_selfsup_training
+    selfsup = selfsup_phase(tconfig)
+    emit(selfsup)
+    for r in rows:
+        r["launches_selfsup_step"] = selfsup["step"]["launches_a_step"][r["name"]]
 
     # 13. the headline benchmark at reduced iterations (its own JSON line),
     # with the root bench's train keys: the bf16 step's, the f32 step's

@@ -237,8 +237,13 @@ def test_make_dataset_names_and_refusals(nyu_tree, zju_tree):
     syn = pt_ds.make_dataset(pt_cfg.replace(dataset_eval="synthetic", synthetic_length=99),
                              "online_eval")
     assert len(syn) == 64
-    with pytest.raises(NotImplementedError, match="selfsup"):
-        pt_ds.make_dataset(pt_cfg.replace(selfsup=True), "train")
+    # --selfsup: the train set is the pair set of its name, the eval set the plain one
+    assert isinstance(pt_ds.make_dataset(pt_cfg.replace(dataset="nyu", selfsup=True), "train"),
+                      pt_ds.NYUPairDataset)
+    assert isinstance(pt_ds.make_dataset(pt_cfg.replace(dataset="synthetic", selfsup=True),
+                                         "train"), pt_ds.SyntheticPairDataset)
+    assert type(pt_ds.make_dataset(pt_cfg.replace(dataset_eval="nyu", selfsup=True),
+                                   "online_eval")) is pt_ds.NYUV2Dataset
     with pytest.raises(NotImplementedError, match="mesh"):
         pt_pipe.make_loader(pt_cfg, "train", mesh=object(), device="cpu")
     # --device_pipeline: the train loader ships the raw crops
