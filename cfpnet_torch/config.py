@@ -7,9 +7,9 @@ and derived fields, so every argfile under ``configs/`` parses to the same
 values in both packages. The port keeps its own copy so that it imports
 nothing of the JAX package.
 
-Some flags only mean something to the JAX package's scripts (meshes, spatial
-sharding, serving artifacts, device pipeline); they are parsed for surface
-parity and read by no code of this package yet.
+Some flags only mean something to the JAX package's scripts
+(``--use_pallas``, ``--safe_dw_vjp``); they are parsed for surface parity
+and change nothing here. ``--spatial_shards > 1`` is parsed and refused.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Host -> device data pipeline.
 
 Port of ``cfpnet_tpu/data/pipeline.py`` (``collate``, ``DataLoader``,
-``make_loader``) for one device: one producer thread decodes batches
+``make_loader``): one producer thread decodes batches
 (ToF simulation included) into a bounded queue while the device computes.
 Batches are yielded in the JAX package's order: the shuffle of an epoch is
 ``np.random.default_rng(seed + epoch)``, and before it decodes batch ``b``
@@ -14,9 +14,16 @@ the consumer starts its copy to the device with ``non_blocking=True``: the
 host does not wait for it, and the copy runs in stream order before the
 step that reads it. Under ``--device_pipeline`` the train batches are the
 raw ``image_raw`` and ``depth`` (``data/datasets.py``), shipped the same
-way; ``train/loop.py`` makes the step's batch of them on the device. No
-mesh and no multi-host split: multi-GPU is ROADMAP.md §A 9, and
-``make_loader`` refuses a mesh.
+way; ``train/loop.py`` makes the step's batch of them on the device.
+
+In a data-parallel run (``parallel/mesh.py``) every process walks the same
+global order and decodes only its rows of each full batch
+(``mesh.rank_rows``: contiguous, as the JAX loader's per-process shard,
+``cfpnet_tpu/data/pipeline.py:45-53, :101-107``; under ``--grad_accum``
+its share of each microbatch in turn). A train batch size that the
+processes do not divide raises the JAX loader's ``ValueError``. Eval
+loaders are not split (``train/loop.py::evaluate_sharded`` splits the
+images instead).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .datasets import collate, make_dataset
 from .geometry import zone_offset_for
 
@@ -36,7 +44,9 @@ from .geometry import zone_offset_for
 class DataLoader:
     """Epoch-based loader: shuffle, batch, background prefetch.
 
-    ``indices`` holds the dataset indices of the batch last yielded. For
+    ``world`` processes split each full batch, process ``rank`` decoding
+    its rows (``mesh.rank_rows``, microbatch-major under ``accum`` > 1);
+    ``indices`` holds the dataset indices of the rows last yielded. For
     the current (or last) pass over the loader, ``wait_s`` holds the seconds
     the consumer spent blocked on the queue for each batch it took, and
     ``produce_s`` the producer's seconds to decode, collate and pin each
@@ -44,9 +54,12 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, prefetch: int = 2,
-                 zone_random_offset: int = 0, device="cpu"):
+                 zone_random_offset: int = 0, device="cpu", rank: int = 0, world: int = 1,
+                 accum: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
+        # this process's rows of a full batch (all of them in one process)
+        self.rows = mesh.rank_rows(batch_size, world, rank, accum) if world > 1 else None
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -100,6 +113,8 @@ class DataLoader:
                         self.dataset.zone_offset = zone_offset_for(
                             self.seed, self.epoch, b, self.zone_random_offset)
                     chunk = order[b * self.batch_size: (b + 1) * self.batch_size]
+                    if self.rows is not None and len(chunk) == self.batch_size:
+                        chunk = chunk[self.rows]
                     t0 = time.perf_counter()
                     batch = self._host_batch(chunk)
                     produce_s.append(time.perf_counter() - t0)
@@ -133,17 +148,18 @@ class DataLoader:
         self.epoch += 1
 
 
-def make_loader(config, mode: str, dataset=None, device="cuda", mesh=None) -> DataLoader:
+def make_loader(config, mode: str, dataset=None, device="cuda") -> DataLoader:
     """The loader policy of the JAX package: train at ``--bs``, shuffled,
-    last partial batch dropped; eval at ``--eval_bs`` in order."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh: multi-GPU loading is not ported yet "
-                                  "(ROADMAP.md §A 9)")
+    last partial batch dropped, split over the processes of a data-parallel
+    run; eval at ``--eval_bs`` in order."""
     if dataset is None:
         dataset = make_dataset(config, mode)
     if mode == "train":
+        # the microbatches of the step (the self-supervised one has none)
+        accum = 1 if config.selfsup else int(config.grad_accum or 1)
         return DataLoader(dataset, config.bs, shuffle=True, drop_last=True, seed=config.seed,
                           zone_random_offset=getattr(config, "train_zone_random_offset", 0),
-                          device=device)
+                          device=device, rank=mesh.rank(), world=mesh.world_size(),
+                          accum=accum)
     return DataLoader(dataset, max(1, getattr(config, "eval_bs", 1)), shuffle=False,
                       drop_last=False, device=device)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.interp import device_constant
+from ..parallel import mesh
 from .datasets import IMAGENET_MEAN, IMAGENET_STD
 from .geometry import ZoneGeometry
 from .tof_sim import BIN_WIDTH, NOISE_FLOOR, _std_normal_icdf_grid
@@ -267,9 +268,20 @@ def preprocess_batch(batch: Dict[str, torch.Tensor], config, geom: ZoneGeometry,
     augmentation and draws from ``generator``, as the JAX loop's
     ``device_prep`` (``cfpnet_tpu/train/loop.py:486-500``): the simulation
     distance is ``simu_max_distance`` (``--random_simu_max_d`` is read by
-    the host path only)."""
+    the host path only).
+
+    In a data-parallel run the draws are the global batch's, as the JAX
+    transform draws over the sharded global array: every process draws
+    for all the rows from the same generator and keeps those of its own
+    (``mesh.rank_rows``, the loader's layout)."""
     img = batch["image_raw"]
-    draws = draw_augmentations(generator, img.shape[0], geom.zone_num ** 2, config)
+    world = mesh.world_size()
+    draws = draw_augmentations(generator, img.shape[0] * world, geom.zone_num ** 2, config)
+    if world > 1:
+        rows = mesh.rank_rows(img.shape[0] * world, world, mesh.rank(),
+                              int(config.grad_accum or 1))
+        rows = torch.as_tensor(rows, device=img.device)
+        draws = {k: v[rows] for k, v in draws.items()}
     out = device_preprocess(img, batch["depth"][..., 0], draws, geom,
                             max_distance=config.simu_max_distance,
                             zone_sample_num=config.zone_sample_num,

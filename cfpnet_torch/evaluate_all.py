@@ -33,10 +33,14 @@ Port of the root ``evaluate_all.py``: ``main`` (``:163-242``),
 - ``--serving_artifact DIR`` (root ``:182-193``) sweeps the eval set once
   through an exported artifact (``serve/export.py``; weights inside, no
   checkpoint read) instead of the weights files: ``artifact_eval_steps``,
-  one row whose epoch is ``artifact``. ``--shard_eval`` acts only with more
-  than one process
-  (``:219``), so with one it is a no-op, as in the JAX package; with more
-  it is refused, as is ``--multihost`` (multi-GPU, ROADMAP.md §A 9).
+  one row whose epoch is ``artifact``.
+- ``--multihost`` joins the job's process group (root ``:165-168``;
+  ``parallel/mesh.py::maybe_initialize_distributed``, on the card
+  ``cuda:LOCAL_RANK``). ``--shard_eval`` in a group of more than one
+  process strides each epoch's images over the processes
+  (``train/loop.py::evaluate_sharded``, root ``:219-230``); without it, or
+  in one process, every process sweeps the whole set, as in the JAX
+  package. Rank 0 alone writes the reports (root ``:248``).
 - The forward runs in float32 whatever ``--compute_dtype`` says, as the
   JAX package's eval step does (its ``make_eval_step`` casts nothing).
 
@@ -58,7 +62,8 @@ from .config import parse_config
 from .data.datasets import IMAGENET_MEAN, IMAGENET_STD, make_dataset
 from .data.pipeline import make_loader
 from .models.deltar import make_model, model_geometries
-from .train.loop import evaluate, make_grouped_eval
+from .parallel import mesh
+from .train.loop import evaluate, evaluate_sharded, make_eval_steps, make_grouped_eval
 from .train.steps import make_metric_step
 
 METRICS = ["a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel"]
@@ -93,24 +98,6 @@ def eval_dataset_config(config):
     if "nyu" in config.test_dataset:
         return config.replace(dataset_eval="nyu")
     return config
-
-
-def process_count() -> int:
-    """Processes of this job: torch.distributed's world, else WORLD_SIZE."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
-def refuse_unported(config) -> None:
-    """Raises for what the sweep does not have yet."""
-    if config.multihost:
-        raise NotImplementedError("--multihost: multi-GPU is not ported yet (ROADMAP.md §A 9)")
-    if config.shard_eval and process_count() > 1:
-        raise NotImplementedError("--shard_eval over more than one process: multi-GPU "
-                                  "evaluation is not ported yet (ROADMAP.md §A 9)")
 
 
 def make_save_hook(config, dataset):
@@ -227,11 +214,14 @@ def weight_files(config) -> List[Tuple[int, str]]:
     return out
 
 
-def write_reports(config, rows) -> Tuple[str, str]:
+def write_reports(config, rows) -> Optional[Tuple[str, str]]:
     """``results[_nyu].csv`` and ``.xlsx`` under ``save_dir`` (root
-    ``write_reports``); returns their paths."""
+    ``write_reports``); returns their paths. In a process group only rank 0
+    writes; the others return None."""
     from .utils.xlsx import write_xlsx
 
+    if mesh.rank() != 0:
+        return None
     os.makedirs(config.save_dir, exist_ok=True)
     suffix = "_nyu" if "nyu" in config.test_dataset else ""
     csv_path = os.path.join(config.save_dir, f"results{suffix}.csv")
@@ -254,9 +244,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap.add_argument("--device", default="cuda")
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     config = parse_config(rest).replace(mode="online_eval")
-    refuse_unported(config)
-    config = eval_dataset_config(config)
     device = torch.device(args.device)
+    owns_group = config.multihost and not mesh.is_distributed()
+    if config.multihost:
+        device = mesh.rank_device(device)
+        mesh.maybe_initialize_distributed(config, device)
+    try:
+        return sweep(eval_dataset_config(config), device)
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def sweep(config, device) -> Dict[str, object]:
+    """``main``'s sweep of the eval set ``config`` names, on ``device``."""
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -267,7 +268,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         return artifact_main(config, dataset, hook, device)
 
     model = make_model(config, device=device)
-    eval_fn = make_grouped_eval(model, config, dataset, protocol="evaluate_all", device=device)
+    if config.shard_eval and mesh.world_size() > 1:
+        steps = make_eval_steps(model, config, make_loader(config, "online_eval",
+                                                           dataset=dataset, device=device),
+                                protocol="evaluate_all")
+
+        def eval_fn(per_image_hook=None):
+            return evaluate_sharded(model, config, dataset, protocol="evaluate_all",
+                                    steps=steps, per_image_hook=per_image_hook, device=device)
+    else:
+        eval_fn = make_grouped_eval(model, config, dataset, protocol="evaluate_all",
+                                    device=device)
 
     rows, unrounded = [], []
     files = weight_files(config)

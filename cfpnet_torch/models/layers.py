@@ -22,6 +22,13 @@ axis (``channel_dim`` 1 for NCHW, -1 for channels-last tokens).
   one bf16 ulp lands in a bf16 step.
 - The output takes the dtype of (x, weight, bias), as flax's
   ``_normalize`` does: bf16 in a bf16 step, whose statistics stay float32.
+- In a data-parallel run (``parallel/mesh.py``, a world of more than one
+  process) the statistics are the global batch's, as the JAX step's over
+  the sharded global array: each process sums x, x^2 and its count per
+  channel, and one differentiable all-reduce (``all_reduce_sum``) adds
+  them over the processes. Every process then normalizes with, and moves
+  its running statistics by, the same values. Eval mode communicates
+  nothing.
 - Inside ``frozen_running_stats()`` a training forward normalizes with the
   batch's statistics and leaves the running ones as they are: the
   recompute of a rematerialized forward (``models/deltar.py``, ``--remat``)
@@ -36,6 +43,8 @@ import threading
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum, world_size
 
 MOMENTUM = 0.9  # flax: the weight of the old running value
 
@@ -79,12 +88,19 @@ class BatchNorm(nn.Module):
                                         self.bias.dtype))
 
     def _batch_stats(self, x: torch.Tensor):
-        """flax ``_compute_stats`` with ``use_fast_variance``, then the
-        running update."""
+        """flax ``_compute_stats`` with ``use_fast_variance``, over the
+        global batch in a data-parallel run, then the running update."""
         axes = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xs.mean(axes)
-        var = torch.clamp_min((xs * xs).mean(axes) - mean * mean, 0.0)
+        if world_size() > 1:
+            C = xs.shape[self.channel_dim]
+            count = xs.new_full((1,), xs.numel() // C)
+            sums = all_reduce_sum(torch.cat([xs.sum(axes), (xs * xs).sum(axes), count]))
+            mean = sums[:C] / sums[-1]
+            var = torch.clamp_min(sums[C:2 * C] / sums[-1] - mean * mean, 0.0)
+        else:
+            mean = xs.mean(axes)
+            var = torch.clamp_min((xs * xs).mean(axes) - mean * mean, 0.0)
         if getattr(_frozen, "on", False):
             return mean, var
         with torch.no_grad():

@@ -26,7 +26,9 @@ versions on the CPU. Neither package reads the other's artifact.
 
 Batch sizes are static (one program per size): ``ServingModel.predict``
 pads a partial batch to the smallest exported size that fits and chunks a
-larger one, as the JAX class does. On the card each program's module is
+larger one, as the JAX class does. ``predict_sharded`` splits each batch
+over the local cards, each running the program of its share on its own
+copy of the artifact (JAX ``:273-315`` partitions one program instead). On the card each program's module is
 captured once in a CUDA graph (``graphs.py::CapturedCall``), the
 counterpart of the JAX artifact's compiled ``Exported.call``. Loading an
 artifact needs ``cfpnet_torch.kernels`` importable: it registers the ops,
@@ -196,7 +198,10 @@ class ServingModel:
     >>> m = ServingModel("artifacts/cfpnet", "cuda")
     >>> depth = m.predict(image_u8, hist, mask)   # [N,H,W] f32 meters
 
-    ``device`` must be the manifest's (default: it). Partial batches are
+    ``device`` must be of the manifest's type (default: the manifest's
+    device; a card with an index, such as ``cuda:1``, gets the programs
+    moved there, ``torch.export.passes.move_to_device_pass``). Partial
+    batches are
     padded to the smallest exported batch size that fits (padding rows are
     zero images with all-invalid masks) and the result sliced back; N larger
     than the largest exported size is chunked. On the card each batch size's
@@ -215,6 +220,11 @@ class ServingModel:
             raise ValueError(f"{path} was exported for {self.device.type} and cannot run on "
                              f"{torch.device(device)}: export it again with --device "
                              f"{torch.device(device).type}")
+        # a card named by its index: the programs are moved to it
+        self._placed = device is not None and torch.device(device).index is not None
+        if self._placed:
+            self.device = torch.device(device)
+        self._replicas: Dict[str, "ServingModel"] = {}
         self.batch_sizes = sorted(int(b) for b in self.manifest["files"])
         self._programs: Dict[int, object] = {}
         self._modules: Dict[int, nn.Module] = {}
@@ -228,7 +238,12 @@ class ServingModel:
                 f"batch size {batch_size} not exported; have {self.batch_sizes}")
         if batch_size not in self._programs:
             fname = self.manifest["files"][str(batch_size)]
-            self._programs[batch_size] = torch.export.load(os.path.join(self.path, fname))
+            program = torch.export.load(os.path.join(self.path, fname))
+            if self._placed:
+                from torch.export.passes import move_to_device_pass
+
+                program = move_to_device_pass(program, self.device)
+            self._programs[batch_size] = program
         return self._programs[batch_size]
 
     def module(self, batch_size: int) -> nn.Module:
@@ -259,7 +274,8 @@ class ServingModel:
         card (its output cloned), the program's module on the CPU."""
         bs = int(image_u8.shape[0])
         if self.device.type == "cuda":
-            return self.captured(bs)(image_u8, hist, mask).clone()
+            with torch.cuda.device(self.device):  # the kernels launch on the current card
+                return self.captured(bs)(image_u8, hist, mask).clone()
         with torch.no_grad():
             return self.module(bs)(image_u8, hist, mask)
 
@@ -297,7 +313,56 @@ class ServingModel:
     def predict(self, image_u8, hist, mask) -> np.ndarray:
         return self._chunked(image_u8, hist, mask, self.batch_sizes, self._predict_exact)
 
-    def predict_sharded(self, image_u8, hist, mask, mesh=None) -> np.ndarray:
-        """Data-parallel predict over several cards: not ported yet."""
-        raise NotImplementedError("predict_sharded: multi-GPU serving is not ported yet "
-                                  "(ROADMAP.md §A 9)")
+    def replica(self, device) -> "ServingModel":
+        """This artifact on ``device``, a device of its type: itself where
+        ``device`` is its own, else a ``ServingModel`` placed there, loaded
+        once."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if str(device) not in self._replicas:
+            self._replicas[str(device)] = ServingModel(self.path, device)
+        return self._replicas[str(device)]
+
+    def predict_sharded(self, image_u8, hist, mask, devices=None) -> np.ndarray:
+        """Data-parallel predict over several devices (JAX ``:273-315``).
+
+        ``devices`` defaults to the local cards, as many as
+        ``parallel/mesh.py::dp_world_size`` allows for the largest exported
+        size (one card, or a CPU artifact: ``predict``). Each batch of an
+        exported size
+        ``b`` divisible by their number n, whose share ``b / n`` is exported
+        too, is split by rows: device i runs rows ``[i * b / n, (i + 1) * b
+        / n)`` through its replica's program of that size (``replica``), all
+        launched before any is read. Partial batches pad and chunk as in
+        ``predict``, over those sizes only; ``ValueError`` where none fits.
+        With one device it is ``predict``. The programs of the shares are
+        not the whole batch's, so the result matches ``predict`` to the
+        reassociation of float32 sums, not bit for bit."""
+        from ..parallel.mesh import dp_world_size
+
+        if devices is None:
+            cards = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            n = dp_world_size(0, cards, self.batch_sizes[-1])
+            if n == 1:
+                return self.predict(image_u8, hist, mask)
+            devices = [torch.device("cuda", i) for i in range(n)]
+        replicas = [self.replica(d) for d in devices]
+        n = len(replicas)
+        if n == 1:
+            return replicas[0].predict(image_u8, hist, mask)
+        sizes = [b for b in self.batch_sizes if b % n == 0 and b // n in self.batch_sizes]
+        if not sizes:
+            raise ValueError(
+                f"no exported batch size in {self.batch_sizes} is divisible by the {n}-device "
+                f"mesh into exported shares; re-export with a divisible --serve_batch_sizes "
+                f"or pass fewer devices")
+
+        def run(img, hh, mm):
+            per = img.shape[0] // n
+            outs = [r.call(*(torch.from_numpy(a[i * per:(i + 1) * per]).to(r.device)
+                             for a in (img, hh, mm)))
+                    for i, r in enumerate(replicas)]
+            return np.concatenate([o.cpu().numpy() for o in outs])
+
+        return self._chunked(image_u8, hist, mask, sizes, run)

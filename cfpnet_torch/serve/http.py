@@ -22,8 +22,9 @@ Protocol (binary, numpy .npz both ways — no base64 inflation):
 Requests of any N are padded/chunked through the exported static batch
 sizes by ``ServingModel.predict`` (one CUDA graph per exported size on the
 card; the pad rows are zero images with all-invalid masks, sliced off
-before the response). ``--sharded`` (multi-GPU serving) is refused: not
-ported yet (ROADMAP.md §A 9).
+before the response). ``--sharded`` serves through
+``ServingModel.predict_sharded`` instead: each batch split over the local
+cards.
 
 Concurrent requests are micro-batched: a single dispatcher thread owns the
 device and coalesces whatever is queued (up to ``--batch_wait_ms`` after
@@ -184,29 +185,31 @@ def make_server(artifact: str, port: int = 0, sharded: bool = False,
     Warmup runs one predict per exported batch size, so no client request
     pays for loading a program or capturing its CUDA graph. ``device``
     must be the artifact's (default: it). The server listens on ``host``
-    (default: every interface) at ``port`` (0: a free one). ``sharded`` raises
-    ``NotImplementedError``: multi-GPU serving is not ported yet
-    (ROADMAP.md §A 9).
+    (default: every interface) at ``port`` (0: a free one). ``sharded``
+    serves through ``predict_sharded`` (the local cards).
 
     ``batch_wait_ms > 0`` (default 2 ms) serves through a MicroBatcher:
     concurrent requests coalesce into one batched device call (see module
     docstring). 0 restores the strict lock-serialized per-request path."""
     from .export import ServingModel
 
-    if sharded:
-        raise NotImplementedError("--sharded: multi-GPU serving is not ported yet "
-                                  "(ROADMAP.md §A 9)")
     model = ServingModel(artifact, device)
     lock = threading.Lock()
 
     spec = model.manifest["input"]
     h, w = spec["image_u8"][1], spec["image_u8"][2]
     zones, s = spec["hist"][1], spec["hist"][2]
-    fn = model.predict
+    fn = model.predict_sharded if sharded else model.predict
     for bs in model.batch_sizes:
-        fn(np.zeros((bs, h, w, 3), np.uint8),
-           np.full((bs, zones, s), 2.0, np.float32),
-           np.ones((bs, zones), bool))
+        try:
+            fn(np.zeros((bs, h, w, 3), np.uint8),
+               np.full((bs, zones, s), 2.0, np.float32),
+               np.ones((bs, zones), bool))
+        except ValueError:
+            # sharded serving uses only the sizes that split over the cards;
+            # requests chunk through those, so this size is never run
+            if not sharded:
+                raise
 
     batcher = None
     if batch_wait_ms > 0:
@@ -253,7 +256,7 @@ def make_server(artifact: str, port: int = 0, sharded: bool = False,
                     out = predict_npz(model, body, run=batcher.submit)
                 else:
                     with lock:  # one device at a time; threads queue here
-                        out = predict_npz(model, body)
+                        out = predict_npz(model, body, sharded=sharded)
             except ValueError as e:
                 self._send(400, str(e).encode(), "text/plain")
                 return
@@ -272,7 +275,7 @@ def main(argv=None):
     ap.add_argument("--host", default="", help="address to listen on (default: every interface)")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--sharded", action="store_true",
-                    help="multi-GPU serving: refused, not ported yet (ROADMAP.md §A 9)")
+                    help="split each batch over the local cards (predict_sharded)")
     ap.add_argument("--batch_wait_ms", type=float, default=2.0,
                     help="micro-batching window after the first queued "
                          "request (0 disables coalescing)")

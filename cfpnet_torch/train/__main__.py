@@ -33,9 +33,24 @@ trained jointly, a ``selfsup_val`` line an epoch in
 ``{save_dir}/selfsup_log.jsonl`` and the depth weights in
 ``weights/{name}/``.
 
-Refused with ``NotImplementedError``, each naming its ROADMAP.md item:
-``--multihost`` and ``--spatial_shards > 1``; and, as the JAX loop
-refuses it, ``--train_zone_random_offset`` with ``--device_pipeline``.
+Data parallelism (``cfpnet_torch/parallel``): with ``--multihost`` this
+process joins a job's process group (root ``train.py:31-34``), from
+``--coordinator_address``/``--num_processes``/``--process_id`` or the
+launcher's ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``, on the
+card ``cuda:LOCAL_RANK``:
+
+    torchrun --nproc_per_node 4 -m cfpnet_torch.train @configs/X.txt --multihost
+
+Without it, ``--dp_shards`` on one host runs
+``dp_world_size(dp_shards, cards, bs)`` processes (0: every card of
+``local_device_count``, clamped to a divisor of ``--bs``, as the JAX
+package's mesh), spawned here; with one card that is one, and nothing is
+spawned. Either way the loop is data-parallel over the global batch
+(``train/loop.py``).
+
+Refused with ``NotImplementedError``: ``--spatial_shards > 1``
+(ROADMAP.md §A 14); and, as the JAX loop refuses it,
+``--train_zone_random_offset`` with ``--device_pipeline``.
 ``--use_pallas`` and ``--safe_dw_vjp`` are accepted and change nothing: the
 port always runs its CUDA kernels on the card, and its gradients need no
 partitioner workaround.
@@ -52,6 +67,7 @@ import numpy as np
 import torch
 
 from ..config import parse_config
+from ..parallel import launch, mesh
 from .loop import run_training
 from .selfsup import run_selfsup_training
 
@@ -64,11 +80,24 @@ def set_seeds(seed: int) -> None:
 
 
 def refuse(config) -> None:
-    """Raises for the options of the root ``train.py`` that the port does not have
-    (the loop, the loaders and the train step refuse theirs)."""
-    if config.multihost:
-        raise NotImplementedError("--multihost: multi-GPU training is not ported yet "
-                                  "(ROADMAP.md §A 9)")
+    """Raises, before any process starts, for the options of the root
+    ``train.py`` that the port does not have (the loop refuses them too)."""
+    if config.spatial_shards > 1:
+        raise NotImplementedError("--spatial_shards > 1: spatial sharding is not ported yet "
+                                  "(ROADMAP.md §A 14)")
+
+
+def local_device_count(device: torch.device) -> int:
+    """The devices of this host that ``--dp_shards`` may take: the cards on
+    a card, one on the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def spawned_rank(rank: int, init_method: str, argv: List[str], world: int) -> None:
+    """Process ``rank`` of a ``--dp_shards`` run (``launch.spawn``): the
+    entry point with ``--multihost`` at the run's address."""
+    main(argv + ["--multihost", "--coordinator_address", init_method,
+                 "--num_processes", str(world), "--process_id", str(rank)])
 
 
 def main(argv: Optional[List[str]] = None):
@@ -83,16 +112,30 @@ def main(argv: Optional[List[str]] = None):
     if args.logging:
         config = config.replace(no_logging=False)
     refuse(config)
-    set_seeds(config.seed)
     device = torch.device(args.device)
+    if not config.multihost:
+        world = mesh.dp_world_size(config.dp_shards, local_device_count(device), config.bs)
+        if world > 1:
+            launch.spawn("cfpnet_torch.train.__main__:spawned_rank", world,
+                         (list(sys.argv[1:] if argv is None else argv), world))
+            return None
+    owns_group = config.multihost and not mesh.is_distributed()
+    if config.multihost:
+        device = mesh.rank_device(device)
+        mesh.maybe_initialize_distributed(config, device)
+    set_seeds(config.seed)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    # anomaly mode for the run under --debug_nans, the previous mode after it
-    with torch.autograd.set_detect_anomaly(bool(config.debug_nans)):
-        if config.selfsup:
-            return run_selfsup_training(config, device=device)
-        return run_training(config, device=device)
+    try:
+        # anomaly mode for the run under --debug_nans, the previous mode after it
+        with torch.autograd.set_detect_anomaly(bool(config.debug_nans)):
+            if config.selfsup:
+                return run_selfsup_training(config, device=device)
+            return run_training(config, device=device)
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

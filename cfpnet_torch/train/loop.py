@@ -1,12 +1,20 @@
 """Training and evaluation loops.
 
 Port of ``cfpnet_tpu/train/loop.py`` (``JsonlLogger``, ``make_eval_steps``,
-``evaluate``, ``_Subset``, ``make_grouped_eval``, ``run_training``) for one
-device: epochs of ``train/steps.py`` steps over the prefetching loader,
-validation with the nine metrics every ``validate_every`` epochs and always
-at the last, ``{ep}_{rmse:.3f}`` and ``best`` checkpoints, resume with the
-optimizer state and the step, JSONL logs. Not ported: ``evaluate_sharded``
-and the meshes (multi-GPU, ROADMAP.md §A 9).
+``evaluate``, ``_Subset``, ``make_grouped_eval``, ``evaluate_sharded``,
+``run_training``): epochs of ``train/steps.py`` steps over the prefetching
+loader, validation with the nine metrics every ``validate_every`` epochs
+and always at the last, ``{ep}_{rmse:.3f}`` and ``best`` checkpoints,
+resume with the optimizer state and the step, JSONL logs.
+
+In a data-parallel run (``parallel/mesh.py``, ``--multihost`` or
+``--dp_shards``) every process starts from rank 0's weights (or the
+checkpoint that ``--resume`` reads), steps on its rows of each global batch
+with the same seeds and zone offsets, validates through
+``evaluate_sharded`` (the images strided over the processes, the metrics
+merged), and rank 0 alone writes the checkpoints, the weights and the
+JSONL log, then all wait for it. Spatial sharding (``--spatial_shards``,
+the JAX 2-D mesh) is not ported (ROADMAP.md §A 14).
 
 ``--device_pipeline`` (``cfpnet_tpu/train/loop.py:486-500, 515-517``): the
 loader ships raw crops and ``data/tof_sim_device.py::preprocess_batch``
@@ -43,6 +51,7 @@ from ..data.geometry import geometry_for, zone_offset_for
 from ..data.pipeline import make_loader
 from ..data.tof_sim_device import preprocess_batch
 from ..models.deltar import make_model, model_geometries
+from ..parallel import mesh
 from .checkpoint import load_checkpoint, save_checkpoint, save_weights
 from .losses import RunningAverageDict
 from .steps import create_train_state, make_eval_step, make_metric_step, make_train_step
@@ -203,6 +212,50 @@ def make_grouped_eval(model, config, dataset, protocol: str = "validate", device
     return eval_fn
 
 
+def evaluate_sharded(model, config, dataset, protocol: str = "validate", steps=None,
+                     per_image_hook=None, device="cuda") -> Dict[str, float]:
+    """Evaluation split over the processes of a data-parallel run (JAX
+    ``:251-323``): process p sweeps images ``p, p + W, ...`` with the
+    ordinary eval steps (no collective in the sweep), then one float64
+    all-gather merges each process's (count, mean x count) of the nine
+    metrics. Every process returns the same metrics, those of the one
+    sweep up to the order of the sums. ``per_image_hook`` gets the dataset's
+    own indices. A mixed-rig dataset raises ``NotImplementedError``, as in
+    JAX; in one process it is ``evaluate`` over the dataset."""
+    groups = getattr(dataset, "geometry_groups", None)
+    if groups is not None and len(groups) > 1:
+        raise NotImplementedError(
+            "mixed-rig dataset under multi-host eval sharding is not supported; run the "
+            "sweep single-process (make_grouped_eval)")
+    world, me = mesh.world_size(), mesh.rank()
+    if world == 1:
+        loader = make_loader(config, "online_eval", dataset=dataset, device=device)
+        return evaluate(model, config, loader, protocol=protocol, steps=steps,
+                        per_image_hook=per_image_hook)
+    sub = _Subset(dataset, range(me, len(dataset), world))
+    loader = make_loader(config, "online_eval", dataset=sub, device=device)
+    hook = None
+    if per_image_hook is not None:
+        def hook(i, pred_hw, batch, j):
+            per_image_hook(sub.indices[i], pred_hw, batch, j)
+
+    if steps is None:
+        steps = make_eval_steps(model, config, loader, protocol)
+    acc = RunningAverageDict()
+    evaluate(model, config, loader, protocol=protocol, steps=steps, per_image_hook=hook,
+             _accumulator=acc)
+    count = 0 if acc._dict is None else next(iter(acc._dict.values())).count
+    vals = acc.get_value()
+    vec = np.array([float(count)] + [vals.get(k, 0.0) * count for k in EVAL_METRIC_KEYS],
+                   np.float64)
+    every = mesh.all_gather_f64(vec)  # [W, 10]
+    total = every[:, 0].sum()
+    if total == 0:
+        return {}
+    sums = every[:, 1:].sum(axis=0)
+    return {k: float(v / total) for k, v in zip(EVAL_METRIC_KEYS, sums)}
+
+
 def prep_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of step ``step``'s device-pipeline draws, on
     ``device``: seeded from (seed, step, 777), the JAX loop's
@@ -252,10 +305,14 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
     same offset. ``trace``, when a list, gets one dict a step (epoch, step,
     the batch's dataset indices, its zone offset, the learning rate of the
     'rest' group, the loss as a device tensor); ``step_context(step)``
-    wraps each step, the fetch of its batch included."""
+    wraps each step, the fetch of its batch included.
+
+    In a process group (``parallel/mesh.py``) the run is data-parallel
+    (module docstring): ``trace`` then holds this process's rows'
+    ``indices`` and the global loss."""
     if getattr(config, "spatial_shards", 0) > 1:
         raise NotImplementedError("--spatial_shards > 1: spatial sharding is not ported yet "
-                                  "(ROADMAP.md §A 9)")
+                                  "(ROADMAP.md §A 14)")
     zone_off = int(getattr(config, "train_zone_random_offset", 0) or 0)
     if zone_off > 0 and config.device_pipeline:
         raise NotImplementedError(
@@ -268,6 +325,9 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
     model = make_model(config, tiny=tiny, device=device)
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict, strict=True)
+    if mesh.is_distributed():
+        mesh.broadcast_module(model)  # every process starts from rank 0's weights
+    writer = mesh.rank() == 0 and not config.no_logging
 
     steps_per_epoch = len(train_loader)
     if max_steps_per_epoch:
@@ -290,7 +350,7 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
     pix_geom = geometry_for(config, "train") if config.device_pipeline else None
 
     logger = JsonlLogger(
-        None if config.no_logging else os.path.join(config.save_dir, "train_log.jsonl"))
+        os.path.join(config.save_dir, "train_log.jsonl") if writer else None)
     logger.log(kind="header", tof_path=native.active(), device=str(device),
                epochs=config.epochs, start_epoch=start_epoch, steps_per_epoch=steps_per_epoch,
                bs=config.bs, resume=config.resume)
@@ -341,14 +401,18 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
         stride = max(int(config.validate_every), 1)
         if (epoch + 1) % stride == 0 or epoch + 1 == config.epochs:
             t_val = time.perf_counter()
-            metrics = evaluate(model, config, eval_loader, protocol="validate",
-                               steps=eval_steps)
+            if mesh.world_size() > 1:
+                metrics = evaluate_sharded(model, config, eval_loader.dataset,
+                                           protocol="validate", steps=eval_steps, device=device)
+            else:
+                metrics = evaluate(model, config, eval_loader, protocol="validate",
+                                   steps=eval_steps)
             timing["val_s"] = time.perf_counter() - t_val
             rmse = metrics.get("rmse", float("inf"))
             logger.log(kind="val", epoch=epoch, step=step, **metrics)
             print(f"epoch {epoch}: loss {epoch_loss:.4f} rmse {rmse:.4f} "
                   f"({time.perf_counter() - t_epoch:.0f}s)")
-            if not config.no_logging:
+            if writer:
                 t_ckpt = time.perf_counter()
                 # the epoch's checkpoint carries best_rmse from before this
                 # epoch's update, as the JAX package's does
@@ -360,6 +424,7 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
                     save_checkpoint(f"checkpoints/{config.name}/best", state, epoch, best_rmse)
                     save_weights(f"weights/{config.name}/best", model)
                 timing["checkpoint_s"] = time.perf_counter() - t_ckpt
+            mesh.barrier()  # the others wait for rank 0's files
         logger.log(kind="epoch", epoch=epoch, step=step, loss=epoch_loss, **timing)
     logger.close()
     return state

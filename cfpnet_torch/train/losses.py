@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.interp import resize_bilinear_align_corners
+from ..parallel.mesh import all_reduce_sum, world_size
 
 
 def silog_loss(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -22,7 +23,12 @@ def silog_loss(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Te
     ``g = log(pred) - log(target)`` over the masked pixels, with the unbiased
     (n - 1) variance of torch's ``var``. pred [B, h, w, 1] is first
     upsampled align-corners to target's [B, H, W, 1] where ``interpolate``;
-    mask [B, H, W, 1] bool, all pixels when None."""
+    mask [B, H, W, 1] bool, all pixels when None.
+
+    In a data-parallel run (``parallel/mesh.py``) it is one loss over every
+    masked pixel of the global batch, the JAX loss on the sharded global
+    array: the count and the sum of g are all-reduced, then the sum of the
+    squared deviations from the global mean (the same two passes)."""
     if interpolate:
         pred = resize_bilinear_align_corners(pred, target.shape[1], target.shape[2])
     g = torch.log(pred) - torch.log(target)
@@ -30,8 +36,14 @@ def silog_loss(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Te
         mask = torch.ones_like(g, dtype=torch.bool)
     n = mask.to(g.dtype).sum()
     g = torch.where(mask, g, 0.0)
-    mean = g.sum() / n
-    var = torch.where(mask, (g - mean) ** 2, 0.0).sum() / (n - 1.0)
+    if world_size() > 1:
+        n, total = all_reduce_sum(torch.stack([n, g.sum()])).unbind()
+        mean = total / n
+        sq = all_reduce_sum(torch.where(mask, (g - mean) ** 2, 0.0).sum())
+    else:
+        mean = g.sum() / n
+        sq = torch.where(mask, (g - mean) ** 2, 0.0).sum()
+    var = sq / (n - 1.0)
     return 10.0 * torch.sqrt(var + 0.15 * mean ** 2)
 
 

@@ -28,7 +28,14 @@ Behaviours of the JAX path that the port keeps as they are:
   (``data/datasets.py``);
 - validation runs every epoch (``--validate_every`` is not read), and only
   the depth model's weights are saved, ``weights/{name}/{epoch}_{rmse:.3f}``
-  and ``best``; no full checkpoint.
+  and ``best``; no full checkpoint;
+- in a data-parallel run (``parallel/mesh.py``) the pairs are split over
+  the processes as the supervised batches are, the objective is the
+  global batch's (each term a mean, or a ratio of sums, over every
+  process's rows), the gradients are averaged over the processes before
+  the optimizer and so before its clip, and every process validates on
+  the whole eval set, as the JAX loop runs plain ``evaluate`` on each
+  (``cfpnet_tpu/train/selfsup.py:164``); rank 0 writes the weights.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ..models.posenet import PoseNet
 from ..ops.interp import resize_bilinear_align_corners
 from ..ops.warp import (absolute, clip, photometric_loss, pose_to_transform, smoothness_loss,
                         warp_frame)
+from ..parallel import mesh
 from .checkpoint import save_weights
 from .loop import JsonlLogger, debug_nans_step, evaluate
 from .optim import make_optimizer
@@ -81,7 +89,8 @@ def selfsup_terms(pose_model, config, pixel_geom, batch: Dict[str, torch.Tensor]
     """The objective on the target frame's depth ``depth_full`` [B,H,W,1]
     (upsampled, clipped): the pose, the warp, the automasked photometric
     term, the smoothness and the zone term, and their weighted sum.
-    Returns {loss, photometric, smooth, zone} (0-d tensors)."""
+    Returns {loss, photometric, smooth, zone} (0-d tensors), the global
+    batch's in a data-parallel run."""
     aa, tt = pose_model(batch["image_raw"], batch["src_raw"])
     T = pose_to_transform(aa, tt)
     warped, valid = warp_frame(batch["src_raw"], depth_full, batch["K"], batch["K_inv"], T)
@@ -90,13 +99,17 @@ def selfsup_terms(pose_model, config, pixel_geom, batch: Dict[str, torch.Tensor]
     # warp leaves the frame it always wins, and the unmasked reproj is kept
     ident = photometric_loss(batch["src_raw"], batch["image_raw"], config.ssim_alpha)
     ph = torch.where(reproj * valid + (1 - valid) * 1e3 < ident, reproj, ident)
-    ph_loss = ph.mean()
+    # the global batch's means: every process holds as many rows
+    ph_loss = mesh.global_mean(ph.mean())
 
-    smooth = smoothness_loss(depth_full, batch["image_raw"])
+    smooth = mesh.global_mean(smoothness_loss(depth_full, batch["image_raw"]))
 
     zmean = zone_mean_depth(depth_full, pixel_geom)
     zvalid = batch["mask"].to(depth_full.dtype)
-    zone = (absolute(zmean - batch["zone_mu"]) * zvalid).sum() / (zvalid.sum() + 1e-6)
+    sums = torch.stack([(absolute(zmean - batch["zone_mu"]) * zvalid).sum(), zvalid.sum()])
+    if mesh.world_size() > 1:
+        sums = mesh.all_reduce_sum(sums)
+    zone = sums[0] / (sums[1] + 1e-6)
 
     loss = ph_loss + config.smoothness_weight * smooth + config.zone_loss_weight * zone
     return dict(loss=loss, photometric=ph_loss, smooth=smooth, zone=zone)
@@ -138,6 +151,8 @@ def make_selfsup_train_step(state: TrainState, config, geoms, pixel_geom):
             p.grad = None
         terms = loss_fn(batch, step_generator(seed))
         terms["loss"].backward()
+        if mesh.is_distributed():
+            mesh.average_gradients([p.grad for p in state.tx.params if p.grad is not None])
         state.tx.step()
         return {k: v.detach() for k, v in terms.items()}
 
@@ -176,6 +191,9 @@ def run_selfsup_training(config, tiny: bool = False, max_steps_per_epoch: Option
     if max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
     state = create_selfsup_state(model, config, config.epochs * steps_per_epoch)
+    if mesh.is_distributed():
+        mesh.broadcast_module(state.model)  # every process starts from rank 0's weights
+    writer = mesh.rank() == 0 and not config.no_logging
     train_step = make_selfsup_train_step(state, config, geoms, pixel_geom)
     if config.debug_nans:
         train_step = debug_nans_step(train_step)
@@ -184,7 +202,7 @@ def run_selfsup_training(config, tiny: bool = False, max_steps_per_epoch: Option
                   make_metric_step(config, protocol="validate"))
 
     logger = JsonlLogger(
-        None if config.no_logging else os.path.join(config.save_dir, "selfsup_log.jsonl"))
+        os.path.join(config.save_dir, "selfsup_log.jsonl") if writer else None)
     step, best_rmse = 0, float("inf")
     for epoch in range(config.epochs):
         t0 = time.perf_counter()
@@ -207,10 +225,11 @@ def run_selfsup_training(config, tiny: bool = False, max_steps_per_epoch: Option
         logger.log(kind="selfsup_val", epoch=epoch, step=step, loss=loss, **metrics)
         print(f"selfsup epoch {epoch}: loss {loss:.4f} rmse {rmse:.4f} "
               f"({time.perf_counter() - t0:.0f}s)")
-        if not config.no_logging:
+        if writer:
             save_weights(f"weights/{config.name}/{epoch}_{rmse:.3f}", model)
             if rmse < best_rmse:
                 best_rmse = rmse
                 save_weights(f"weights/{config.name}/best", model)
+        mesh.barrier()
     logger.close()
     return state

@@ -27,6 +27,15 @@ statistics thread through them (the in-place update); their unscaled
 losses are backpropagated into ``.grad``, which sums them, and the sum is
 divided by N once before the optimizer; the step's loss is the mean of
 the N losses. ``--remat`` is the model's (``models/deltar.py``).
+
+In a data-parallel run (``parallel/mesh.py``) each process steps on its
+rows of the global batch, laid out by the loader so that its microbatch i
+is its share of global microbatch i (``mesh.rank_rows``). The BatchNorm
+statistics and the loss are the global batch's, the same loss on every
+process; after the backward one all-reduce averages the gradients over the
+processes (``mesh.average_gradients``), which gives the global batch's
+gradient, and every process takes the same optimizer step. A process group
+of one process reduces too, over itself.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from torch.func import functional_call
 
 from ..models.deltar import compute_dtype
 from ..ops.interp import device_constant, resize_bilinear_align_corners
+from ..parallel.mesh import average_gradients, is_distributed
 from .losses import compute_errors, silog_loss
 from .optim import AdamW, make_optimizer
 
@@ -111,7 +121,8 @@ def make_train_step(model, config, geoms):
     backward and one optimizer step, in place on ``state``; the loss comes
     back as a 0-d tensor on the device, with no host sync. Under
     ``--grad_accum N`` the batch runs as N microbatches (module docstring);
-    ``ValueError`` where N does not divide the batch."""
+    ``ValueError`` where N does not divide the batch. In a process group
+    the gradients are averaged over its processes before the optimizer."""
     loss_fn = make_loss_fn(model, config, geoms)
     accum = int(getattr(config, "grad_accum", 1) or 1)
 
@@ -122,6 +133,8 @@ def make_train_step(model, config, geoms):
         if accum <= 1:
             loss = loss_fn(batch, generator)
             loss.backward()
+            if is_distributed():
+                average_gradients([p.grad for p in state.tx.params if p.grad is not None])
         else:
             bs = next(iter(batch.values())).shape[0]
             if bs % accum != 0:
@@ -134,6 +147,8 @@ def make_train_step(model, config, geoms):
                 part.backward()  # .grad sums the microbatches' gradients
                 loss = part.detach() if loss is None else loss + part.detach()
             grads = [p.grad for p in state.tx.params if p.grad is not None]
+            if is_distributed():
+                average_gradients(grads)
             torch._foreach_div_(grads, float(accum))
             loss = loss / accum
         state.tx.step()

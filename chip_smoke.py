@@ -170,6 +170,20 @@ line:
     of ``run_selfsup_training`` (``selfsup_loop_check``: 2 steps, 16
     validation images, the ``selfsup_val`` line, the ``best`` depth weights
     loaded back bit for bit, the run's launches).
+17. multi_process (``multi_process_phase``, run after phase 16): data
+    parallelism (``cfpnet_torch/parallel``). A process group of one over
+    NCCL: the golden step bit for bit the same step with no group, and
+    within ``TRAIN_GOLDEN_TOL`` of the golden. Two processes on the one
+    card over gloo (``dp_rank``, spawned by ``parallel/launch.py``; NCCL
+    refuses two processes on one card): the golden step as 1 + 1 rows
+    within ``TRAIN_GOLDEN_TOL``, both processes' weights and buffers equal
+    bit for bit after it, 6 / 12 / 18 launches a step in each; the f32
+    step at global bs 16 (8 + 8): ms a step, its all-reduces (calls,
+    bytes, ms), peak memory of each process; ``evaluate_sharded`` over 8
+    synthetic images equal on both and within ``DP_EVAL_RTOL`` of one
+    process's ``evaluate``. ``predict_sharded`` on the one card equals
+    ``predict`` bit for bit on phase 15's bf16 artifact. A process that
+    fails, or outlasts ``DP_TIMEOUT``, fails the script.
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -181,7 +195,9 @@ step, ``launches_train_step``; and in the loop phase's uninterrupted run,
 ``launches_loop``; in phase 14's bf16 ``--device_pipeline`` run,
 ``launches_device_pipeline_loop``; in phase 15's eager call of each bs=1
 serving program, ``launches_serving`` by dtype; in phase 16's bs-16
-self-supervised step, ``launches_selfsup_step``; from the bf16 phase, per
+self-supervised step, ``launches_selfsup_step``; in phase 17's bs-16
+step of each of the two processes (8 rows each), ``launches_two_rank_step``;
+from the bf16 phase, per
 bs=1 forward, ``card_ms_bf16``,
 ``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
 dense bf16 tensor-core rate for the fused layer's bf16 products),
@@ -923,6 +939,14 @@ def train_golden_errors(device="cuda", compute_dtype="float32"):
     weights and the golden's crop offsets, against ``GOLDEN_TRAIN``
     (``golden_errors``; the golden is float64 in either case). Returns (the
     errors, the launch counts of the step, the loss)."""
+    model, loss, launches = golden_train_step(device, compute_dtype)
+    return golden_errors(golden_record(model, loss), np.load(GOLDEN_TRAIN)), launches, float(loss)
+
+
+def golden_train_step(device="cuda", compute_dtype="float32", rows=lambda batch: batch):
+    """``train_golden_errors``' step: (the model after it, the loss, the
+    launch counts of the step). ``rows`` takes the golden batch to the rows
+    the step runs on (a data-parallel process's: ``mesh.shard_batch``)."""
     from cfpnet_torch import kernels, weights
     from cfpnet_torch.models import fusion
     from cfpnet_torch.models.deltar import make_model, model_geometries
@@ -935,7 +959,8 @@ def train_golden_errors(device="cuda", compute_dtype="float32"):
     geoms = model_geometries(config, "train")
     state = steps.create_train_state(model, config, GOLDEN_TRAIN_TOTAL_STEPS)
     train_step = steps.make_train_step(model, config, geoms)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in golden_train_batch(config).items()}
+    batch = rows({k: torch.from_numpy(v).to(device)
+                  for k, v in golden_train_batch(config).items()})
     offsets = [tuple(o) for o in ref["crop_offsets"].tolist()]
     if offsets != golden_crop_offsets(config, GOLDEN_TRAIN_SEED):
         print("chip_smoke: this torch's generator draws other crop offsets than the golden's; "
@@ -953,7 +978,7 @@ def train_golden_errors(device="cuda", compute_dtype="float32"):
         fusion.crop_offsets = real
     if next(pinned, None) is not None:
         raise AssertionError("the step drew fewer crop offsets than the golden holds")
-    return golden_errors(golden_record(model, loss), ref), launches, float(loss)
+    return model, loss, launches
 
 
 def golden_selfsup_config():
@@ -2479,11 +2504,12 @@ def http_run(dst: str, image: np.ndarray, hist: np.ndarray, mask: np.ndarray):
                 batch_wait_ms=2.0)
 
 
-def serving_phase(config, geoms, args):
+def serving_phase(config, geoms, args, keep=None):
     """Phase 15: serving (``cfpnet_torch/serve``) on the card, the
     production model on the deterministic weights exported into a
-    temporary directory (removed after): bs 1 and 8 in bf16 (the headline
-    dtype) and bs 1 in f32, each reloaded by a fresh ``ServingModel``.
+    temporary directory (removed after; with ``keep``, a copy of the bf16
+    artifact stays there): bs 1 and 8 in bf16 (the headline dtype) and bs
+    1 in f32, each reloaded by a fresh ``ServingModel``.
 
     - graph: each program calls the three custom ops 6 / 6 / 18 times;
     - eager launches: one eager call of each program's module, the launch
@@ -2548,6 +2574,8 @@ def serving_phase(config, geoms, args):
             export_serving_artifact(config, sd, dst, batch_sizes=sizes, compute_dtype=dtype_name_,
                                     device="cuda")
             export_s = time.perf_counter() - t0
+            if keep and dtype == torch.bfloat16:
+                shutil.copytree(dst, keep)
             m = ServingModel(dst, "cuda")
             model, step = live_step(dtype)
             rec = dict(export_s=export_s, bytes={
@@ -2805,6 +2833,264 @@ def selfsup_phase(tconfig):
                 seconds=time.perf_counter() - t0)
 
 
+# phase 17: data parallelism (cfpnet_torch/parallel)
+DP_TIMEOUT = 600.0  # seconds for the two processes, and for any join or collective of theirs
+DP_STEPS_TIMED = 3  # bs-16 steps timed in each process, after one warm and one counted step
+DP_EVAL_IMAGES = 8  # synthetic images of the sharded evaluation
+DP_EVAL_RTOL = 1e-6  # its merged metrics against one process's evaluate
+
+
+def state_digest(model) -> str:
+    """sha256 of every parameter and buffer by name: equal digests, equal
+    bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class CountedAllReduce:
+    """``torch.distributed.all_reduce`` counted while inside (calls, bytes);
+    with ``sync``, each call also timed between two device synchronizations
+    (``ms``), so that the time is the collective's own (gloo copies a CUDA
+    tensor to the host after the kernels before it)."""
+
+    def __init__(self, sync: bool = False):
+        self.sync, self.calls, self.bytes, self.ms = sync, 0, 0, 0.0
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.real = dist.all_reduce
+
+        def counted(t, *args, **kw):
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size()
+            if self.sync:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = self.real(t, *args, **kw)
+            if self.sync:
+                torch.cuda.synchronize()
+                self.ms += 1e3 * (time.perf_counter() - t0)
+            return out
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self.real
+
+
+def dp_rank(rank: int, init_method: str, out_dir: str) -> None:
+    """Process ``rank`` of phase 17's two, both on ``cuda:0``, joined over
+    gloo (NCCL refuses two processes on one card). Writes
+    ``out_dir/rank{rank}.json``:
+
+    - ``golden``: the golden step (``golden_train_step``) on this process's
+      row of the bs-2 golden batch: its errors against ``GOLDEN_TRAIN``,
+      its launches, and a digest of every parameter and BatchNorm buffer
+      after it;
+    - ``evaluate``: ``evaluate_sharded`` over ``DP_EVAL_IMAGES`` synthetic
+      images at 480x640 on the stepped weights, and this process's own
+      ``evaluate`` of all of them;
+    - ``step16``: the production f32 step at global bs 16 (8 + 8 rows): the
+      launches of one step, ms a step over ``DP_STEPS_TIMED`` steps (host
+      clock, synchronized), the all-reduces of one step (calls, bytes, ms
+      between synchronizations, and that step's ms), one profiled step
+      (its ``c10d::allreduce_`` host time and the device's busy share),
+      and the peak of allocated memory."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.data.datasets import SyntheticDataset
+    from cfpnet_torch.data.pipeline import make_loader
+    from cfpnet_torch.evaluate_time import make_train_batch, train_config
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.parallel import mesh
+    from cfpnet_torch.train import steps
+    from cfpnet_torch.train.loop import evaluate, evaluate_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mesh.init_rank(rank, 2, init_method, "cuda:0", backend="gloo", timeout=DP_TIMEOUT)
+    out = dict(rank=rank, world=mesh.world_size(), backend=torch.distributed.get_backend(),
+               device=str(device))
+
+    model, loss, launches = golden_train_step(str(device), rows=mesh.shard_batch)
+    out["golden"] = dict(loss=float(loss), launches=launches, state_sha256=state_digest(model),
+                         errors=golden_errors(golden_record(model, loss), np.load(GOLDEN_TRAIN)))
+
+    config = production_config()
+    ds = SyntheticDataset(config, "online_eval", DP_EVAL_IMAGES)
+    out["evaluate"] = dict(
+        sharded=evaluate_sharded(model, config, ds, device=device),
+        one_process=evaluate(model, config, make_loader(config, "online_eval", dataset=ds,
+                                                        device=device)))
+    del model
+    torch.cuda.empty_cache()
+
+    tconfig = train_config(config)
+    model = make_model(tconfig, device=device)
+    model.load_state_dict(weights.deterministic_state_dict(tconfig), strict=True)
+    state = steps.create_train_state(model, tconfig, GOLDEN_TRAIN_TOTAL_STEPS)
+    train_step = steps.make_train_step(model, tconfig, model_geometries(tconfig, "train"))
+    batch = mesh.shard_batch(make_train_batch(tconfig, tconfig.bs, device))
+    seeds = iter(range(tconfig.seed, tconfig.seed + 10 ** 6))
+    torch.cuda.reset_peak_memory_stats(device)
+    train_step(state, batch, next(seeds))
+    kernels.reset_launches()
+    train_step(state, batch, next(seeds))
+    torch.cuda.synchronize()
+    step_launches = launch_counts()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS_TIMED):
+        loss = train_step(state, batch, next(seeds))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / DP_STEPS_TIMED
+    mesh.barrier()
+    with CountedAllReduce(sync=True) as reduced:
+        t0 = time.perf_counter()
+        train_step(state, batch, next(seeds))
+        torch.cuda.synchronize()
+        synced_ms = 1e3 * (time.perf_counter() - t0)
+    events = device_events(lambda: train_step(state, batch, next(seeds)))
+    c10d = [e for e in events if e.key == "c10d::allreduce_"]
+    out["step16"] = dict(
+        rows=int(batch["image"].shape[0]), global_batch=tconfig.bs, launches_a_step=step_launches,
+        ms_a_step=ms, images_a_s=tconfig.bs * 1000.0 / ms, steps_timed=DP_STEPS_TIMED,
+        loss=float(loss), allreduce_calls_a_step=reduced.calls,
+        allreduce_bytes_a_step=reduced.bytes, allreduce_ms_synced=reduced.ms,
+        step_ms_synced=synced_ms, allreduce_share_synced=reduced.ms / synced_ms,
+        profiled_c10d_allreduce=dict(calls=sum(e.count for e in c10d),
+                                     host_ms=sum(e.cpu_time_total for e in c10d) / 1e3),
+        profiled_step=busy(events, ms),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def multi_process_phase(artifact: str):
+    """Phase 17: data parallelism (``cfpnet_torch/parallel``) on the card.
+
+    (a) A process group of one over NCCL: the golden step through the
+        data-parallel step (its gradients all-reduced over NCCL) equals the
+        same step with no group bit for bit, loss and every parameter and
+        buffer, both under deterministic algorithms; and it is within
+        ``TRAIN_GOLDEN_TOL`` of the golden.
+    (b) Two processes on ``cuda:0`` over gloo (``dp_rank``, spawned by
+        ``parallel/launch.py``, ``DP_TIMEOUT``): the golden step as 1 + 1
+        rows within ``TRAIN_GOLDEN_TOL`` of the golden, both processes'
+        parameters and buffers after it equal bit for bit, 6 / 12 / 18
+        launches a step in each (the golden step and the bs-16 step);
+        the bs-16 step's times, all-reduces and memory for the record; and
+        ``evaluate_sharded``'s metrics equal on both, within
+        ``DP_EVAL_RTOL`` of one process's ``evaluate``.
+    (c) ``ServingModel.predict_sharded`` over the one card equals
+        ``predict`` bit for bit (``artifact``: phase 15's bf16 artifact, bs
+        1 and 8), by default and through a replica of the programs moved
+        to ``cuda:0`` (``devices=[cuda:0]``), as each card of several gets.
+
+    Gloo stages every collective through the host, and two processes share
+    the card: (b) measures the path, not multi-card speed."""
+    import gc
+    import shutil
+    import tempfile
+
+    from cfpnet_torch.data.datasets import SyntheticDataset, collate
+    from cfpnet_torch.parallel import launch, mesh
+    from cfpnet_torch.serve.export import ServingModel
+
+    t_phase = time.perf_counter()
+    ref = np.load(GOLDEN_TRAIN)
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        with deterministic_algorithms() as caught:
+            plain_model, plain_loss, _ = golden_train_step()
+            plain = {k: v.clone() for k, v in plain_model.state_dict().items()}
+            del plain_model
+            mesh.init_rank(0, 1, "file://" + os.path.join(work, "store"), "cuda:0",
+                           timeout=DP_TIMEOUT)
+            try:
+                backend = torch.distributed.get_backend()
+                with CountedAllReduce() as reduced:
+                    model, loss, launches = golden_train_step()
+            finally:
+                torch.distributed.destroy_process_group()
+        differ = [k for k, v in model.state_dict().items() if not torch.equal(v, plain[k])]
+        if backend != "nccl" or reduced.calls != 1 or not torch.equal(loss, plain_loss) or differ:
+            raise AssertionError(f"a group of one over {backend} ({reduced.calls} all-reduces): "
+                                 f"loss {float(loss)} against {float(plain_loss)}, "
+                                 f"{len(differ)} tensors differ: {differ[:5]}")
+        errs = golden_errors(golden_record(model, loss), ref)
+        if launches != TRAIN_LAUNCHES or set(errs) != set(TRAIN_GOLDEN_TOL) or not all(
+                v <= TRAIN_GOLDEN_TOL[k] for k, v in errs.items()):
+            raise AssertionError(f"the group of one's golden step: launches {launches}, "
+                                 f"errors {errs}")
+        one = dict(backend=backend, allreduce_calls=reduced.calls,
+                   allreduce_bytes=reduced.bytes, bit_for_bit_the_plain_step=True,
+                   deterministic_warnings=sorted({str(w.message)[:120] for w in caught}),
+                   golden_errors=errs, launches=launches)
+        del model, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        launch.spawn("chip_smoke:dp_rank", 2, (work,), timeout=DP_TIMEOUT)
+        two_s = time.perf_counter() - t0
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in ranks:
+        errs = r["golden"]["errors"]
+        if (r["world"], r["backend"]) != (2, "gloo") or set(errs) != set(TRAIN_GOLDEN_TOL) \
+                or not all(v <= TRAIN_GOLDEN_TOL[k] for k, v in errs.items()):
+            raise AssertionError(f"process {r['rank']}'s golden step: {r['golden']}")
+        if r["golden"]["launches"] != TRAIN_LAUNCHES or \
+                r["step16"]["launches_a_step"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"process {r['rank']} launched {r['golden']['launches']} in "
+                                 f"the golden step, {r['step16']['launches_a_step']} at bs 16")
+        ev = r["evaluate"]
+        if set(ev["sharded"]) != set(EVAL_METRICS) or not all(
+                abs(ev["sharded"][k] - ev["one_process"][k]) <= DP_EVAL_RTOL
+                * abs(ev["one_process"][k]) for k in EVAL_METRICS):
+            raise AssertionError(f"process {r['rank']}: sharded {ev['sharded']}, one process "
+                                 f"{ev['one_process']}")
+    if ranks[0]["golden"]["state_sha256"] != ranks[1]["golden"]["state_sha256"]:
+        raise AssertionError("the two processes hold other weights after the golden step")
+    if ranks[0]["golden"]["loss"] != ranks[1]["golden"]["loss"] or \
+            ranks[0]["evaluate"]["sharded"] != ranks[1]["evaluate"]["sharded"]:
+        raise AssertionError(f"the two processes disagree: {[r['golden'] for r in ranks]}, "
+                             f"{[r['evaluate']['sharded'] for r in ranks]}")
+
+    m = ServingModel(artifact, "cuda")
+    samples = SyntheticDataset(production_config(), "online_eval", 8)
+    batch = collate([samples[i] for i in range(8)])
+    eight = (quantize(batch["image"]), batch["hist_data"], batch["mask"])
+    want = m.predict(*eight)
+    for devices in (None, [torch.device("cuda", 0)]):
+        got = m.predict_sharded(*eight, devices=devices)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"predict_sharded over {devices} differs from predict: max "
+                                 f"{np.abs(got.astype(np.float64) - want).max()}")
+    replicas = sorted(m._replicas)
+    return dict(phase="multi_process", group_of_one=one, two_processes=dict(
+        seconds=two_s, golden_loss=ranks[0]["golden"]["loss"],
+        golden_errors=[r["golden"]["errors"] for r in ranks],
+        golden_launches=ranks[0]["golden"]["launches"], state_bit_identical=True,
+        evaluate_sharded=ranks[0]["evaluate"]["sharded"], step16=[r["step16"] for r in ranks]),
+        predict_sharded=dict(rows=8, equals_predict=True, replicas=replicas,
+                             cards=torch.cuda.device_count()),
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
@@ -2969,7 +3255,8 @@ def main() -> int:
     # 15. serving: the production model exported (bf16 bs 1 and 8, f32 bs 1),
     # reloaded, its custom ops, launches, replayed kernels, agreement with the
     # live eval step, golden, padding, times and one HTTP run
-    serving = serving_phase(config, geoms, args)
+    kept = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
+    serving = serving_phase(config, geoms, args, keep=os.path.join(kept, "bf16"))
     emit(serving)
     for r in rows:
         r["launches_serving"] = {
@@ -2982,6 +3269,20 @@ def main() -> int:
     emit(selfsup)
     for r in rows:
         r["launches_selfsup_step"] = selfsup["step"]["launches_a_step"][r["name"]]
+
+    # 17. data parallelism: a group of one over NCCL, two processes on the
+    # card over gloo (the golden step, bs 16, sharded evaluation), and
+    # predict_sharded on the one card
+    import shutil
+
+    try:
+        dp = multi_process_phase(os.path.join(kept, "bf16"))
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+    emit(dp)
+    for r in rows:
+        r["launches_two_rank_step"] = dp["two_processes"]["step16"][0]["launches_a_step"][
+            r["name"]]
 
     # 13. the headline benchmark at reduced iterations (its own JSON line),
     # with the root bench's train keys: the bf16 step's, the f32 step's

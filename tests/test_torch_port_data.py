@@ -244,8 +244,10 @@ def test_make_dataset_names_and_refusals(nyu_tree, zju_tree):
                                          "train"), pt_ds.SyntheticPairDataset)
     assert type(pt_ds.make_dataset(pt_cfg.replace(dataset_eval="nyu", selfsup=True),
                                    "online_eval")) is pt_ds.NYUV2Dataset
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pt_pipe.make_loader(pt_cfg, "train", mesh=object(), device="cpu")
+    # a train loader of a data-parallel run: the JAX loader's refusal of a batch
+    # size the processes do not divide
+    with pytest.raises(ValueError, match="bs=3, processes=2"):
+        pt_pipe.DataLoader(pt_ds.SyntheticDataset(pt_cfg, "train", 6), 3, rank=0, world=2)
     # --device_pipeline: the train loader ships the raw crops
     raw = pt_pipe.make_loader(pt_cfg.replace(dataset="nyu", device_pipeline=True), "train",
                               device="cpu")

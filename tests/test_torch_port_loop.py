@@ -440,7 +440,7 @@ ENTRY = ["--tiny_model", "--n_bins", "16", "--native_height", "64", "--native_wi
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--multihost"], "§A 9"), (["--spatial_shards", "2"], "§A 9"),
+    (["--multihost", "--spatial_shards", "2"], "§A 14"), (["--spatial_shards", "2"], "§A 14"),
     (["--device_pipeline", "--train_zone_random_offset", "1"], "drop one of the two flags")])
 def test_entry_point_refusals(flags, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

@@ -264,9 +264,9 @@ def test_manifest_geometry_equals_the_jax_manifests(served, tmp_path):
 
 def test_refusals(served, tmp_path):
     """(g) The geometry and batch-size ``ValueError``s of
-    ``artifact_eval_steps``, a device other than the manifest's, and the
-    multi-GPU requests (``predict_sharded``, ``--sharded``) with ROADMAP §A 9
-    named."""
+    ``artifact_eval_steps``, a device other than the manifest's, and
+    ``predict_sharded`` over devices that no exported size splits into
+    exported shares; over the one CPU it is ``predict``."""
     from cfpnet_torch.data.datasets import SyntheticDataset
     from cfpnet_torch.data.pipeline import DataLoader, make_loader
 
@@ -287,10 +287,44 @@ def test_refusals(served, tmp_path):
     with pytest.raises(KeyError, match="not exported"):
         served["models"]["validate"].exported(3)
     img, hist, mask = served["inputs"]
-    with pytest.raises(NotImplementedError, match="§A 9"):
-        served["models"]["validate"].predict_sharded(img, hist, mask)
-    with pytest.raises(NotImplementedError, match="§A 9"):
-        pt_http.main(["--artifact", dst, "--port", "0", "--sharded"])
+    m = served["models"]["validate"]
+    with pytest.raises(ValueError, match="3-device mesh"):
+        m.predict_sharded(img, hist, mask, devices=["cpu"] * 3)
+    np.testing.assert_array_equal(m.predict_sharded(img, hist, mask), m.predict(img, hist, mask))
+
+
+def test_predict_sharded_over_two_devices_and_the_sharded_server(served):
+    """``predict_sharded`` over two CPU "devices": each bs-2 chunk split
+    into two bs-1 shares, run through the bs-1 program, equals ``predict``
+    (bs-2 and bs-1 programs) in float32 tolerance; over ``cpu:0``, through
+    a replica whose programs ``move_to_device_pass`` placed there, bit for
+    bit; ``--sharded``'s server (on the CPU artifact, the one CPU) answers
+    as ``predict_sharded``."""
+    img, hist, mask = served["inputs"]
+    m = served["models"]["validate"]
+    calls = []
+    real = m.call
+    m.call = lambda *a: calls.append(int(a[0].shape[0])) or real(*a)
+    try:
+        got = m.predict_sharded(img, hist, mask, devices=["cpu", "cpu"])
+    finally:
+        del m.call
+    assert calls == [1] * (2 * -(-len(img) // 2))  # ceil(n / 2) chunks of two shares
+    np.testing.assert_allclose(got, m.predict(img, hist, mask), rtol=1e-5, atol=1e-5)
+    # a device named by its index gets a replica, its programs moved there
+    np.testing.assert_array_equal(m.predict_sharded(img, hist, mask, devices=["cpu:0"]),
+                                  m.predict(img, hist, mask))
+    assert sorted(m._replicas) == ["cpu:0"] and m._replicas["cpu:0"]._placed
+    server = pt_http.make_server(served["validate"], port=0, sharded=True, batch_wait_ms=0,
+                                 device="cpu")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        depth = _post(f"http://127.0.0.1:{server.server_address[1]}",
+                      dict(image_u8=img[:3], hist=hist[:3], mask=mask[:3]))
+        np.testing.assert_array_equal(depth, m.predict_sharded(img[:3], hist[:3], mask[:3]))
+    finally:
+        server.shutdown()
+        server.server_close()
 
 
 def test_sweep_through_the_artifact_matches_the_root_driver(served, tmp_path, monkeypatch):

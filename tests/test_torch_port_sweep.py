@@ -9,9 +9,10 @@ dataset choice and fallback.
   run float32); ``--selected_epoch best`` gives one row.
 - The .xlsx reads back through ``zipfile`` (as ``tests/test_xlsx.py``); the
   three save flags write the same files as the JAX hook; ``--multihost``
-  and a multi-process ``--shard_eval`` are refused, one process's
-  ``--shard_eval`` is a no-op (``--serving_artifact``:
-  ``tests/test_torch_port_serving.py``).
+  without an address or with a process outside the world is refused
+  before anything is written, one process's ``--shard_eval`` is a no-op
+  (two processes: ``tests/test_torch_port_multihost.py``;
+  ``--serving_artifact``: ``tests/test_torch_port_serving.py``).
 - The dataset choice by ``--test_dataset`` (ROADMAP §C 1): the port's
   ``eval_dataset_config`` against the root ``evaluate_all.py:169-174``,
   driven through the root's ``parse_config`` and ``zju_overrides``.
@@ -194,13 +195,18 @@ def test_save_flags_write_the_jax_hooks_files(weight_dirs, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,env,item", [
-    pytest.param(["--multihost"], {}, "§A 9", id="flags1-env1-§A 9"),
-    pytest.param(["--shard_eval"], {"WORLD_SIZE": "2"}, "§A 9", id="flags2-env2-§A 9")])
+    pytest.param(["--multihost"], {"WORLD_SIZE": "2", "RANK": "0"}, "--coordinator_address",
+                 id="flags1-env1-address"),
+    pytest.param(["--multihost", "--coordinator_address", "127.0.0.1:1", "--num_processes",
+                  "2", "--process_id", "2"], {}, "process_id 2 is not in a world of 2",
+                 id="flags2-env2-process_id")])
 def test_sweep_refusals(flags, env, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         pt_evaluate_all.main(SWEEP_ARGV + ["--device", "cpu"] + flags)
     assert not os.path.exists("results")
 
