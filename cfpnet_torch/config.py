@@ -9,7 +9,9 @@ nothing of the JAX package.
 
 Some flags only mean something to the JAX package's scripts
 (``--use_pallas``, ``--safe_dw_vjp``); they are parsed for surface parity
-and change nothing here. ``--spatial_shards > 1`` is parsed and refused.
+and change nothing here, but for the JAX package's own guard that spatial
+training (``--spatial_shards > 1``, ``parallel/spatial.py``) asks for
+``--safe_dw_vjp``.
 """
 
 from __future__ import annotations

@@ -41,6 +41,9 @@ Port of the root ``evaluate_all.py``: ``main`` (``:163-242``),
   (``train/loop.py::evaluate_sharded``, root ``:219-230``); without it, or
   in one process, every process sweeps the whole set, as in the JAX
   package. Rank 0 alone writes the reports (root ``:248``).
+- ``--spatial_shards N`` (> 1) sweeps with image rows split over N cards
+  of this process (``train/loop.py::evaluate``, ``parallel/spatial.py``),
+  as the root driver's 2-D mesh; ``dp * N`` must not exceed the cards.
 - The forward runs in float32 whatever ``--compute_dtype`` says, as the
   JAX package's eval step does (its ``make_eval_step`` casts nothing).
 
@@ -62,7 +65,7 @@ from .config import parse_config
 from .data.datasets import IMAGENET_MEAN, IMAGENET_STD, make_dataset
 from .data.pipeline import make_loader
 from .models.deltar import make_model, model_geometries
-from .parallel import mesh
+from .parallel import mesh, spatial
 from .train.loop import evaluate, evaluate_sharded, make_eval_steps, make_grouped_eval
 from .train.steps import make_metric_step
 
@@ -160,7 +163,12 @@ def artifact_eval_steps(config, loader, artifact_path: str, device="cuda"):
     ``steps.make_eval_step`` and ``make_metric_step``. Raises ``ValueError``
     where the eval set's zone geometry is not the artifact's, or its batch
     size not exported; ``ServingModel`` raises where ``device`` is not the
-    artifact's."""
+    artifact's.
+
+    Under ``--spatial_shards`` the sweep's grid checks each batch
+    (``parallel/spatial.py::shard_batch_spatial``, the same errors as the
+    root driver's) and the artifact runs on the grid's root: the root
+    driver's metrics, on one device (ROADMAP.md §C)."""
     from .serve import ServingModel
     from .serve.export import geometry_dict
 
@@ -188,7 +196,14 @@ def artifact_eval_steps(config, loader, artifact_path: str, device="cuda"):
     protocol = m.manifest.get("protocol", "validate")
     mean, std = (torch.as_tensor(a, device=m.device) for a in (IMAGENET_MEAN, IMAGENET_STD))
 
-    def eval_step(batch):
+    def eval_step(batch, grid=None):
+        if grid is not None:
+            # one exported program for one device: the batch is checked
+            # against the grid as a spatial sweep places it (the JAX sweep
+            # partitions the exported program itself), and the program runs
+            # on the whole batch on the grid's root
+            spatial.shard_batch_spatial(batch, grid)
+            batch = {k: v.to(grid.root) for k, v in batch.items()}
         if "image_u8" in batch:
             img = batch["image_u8"]
         else:

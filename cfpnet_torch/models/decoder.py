@@ -22,6 +22,7 @@ from torch import nn
 
 from ..data.geometry import ScaleGeometry
 from ..ops.interp import resize_bilinear_align_corners
+from ..parallel import spatial
 from .fusion import TransformerFusion
 from .layers import BatchNorm
 
@@ -32,6 +33,10 @@ def _nhwc(x):
 
 def _nchw(x):
     return x.permute(0, 3, 1, 2)
+
+
+def _cat(x, y):
+    return torch.cat([x, y], dim=1)
 
 
 class UpSampleBN(nn.Module):
@@ -51,6 +56,13 @@ class UpSampleBN(nn.Module):
                                                  concat_with.shape[3]))
         return self._net(torch.cat([up, concat_with], dim=1))
 
+    def forward_rows(self, X, skip, grid):
+        """Over row-sharded maps: each shard resizes to its rows of the
+        skip's global size."""
+        up = spatial.each(_nchw, spatial.resize_rows(spatial.each(_nhwc, X),
+                                                     spatial.height(skip), skip[0][0].shape[3]))
+        return spatial.apply_rows(self._net, spatial.each(_cat, up, skip), grid)
+
 
 class DepthRegression(nn.Module):
     def __init__(self, in_channels: int, dim_out: int = 256, embedding_dim: int = 128,
@@ -69,14 +81,25 @@ class DepthRegression(nn.Module):
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         range_attention_maps = self.conv3x3(x)
-        y = self.regressor(self.conv1x1(x).mean(dim=(2, 3)))
+        return self._bins(self.conv1x1(x).mean(dim=(2, 3))), range_attention_maps
+
+    def _bins(self, mean):
+        """Normalized bin widths [B, dim_out] of the embedding's means."""
+        y = self.regressor(mean)
         if self.norm == "linear":
             y = F.relu(y) + 0.1
         elif self.norm == "softmax":
-            return torch.softmax(y, dim=1), range_attention_maps
+            return torch.softmax(y, dim=1)
         else:
             y = torch.sigmoid(y)
-        return y / y.sum(dim=1, keepdim=True), range_attention_maps
+        return y / y.sum(dim=1, keepdim=True)
+
+    def forward_rows(self, X, grid):
+        """Over a row-sharded map: the range-attention maps row-sharded, the
+        bin widths of the whole batch on the grid's root from each image's
+        mean over all its rows."""
+        return (self._bins(spatial.image_means(spatial.apply_rows(self.conv1x1, X, grid), grid)),
+                spatial.apply_rows(self.conv3x3, X, grid))
 
 
 class Decoder(nn.Module):
@@ -129,3 +152,31 @@ class Decoder(nn.Module):
         x_d1 = fuse(x_d1, self.cross_atten1, depth_feat1, 4)
         x_d0 = self.up4(x_d1, x_block0)
         return self.conv0(x_d0)
+
+    def forward_rows(self, img_features, hist_features, hist_mask,
+                     geoms: Dict[int, ScaleGeometry], generator: Optional[torch.Generator],
+                     grid):
+        """Over row-sharded feature maps. Each fusion runs once, on the
+        gathered map of the whole batch on the grid's root (its zones,
+        windows and crop of the positional encoding span the map), and each
+        shard takes back its rows of the result."""
+        x_block0, x_block1, x_block2, x_block3, x_block4 = img_features
+        depth_feat1, depth_feat2, depth_feat3 = hist_features
+
+        def run(m, X):
+            return spatial.apply_rows(m, X, grid)
+
+        def fuse(X, fusion, feat, scale):
+            fused = fusion(_nhwc(spatial.gather(X, grid.root)), feat, hist_mask, geoms[scale],
+                           generator)
+            return spatial.each(_cat, X, spatial.scatter(_nchw(fused), grid))
+
+        x_d4 = run(self.conv4, x_block4)
+        x_d3 = run(self.conv3, self.up1.forward_rows(x_d4, x_block3, grid))
+        x_d3 = fuse(x_d3, self.cross_atten3, depth_feat3, 16)
+        x_d2 = run(self.conv2, self.up2.forward_rows(x_d3, x_block2, grid))
+        x_d2 = fuse(x_d2, self.cross_atten2, depth_feat2, 8)
+        x_d1 = run(self.conv1, self.up3.forward_rows(x_d2, x_block1, grid))
+        x_d1 = fuse(x_d1, self.cross_atten1, depth_feat1, 4)
+        x_d0 = self.up4.forward_rows(x_d1, x_block0, grid)
+        return run(self.conv0, x_d0)

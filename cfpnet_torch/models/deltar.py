@@ -23,6 +23,10 @@ running statistics move once a step) and on the parameters the forward
 saw: the tensors that ``torch.func.functional_call`` swapped in for a bf16
 step are handed to the checkpoint as inputs, so the recompute, which runs
 after that call has put the masters back, uses them again.
+
+``grid`` (``--spatial_shards``, ``parallel/spatial.py``): the same modules
+and parameters walk a batch whose image rows are split over a device grid
+(``forward_rows`` of each module), with the one-device forward's results.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..data.geometry import ScaleGeometry, geometry_for
+from ..parallel import spatial
 from .decoder import Decoder, DepthRegression
 from .efficientnetv2 import V2_B3_STAGES, V2_B3_STEM, V2_TINY_STAGES, V2_TINY_STEM
 from .encoder import HistogramEncoder, ImageEncoder
@@ -66,35 +71,71 @@ class Deltar(nn.Module):
         self.depth_head = DepthRegression(num_classes, n_bins, num_classes, norm)
         self.conv_out = nn.Sequential(nn.Conv2d(num_classes, n_bins, 1))
 
-    def forward(self, rgb: torch.Tensor, hist_data: torch.Tensor, hist_mask: torch.Tensor,
-                geoms: Dict[int, ScaleGeometry], generator: Optional[torch.Generator] = None):
+    def forward(self, rgb, hist_data, hist_mask, geoms: Dict[int, ScaleGeometry],
+                generator: Optional[torch.Generator] = None, grid=None):
+        """The forward of one device, or with ``grid`` the row-sharded
+        forward of a batch placed by ``parallel/spatial.py::
+        shard_batch_spatial`` (``forward_rows``)."""
+        if grid is not None:
+            return self.forward_rows(rgb, hist_data, hist_mask, geoms, generator, grid)
         img_features = self.encode_image(rgb.permute(0, 3, 1, 2))
         hist_features = self.hist_encoder(hist_data[..., None])
         unet_out = self.decoder(img_features, hist_features, hist_mask, geoms, generator)
         bin_widths_normed, range_attention_maps = self.depth_head(unet_out)
         out = self.conv_out(range_attention_maps)
-
-        # Depth reconstruction (reference deltar.py:53-61) runs in f32 (or
-        # wider) whatever the compute dtype, as in the JAX package.
         rdt = torch.promote_types(out.dtype, torch.float32)
+        bin_edges, centers = self._bins(bin_widths_normed, rdt)
         prob = torch.softmax(out.to(rdt), dim=1)
-        bin_widths = (self.max_val - self.min_val) * bin_widths_normed.to(rdt)
-        bin_widths = F.pad(bin_widths, (1, 0), value=self.min_val)
-        bin_edges = torch.cumsum(bin_widths, dim=1)
-        centers = 0.5 * (bin_edges[:, :-1] + bin_edges[:, 1:])
         pred = torch.sum(prob * centers[:, :, None, None], dim=1, keepdim=True)
         if self.training:
             return bin_edges, pred.permute(0, 2, 3, 1)
         return bin_edges, pred.permute(0, 2, 3, 1), prob.permute(0, 2, 3, 1), None
 
-    def encode_image(self, x: torch.Tensor):
-        """The image encoder; rematerialized in training under ``remat``."""
+    def _bins(self, bin_widths_normed, rdt):
+        """(bin_edges, bin centers). The depth reconstruction (reference
+        deltar.py:53-61) runs in f32 (or wider) whatever the compute dtype,
+        as in the JAX package."""
+        bin_widths = (self.max_val - self.min_val) * bin_widths_normed.to(rdt)
+        bin_widths = F.pad(bin_widths, (1, 0), value=self.min_val)
+        bin_edges = torch.cumsum(bin_widths, dim=1)
+        return bin_edges, 0.5 * (bin_edges[:, :-1] + bin_edges[:, 1:])
+
+    def forward_rows(self, rgb, hist_data, hist_mask, geoms, generator, grid):
+        """The forward over a grid (``parallel/spatial.py``): ``rgb`` and
+        the outputs ``pred`` and ``prob`` row-sharded NHWC maps
+        (``X[d][s]``), ``hist_data`` and ``hist_mask`` lists over the data
+        groups, ``bin_edges`` the whole batch's on the grid's root. The
+        histogram encoder and the fusions run once on the whole batch on the
+        root, the rest shard by shard; the reconstruction stays per pixel,
+        with each image's bin centers."""
+        img_features = self.encode_image(spatial.each(lambda x: x.permute(0, 3, 1, 2), rgb),
+                                         grid)
+        hist_features = self.hist_encoder(spatial.whole(hist_data, grid.root)[..., None])
+        unet_out = self.decoder.forward_rows(img_features, hist_features,
+                                             spatial.whole(hist_mask, grid.root), geoms,
+                                             generator, grid)
+        bin_widths_normed, range_attention_maps = self.depth_head.forward_rows(unet_out, grid)
+        out = spatial.apply_rows(self.conv_out, range_attention_maps, grid)
+        rdt = torch.promote_types(out[0][0].dtype, torch.float32)
+        bin_edges, centers = self._bins(bin_widths_normed, rdt)
+        prob = spatial.each(lambda o: torch.softmax(o.to(rdt), dim=1), out)
+        pred = spatial.per_group(
+            lambda p, c: torch.sum(p * c[:, :, None, None], dim=1, keepdim=True), prob,
+            centers, grid)
+        pred = spatial.each(lambda p: p.permute(0, 2, 3, 1), pred)
+        if self.training:
+            return bin_edges, pred
+        return bin_edges, pred, spatial.each(lambda p: p.permute(0, 2, 3, 1), prob), None
+
+    def encode_image(self, x: torch.Tensor, grid=None):
+        """The image encoder (row-sharded on ``grid``); rematerialized in
+        training under ``remat``."""
         if not (self.remat and self.training and torch.is_grad_enabled()):
-            return self.img_encoder(x)
+            return self.img_encoder(x, grid)
         names, params = zip(*self.img_encoder.named_parameters())
 
         def run(x, *params):
-            return functional_call(self.img_encoder, dict(zip(names, params)), (x,))
+            return functional_call(self.img_encoder, dict(zip(names, params)), (x, grid))
 
         return checkpoint(run, x, *params, use_reentrant=False, preserve_rng_state=False,
                           context_fn=lambda: (contextlib.nullcontext(),

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .layers import BatchNorm
 
 BN_EPS = 1e-3
@@ -48,6 +49,13 @@ class Conv2dSame(nn.Conv2d):
         pl, pr = _same_pad(x.shape[-1], self.kernel_size[1], self.stride[1])
         return super().forward(F.pad(x, (pl, pr, pt, pb)))
 
+    def forward_rows(self, X, grid):
+        """Over a row-sharded map: the SAME padding of the global height."""
+        H, W = spatial.height(X), X[0][0].shape[3]
+        pt, _ = _same_pad(H, self.kernel_size[0], self.stride[0])
+        return spatial.conv2d_rows(self, X, pt, _same_pad(W, self.kernel_size[1], self.stride[1]),
+                                   math.ceil(H / self.stride[0]))
+
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
     new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
@@ -66,8 +74,15 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x):
         se = x.mean((2, 3), keepdim=True)
-        se = F.silu(self.conv_reduce(se))
-        return x * torch.sigmoid(self.conv_expand(se))
+        return x * self._gate(se)
+
+    def _gate(self, se):
+        return torch.sigmoid(self.conv_expand(F.silu(self.conv_reduce(se))))
+
+    def forward_rows(self, X, grid):
+        """Over a row-sharded map: each image's mean over all its rows."""
+        se = spatial.image_means(X, grid)
+        return spatial.per_group(lambda x, g: x * g, X, self._gate(se[:, :, None, None]), grid)
 
 
 class ConvBnAct(nn.Module):
@@ -80,6 +95,10 @@ class ConvBnAct(nn.Module):
     def forward(self, x):
         y = F.silu(self.bn1(self.conv(x)))
         return y + x if self.has_residual else y
+
+    def forward_rows(self, X, grid):
+        y = spatial.each(F.silu, spatial.chain((self.conv, self.bn1), X, grid))
+        return spatial.each(torch.add, y, X) if self.has_residual else y
 
 
 class EdgeResidual(nn.Module):
@@ -98,6 +117,11 @@ class EdgeResidual(nn.Module):
         y = F.silu(self.bn1(self.conv_exp(x)))
         y = self.bn2(self.conv_pwl(y))
         return y + x if self.has_residual else y
+
+    def forward_rows(self, X, grid):
+        y = spatial.each(F.silu, spatial.chain((self.conv_exp, self.bn1), X, grid))
+        y = spatial.chain((self.conv_pwl, self.bn2), y, grid)
+        return spatial.each(torch.add, y, X) if self.has_residual else y
 
 
 class InvertedResidual(nn.Module):
@@ -121,6 +145,12 @@ class InvertedResidual(nn.Module):
         y = F.silu(self.bn2(self.conv_dw(y)))
         y = self.bn3(self.conv_pwl(self.se(y)))
         return y + x if self.has_residual else y
+
+    def forward_rows(self, X, grid):
+        y = spatial.each(F.silu, spatial.chain((self.conv_pw, self.bn1), X, grid))
+        y = spatial.each(F.silu, spatial.chain((self.conv_dw, self.bn2), y, grid))
+        y = spatial.chain((self.se, self.conv_pwl, self.bn3), y, grid)
+        return spatial.each(torch.add, y, X) if self.has_residual else y
 
 
 @dataclass(frozen=True)

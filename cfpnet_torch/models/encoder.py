@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .efficientnetv2 import V2_B3_STAGES, V2_B3_STEM, Conv2dSame, make_stages, BN_EPS
 from .layers import BatchNorm
 
@@ -89,11 +90,25 @@ class ImageEncoder(nn.Module):
         self.conv3 = nn.ModuleList([s[3], s[4]])
         self.conv4 = s[5]
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, grid=None) -> List[torch.Tensor]:
+        """The five scales of an NCHW image, or of a row-sharded one on
+        ``grid`` (``parallel/spatial.py``)."""
+        if grid is not None:
+            return self.forward_rows(x, grid)
         stem, bn1, stage0 = self.conv0
         x0 = stage0(F.silu(bn1(stem(x))))
         x1 = self.conv1(x0)
         x2 = self.conv2(x1)
         x3 = self.conv3[1](self.conv3[0](x2))
         x4 = self.conv4(x3)
+        return [x0, x1, x2, x3, x4]
+
+    def forward_rows(self, X, grid):
+        stem, bn1, stage0 = self.conv0
+        x0 = spatial.apply_rows(stage0, spatial.each(F.silu, spatial.chain((stem, bn1), X,
+                                                                           grid)), grid)
+        x1 = spatial.apply_rows(self.conv1, x0, grid)
+        x2 = spatial.apply_rows(self.conv2, x1, grid)
+        x3 = spatial.chain(self.conv3, x2, grid)
+        x4 = spatial.apply_rows(self.conv4, x3, grid)
         return [x0, x1, x2, x3, x4]

@@ -28,7 +28,8 @@ axis (``channel_dim`` 1 for NCHW, -1 for channels-last tokens).
   channel, and one differentiable all-reduce (``all_reduce_sum``) adds
   them over the processes. Every process then normalizes with, and moves
   its running statistics by, the same values. Eval mode communicates
-  nothing.
+  nothing. Over a row-sharded map (``forward_rows``, ``--spatial_shards``)
+  the same sums run over every shard of one process's grid.
 - Inside ``frozen_running_stats()`` a training forward normalizes with the
   batch's statistics and leaves the running ones as they are: the
   recompute of a rematerialized forward (``models/deltar.py``, ``--remat``)
@@ -44,6 +45,7 @@ import threading
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from ..parallel.mesh import all_reduce_sum, world_size
 
 MOMENTUM = 0.9  # flax: the weight of the old running value
@@ -74,33 +76,62 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = [1] * x.dim()
-        shape[self.channel_dim] = -1
         if self.training:
             mean, var = self._batch_stats(x)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return self._normalize(x, mean, var)
+
+    def forward_rows(self, X, grid):
+        """Over a row-sharded map (``parallel/spatial.py``): in training the
+        statistics of every shard of every data group, summed on the
+        grid's root, the running statistics moved once."""
+        if self.training:
+            sums = spatial.sum_to([self._sums(x) for parts in X for x in parts], grid.root)
+            mean, var = self._update_running(*self._from_sums(sums))
+        else:
+            mean, var = self.running_mean, self.running_var
+        return spatial.each(lambda x: self._normalize(x, mean.to(x.device), var.to(x.device)), X)
+
+    def _normalize(self, x, mean, var):
+        shape = [1] * x.dim()
+        shape[self.channel_dim] = -1
+        weight, bias = self.weight, self.bias
+        if weight.device != x.device:  # a shard on another device of the grid
+            weight, bias = weight.to(x.device), bias.to(x.device)
+        mul = torch.rsqrt(var + self.eps) * weight
+        y = (x - mean.view(shape)) * mul.view(shape) + bias.view(shape)
         # flax's _normalize: the output takes the dtype of (x, scale, bias),
         # not that of the f32 statistics (a bf16 step's BatchNorm gives bf16)
         return y.to(torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype),
                                         self.bias.dtype))
 
+    def _sums(self, x: torch.Tensor) -> torch.Tensor:
+        """[sum x, sum x^2 per channel, count], in float32 or wider."""
+        axes = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xs.new_full((1,), xs.numel() // xs.shape[self.channel_dim])
+        return torch.cat([xs.sum(axes), (xs * xs).sum(axes), count])
+
+    def _from_sums(self, sums: torch.Tensor):
+        C = (sums.shape[0] - 1) // 2
+        mean = sums[:C] / sums[-1]
+        return mean, torch.clamp_min(sums[C:2 * C] / sums[-1] - mean * mean, 0.0)
+
     def _batch_stats(self, x: torch.Tensor):
         """flax ``_compute_stats`` with ``use_fast_variance``, over the
         global batch in a data-parallel run, then the running update."""
+        if world_size() > 1:
+            return self._update_running(*self._from_sums(all_reduce_sum(self._sums(x))))
         axes = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
-        if world_size() > 1:
-            C = xs.shape[self.channel_dim]
-            count = xs.new_full((1,), xs.numel() // C)
-            sums = all_reduce_sum(torch.cat([xs.sum(axes), (xs * xs).sum(axes), count]))
-            mean = sums[:C] / sums[-1]
-            var = torch.clamp_min(sums[C:2 * C] / sums[-1] - mean * mean, 0.0)
-        else:
-            mean = xs.mean(axes)
-            var = torch.clamp_min((xs * xs).mean(axes) - mean * mean, 0.0)
+        mean = xs.mean(axes)
+        return self._update_running(mean,
+                                    torch.clamp_min((xs * xs).mean(axes) - mean * mean, 0.0))
+
+    def _update_running(self, mean, var):
+        """The running update with the batch's statistics (none inside
+        ``frozen_running_stats``); returns them."""
         if getattr(_frozen, "on", False):
             return mean, var
         with torch.no_grad():

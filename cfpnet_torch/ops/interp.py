@@ -88,3 +88,23 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
     if w != out_w:
         x = torch.einsum("pw,...hwc->...hpc", _matrix(w, out_w, x), x)
     return x
+
+
+def row_window(in_size: int, out_size: int, a: int, b: int):
+    """``(lo, hi)``: the input rows that output rows ``[a, b)`` of a resize
+    from ``in_size`` to ``out_size`` weigh (their matrix rows' nonzero
+    columns); ``(0, 0)`` for no output rows."""
+    if a >= b:
+        return 0, 0
+    cols = np.flatnonzero(_interp_matrix(in_size, out_size)[a:b].any(axis=0))
+    return int(cols[0]), int(cols[-1]) + 1
+
+
+def resize_rows_align_corners(window: torch.Tensor, in_h: int, out_h: int, a: int, b: int,
+                              lo: int) -> torch.Tensor:
+    """Output rows ``[a, b)`` of the align-corners resize along the rows
+    (axis -3) of a map of ``in_h`` rows to ``out_h``, from ``window``, the
+    map's rows ``[lo, lo + window.shape[-3])`` that ``row_window`` names:
+    the rows of ``resize_bilinear_align_corners``' first product."""
+    m = _matrix(in_h, out_h, window)[a:b, lo:lo + window.shape[-3]]
+    return torch.einsum("oh,...hwc->...owc", m, window)

@@ -48,12 +48,20 @@ package's mesh), spawned here; with one card that is one, and nothing is
 spawned. Either way the loop is data-parallel over the global batch
 (``train/loop.py``).
 
-Refused with ``NotImplementedError``: ``--spatial_shards > 1``
-(ROADMAP.md §A 14); and, as the JAX loop refuses it,
+``--spatial_shards N`` (> 1) splits image rows over N devices of this
+process (``parallel/spatial.py``, the JAX 2-D mesh): the loop steps on a
+grid of ``--dp_shards`` (default: the cards over N) by N cards, and nothing
+is spawned; ``--dp_shards`` is then the grid's data axis, as in the JAX
+loop. It needs ``--safe_dw_vjp``, as the JAX package does (``ValueError``),
+and ``dp * N`` cards. ``--selfsup`` with it trains on one card and
+validates on the grid, as the JAX self-supervised loop does.
+
+Refused with ``NotImplementedError``: ``--spatial_shards > 1`` with
+``--multihost`` (spatial partitioning is single-controller) or with
+``--device_pipeline``; and, as the JAX loop refuses it,
 ``--train_zone_random_offset`` with ``--device_pipeline``.
-``--use_pallas`` and ``--safe_dw_vjp`` are accepted and change nothing: the
-port always runs its CUDA kernels on the card, and its gradients need no
-partitioner workaround.
+``--use_pallas`` is accepted and changes nothing: the port always runs its
+CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -80,11 +88,11 @@ def set_seeds(seed: int) -> None:
 
 
 def refuse(config) -> None:
-    """Raises, before any process starts, for the options of the root
-    ``train.py`` that the port does not have (the loop refuses them too)."""
-    if config.spatial_shards > 1:
-        raise NotImplementedError("--spatial_shards > 1: spatial sharding is not ported yet "
-                                  "(ROADMAP.md §A 14)")
+    """Raises, before any process starts, for the combinations of options
+    that the JAX package refuses."""
+    if config.spatial_shards > 1 and config.multihost:
+        raise NotImplementedError("spatial partitioning is single-controller; use shard_batch "
+                                  "for multi-host DP")
 
 
 def local_device_count(device: torch.device) -> int:
@@ -113,7 +121,7 @@ def main(argv: Optional[List[str]] = None):
         config = config.replace(no_logging=False)
     refuse(config)
     device = torch.device(args.device)
-    if not config.multihost:
+    if not config.multihost and config.spatial_shards <= 1:
         world = mesh.dp_world_size(config.dp_shards, local_device_count(device), config.bs)
         if world > 1:
             launch.spawn("cfpnet_torch.train.__main__:spawned_rank", world,

@@ -13,8 +13,12 @@ checkpoint that ``--resume`` reads), steps on its rows of each global batch
 with the same seeds and zone offsets, validates through
 ``evaluate_sharded`` (the images strided over the processes, the metrics
 merged), and rank 0 alone writes the checkpoints, the weights and the
-JSONL log, then all wait for it. Spatial sharding (``--spatial_shards``,
-the JAX 2-D mesh) is not ported (ROADMAP.md §A 14).
+JSONL log, then all wait for it.
+
+``--spatial_shards N`` (the JAX 2-D ``('data', 'spatial')`` mesh, one
+process): each step's batch goes onto a ``dp x N`` grid of devices, image
+rows over the N shards (``parallel/spatial.py``), through the row-sharded
+train step; validation sweeps on a grid of its own (``evaluate``).
 
 ``--device_pipeline`` (``cfpnet_tpu/train/loop.py:486-500, 515-517``): the
 loader ships raw crops and ``data/tof_sim_device.py::preprocess_batch``
@@ -51,7 +55,7 @@ from ..data.geometry import geometry_for, zone_offset_for
 from ..data.pipeline import make_loader
 from ..data.tof_sim_device import preprocess_batch
 from ..models.deltar import make_model, model_geometries
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from .checkpoint import load_checkpoint, save_checkpoint, save_weights
 from .losses import RunningAverageDict
 from .steps import create_train_state, make_eval_step, make_metric_step, make_train_step
@@ -94,8 +98,23 @@ def _pad(batch: Dict[str, torch.Tensor], size: int) -> Dict[str, torch.Tensor]:
     return {k: torch.cat([v] + [v[-1:]] * (size - v.shape[0])) for k, v in batch.items()}
 
 
+def spatial_eval_grid(config, eval_bs: int, device, devices=None):
+    """The grid of a ``--spatial_shards`` sweep (JAX ``loop.py:90-114``), or
+    None without the flag: ``spatial_shards`` rows shards, and as many data
+    groups as the devices hold, down to a divisor of ``eval_bs``.
+    ``devices``: the library's list (a device may repeat), default every
+    card where ``device`` is one."""
+    if getattr(config, "spatial_shards", 0) <= 1:
+        return None
+    spatial.check_single_process()
+    devices = list(devices) if devices is not None else spatial.available_devices(device)
+    sp = config.spatial_shards
+    dp = spatial.data_axis(sp, len(devices), eval_bs)
+    return spatial.make_mesh_2d(dp, sp, devices, batch_size=eval_bs)
+
+
 def evaluate(model, config, loader, protocol: str = "validate", steps=None,
-             per_image_hook=None, _accumulator=None) -> Dict[str, float]:
+             per_image_hook=None, _accumulator=None, devices=None) -> Dict[str, float]:
     """Metric sweep over an eval loader at its resolution.
 
     Metrics are computed per image and averaged image-weighted through
@@ -110,10 +129,15 @@ def evaluate(model, config, loader, protocol: str = "validate", steps=None,
     ``per_image_hook(dataset_index, pred_hw, batch, j)`` is called for each
     real sample with its full-resolution prediction and the host copy of the
     batch's ``image_u8``/``image``/``depth`` (the loader is sequential, so
-    ``dataset_index`` counts the dataset)."""
+    ``dataset_index`` counts the dataset).
+
+    ``--spatial_shards N`` (> 1) sweeps on the grid of ``spatial_eval_grid``
+    over ``devices``: the eval step places each batch on it and runs the
+    row-sharded forward (``train/steps.py::make_eval_step``)."""
     eval_step, metric_step = steps if steps is not None else make_eval_steps(
         model, config, loader, protocol)
     eval_bs = getattr(loader, "batch_size", 1)
+    grid = spatial_eval_grid(config, eval_bs, getattr(loader, "device", "cpu"), devices)
     metrics = RunningAverageDict() if _accumulator is None else _accumulator
     seen = 0
     for batch in loader:
@@ -122,7 +146,7 @@ def evaluate(model, config, loader, protocol: str = "validate", steps=None,
         n_real = int(batch[img_key].shape[0])
         if n_real < eval_bs:
             batch = _pad(batch, eval_bs)
-        pred, _prob = eval_step(batch)
+        pred, _prob = eval_step(batch) if grid is None else eval_step(batch, grid)
         m, n = metric_step(batch["depth"], pred)
         rows = [m[k] for k in m] + [n.to(pred.dtype)]
         if hvd is not None:
@@ -288,11 +312,42 @@ def debug_nans_step(train_step):
     return checked
 
 
+def spatial_train_grid(config, device, devices=None):
+    """The grid of a ``--spatial_shards`` run (JAX ``loop.py:331-390``), or
+    None without the flag. JAX's refusals: ``ValueError`` without
+    ``--safe_dw_vjp`` (the JAX package's guard, kept for the same command
+    lines), ``NotImplementedError`` with ``--device_pipeline`` or in a
+    process group of several processes. The data axis is ``--dp_shards``,
+    else the devices over ``spatial_shards``, down to a divisor of the
+    batch (of the microbatch under ``--grad_accum``)."""
+    if getattr(config, "spatial_shards", 0) <= 1:
+        return None
+    if not config.safe_dw_vjp:
+        raise ValueError(
+            "--spatial_shards for TRAINING requires --safe_dw_vjp: the JAX package's spatial "
+            "training is equality-verified only with its safe grouped-conv VJPs, and the "
+            "port keeps its command lines")
+    if config.device_pipeline:
+        raise NotImplementedError(
+            "--device_pipeline with train-side --spatial_shards is not verified (the "
+            "on-device ToF sim has not been audited under spatial sharding); drop one of the "
+            "two flags")
+    spatial.check_single_process()
+    devices = list(devices) if devices is not None else spatial.available_devices(device)
+    accum = int(getattr(config, "grad_accum", 1) or 1)
+    if accum > 1 and config.bs % accum != 0:
+        raise ValueError(f"--grad_accum {accum} does not divide --bs {config.bs}")
+    sp = config.spatial_shards
+    dp = spatial.data_axis(sp, len(devices), config.bs // accum, config.dp_shards, "train",
+                           "--bs")
+    return spatial.make_mesh_2d(dp, sp, devices, batch_size=config.bs)
+
+
 def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] = None,
                  device="cuda", init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  trace: Optional[List[dict]] = None,
                  step_context: Callable[[int], contextlib.AbstractContextManager] = (
-                     lambda step: contextlib.nullcontext())):
+                     lambda step: contextlib.nullcontext()), devices=None):
     """End-to-end training (reference train.py main_worker + train): returns
     the final ``TrainState``.
 
@@ -309,10 +364,12 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
 
     In a process group (``parallel/mesh.py``) the run is data-parallel
     (module docstring): ``trace`` then holds this process's rows'
-    ``indices`` and the global loss."""
-    if getattr(config, "spatial_shards", 0) > 1:
-        raise NotImplementedError("--spatial_shards > 1: spatial sharding is not ported yet "
-                                  "(ROADMAP.md §A 14)")
+    ``indices`` and the global loss.
+
+    ``--spatial_shards N`` (> 1) steps on a grid of ``devices``
+    (``spatial_train_grid``) and validates on the sweep's grid
+    (``evaluate``)."""
+    grid = spatial_train_grid(config, device, devices)
     zone_off = int(getattr(config, "train_zone_random_offset", 0) or 0)
     if zone_off > 0 and config.device_pipeline:
         raise NotImplementedError(
@@ -343,7 +400,8 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
 
     def train_step_for(o: int):
         if o not in step_fns:
-            step = make_train_step(model, config, model_geometries(config, "train", (o, o)))
+            step = make_train_step(model, config, model_geometries(config, "train", (o, o)),
+                                   grid)
             step_fns[o] = debug_nans_step(step) if config.debug_nans else step
         return step_fns[o]
 
@@ -406,7 +464,7 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
                                            protocol="validate", steps=eval_steps, device=device)
             else:
                 metrics = evaluate(model, config, eval_loader, protocol="validate",
-                                   steps=eval_steps)
+                                   steps=eval_steps, devices=devices)
             timing["val_s"] = time.perf_counter() - t_val
             rmse = metrics.get("rmse", float("inf"))
             logger.log(kind="val", epoch=epoch, step=step, **metrics)

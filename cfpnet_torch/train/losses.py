@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.interp import resize_bilinear_align_corners
+from ..parallel import spatial
 from ..parallel.mesh import all_reduce_sum, world_size
 
 
@@ -45,6 +46,23 @@ def silog_loss(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Te
         sq = torch.where(mask, (g - mean) ** 2, 0.0).sum()
     var = sq / (n - 1.0)
     return 10.0 * torch.sqrt(var + 0.15 * mean ** 2)
+
+
+def silog_loss_rows(pred, target, mask, grid) -> torch.Tensor:
+    """``silog_loss`` (interpolated) over row-sharded maps on ``grid``
+    (``parallel/spatial.py``): pred [b, h, w, 1] shards upsampled to their
+    rows of target's size, then the same two passes over every masked
+    pixel of every shard, each pass's sums added on the grid's root."""
+    H, W = spatial.height(target, 1), target[0][0].shape[2]
+    g = spatial.each(lambda p, t, m: torch.where(m, torch.log(p) - torch.log(t), 0.0),
+                     spatial.resize_rows(pred, H, W), target, mask)
+    pairs = [(x, m) for gs, ms in zip(g, mask) for x, m in zip(gs, ms)]
+    n, total = spatial.sum_to([torch.stack([m.to(x.dtype).sum(), x.sum()]) for x, m in pairs],
+                              grid.root).unbind()
+    mean = total / n
+    sq = spatial.sum_to([torch.where(m, (x - mean.to(x.device)) ** 2, 0.0).sum()
+                         for x, m in pairs], grid.root)
+    return 10.0 * torch.sqrt(sq / (n - 1.0) + 0.15 * mean ** 2)
 
 
 def compute_errors(gt: torch.Tensor, pred: torch.Tensor,

@@ -49,8 +49,9 @@ from torch.func import functional_call
 
 from ..models.deltar import compute_dtype
 from ..ops.interp import device_constant, resize_bilinear_align_corners
+from ..parallel import spatial
 from ..parallel.mesh import average_gradients, is_distributed
-from .losses import compute_errors, silog_loss
+from .losses import compute_errors, silog_loss, silog_loss_rows
 from .optim import AdamW, make_optimizer
 
 
@@ -60,12 +61,14 @@ def step_generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed))
 
 
-def make_loss_fn(model, config, geoms):
+def make_loss_fn(model, config, geoms, grid=None):
     """Returns ``loss_fn(batch, generator) -> loss``: the model's training
     forward (which updates its BatchNorm running statistics), pred clipped
     at ``min_depth`` and the SILog loss over ``depth > min_depth``
     (reference train.py:121-123). batch: image [B,H,W,3], depth [B,H,W,1],
-    hist_data [B,Z,n], mask [B,Z].
+    hist_data [B,Z,n], mask [B,Z]; on ``grid``, the batch as
+    ``parallel/spatial.py::shard_batch_spatial`` places it, the forward
+    row-sharded and the loss over the shards' global sums.
 
     In a compute dtype other than float32 the forward runs on
     ``cast_params(model, dtype)`` and the image and histograms cast to it
@@ -75,16 +78,24 @@ def make_loss_fn(model, config, geoms):
 
     def forward(image, hist, mask, generator):
         if cdt == torch.float32:
-            return model(image, hist, mask, geoms, generator)
+            return model(image, hist, mask, geoms, generator, grid)
+        if grid is None:
+            image, hist = image.to(cdt), hist.to(cdt)
+        else:
+            image, hist = spatial.each(lambda t: t.to(cdt), image), [h.to(cdt) for h in hist]
         return functional_call(model, cast_params(model, cdt),
-                               (image.to(cdt), hist.to(cdt), mask, geoms, generator))
+                               (image, hist, mask, geoms, generator, grid))
 
-    def loss_fn(batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+    def loss_fn(batch, generator: torch.Generator) -> torch.Tensor:
         model.train()
         _, pred = forward(batch["image"], batch["hist_data"], batch["mask"], generator)
-        pred = torch.clamp(pred, min=config.min_depth)
-        dmask = batch["depth"] > config.min_depth
-        return silog_loss(pred, batch["depth"], dmask, interpolate=True)
+        if grid is None:
+            pred = torch.clamp(pred, min=config.min_depth)
+            dmask = batch["depth"] > config.min_depth
+            return silog_loss(pred, batch["depth"], dmask, interpolate=True)
+        pred = spatial.each(lambda p: torch.clamp(p, min=config.min_depth), pred)
+        dmask = spatial.each(lambda d: d > config.min_depth, batch["depth"])
+        return silog_loss_rows(pred, batch["depth"], dmask, grid)
 
     return loss_fn
 
@@ -116,43 +127,52 @@ def create_train_state(model, config, total_steps: int) -> TrainState:
     return TrainState(model, make_optimizer(model, config, total_steps))
 
 
-def make_train_step(model, config, geoms):
+def make_train_step(model, config, geoms, grid=None):
     """Returns ``train_step(state, batch, seed) -> loss``: forward, loss,
     backward and one optimizer step, in place on ``state``; the loss comes
     back as a 0-d tensor on the device, with no host sync. Under
     ``--grad_accum N`` the batch runs as N microbatches (module docstring);
     ``ValueError`` where N does not divide the batch. In a process group
-    the gradients are averaged over its processes before the optimizer."""
-    loss_fn = make_loss_fn(model, config, geoms)
+    the gradients are averaged over its processes before the optimizer.
+
+    On ``grid`` (``--spatial_shards``) each microbatch is placed on the grid
+    (``shard_batch_spatial_presplit``: microbatch i is the batch's rows
+    ``[i * mb, (i + 1) * mb)``, as JAX's host pre-split) and runs the
+    row-sharded forward; autograd sums every shard's gradient into the
+    model's own ``.grad`` through the copies, so nothing else changes."""
+    loss_fn = make_loss_fn(model, config, geoms, grid)
     accum = int(getattr(config, "grad_accum", 1) or 1)
+
+    def microbatches(batch):
+        if grid is not None:
+            if accum <= 1:
+                return [spatial.shard_batch_spatial(batch, grid)]
+            return spatial.shard_batch_spatial_presplit(batch, grid, accum)
+        if accum <= 1:
+            return [batch]
+        bs = next(iter(batch.values())).shape[0]
+        if bs % accum != 0:
+            raise ValueError(f"--grad_accum {accum} does not divide batch size {bs}")
+        mb = bs // accum
+        return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(accum)]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int) -> torch.Tensor:
         for p in state.tx.params:
             p.grad = None
         generator = step_generator(seed)
-        if accum <= 1:
-            loss = loss_fn(batch, generator)
-            loss.backward()
-            if is_distributed():
-                average_gradients([p.grad for p in state.tx.params if p.grad is not None])
-        else:
-            bs = next(iter(batch.values())).shape[0]
-            if bs % accum != 0:
-                raise ValueError(f"--grad_accum {accum} does not divide batch size {bs}")
-            mb = bs // accum
-            loss = None
-            for i in range(accum):  # the generator draws each microbatch's own offsets
-                part = loss_fn({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()},
-                               generator)
-                part.backward()  # .grad sums the microbatches' gradients
-                loss = part.detach() if loss is None else loss + part.detach()
-            grads = [p.grad for p in state.tx.params if p.grad is not None]
-            if is_distributed():
-                average_gradients(grads)
+        loss = None
+        for part in microbatches(batch):  # the generator draws each microbatch's own offsets
+            part_loss = loss_fn(part, generator)
+            part_loss.backward()  # .grad sums the microbatches' gradients
+            loss = part_loss.detach() if loss is None else loss + part_loss.detach()
+        grads = [p.grad for p in state.tx.params if p.grad is not None]
+        if is_distributed():
+            average_gradients(grads)
+        if accum > 1:
             torch._foreach_div_(grads, float(accum))
             loss = loss / accum
         state.tx.step()
-        return loss.detach()
+        return loss
 
     return train_step
 
@@ -197,40 +217,64 @@ def eval_prediction(model, config, geoms, protocol: str, image: torch.Tensor,
                     hist: torch.Tensor, mask: torch.Tensor, dtype=None):
     """``(pred_full [B,H,W,1], prob)``: the eval forward on a normalized
     image, image and histograms cast to ``dtype`` where it is given (the
-    model's compute dtype), and the protocol's post-processing.
-
-    protocol='evaluate_all': clip to [min_depth, max_depth], then
-    align-corners upsample to the input size (reference evaluate_all.py:37-44).
-    protocol='validate': upsample first, then NaN -> min / Inf -> max and clip
-    to the eval bounds (reference train.py:187-195).
-    """
+    model's compute dtype), and the protocol's post-processing
+    (``postprocess``)."""
     if dtype is not None:
         image, hist = image.to(dtype), hist.to(dtype)
     _, pred, prob, _ = model(image, hist, mask, geoms)
-    H, W = image.shape[1], image.shape[2]
+    return postprocess(config, protocol, pred, image.shape[1], image.shape[2]), prob
+
+
+def postprocess(config, protocol: str, pred: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The protocol's post-processing of the forward's pred [B,h,w,1].
+
+    protocol='evaluate_all': clip to [min_depth, max_depth], then
+    align-corners upsample to the input size H x W (reference
+    evaluate_all.py:37-44).
+    protocol='validate': upsample first, then NaN -> min / Inf -> max and clip
+    to the eval bounds (reference train.py:187-195).
+    """
     if protocol == "evaluate_all":
         pred = torch.clamp(pred, config.min_depth, config.max_depth)
-        pred = resize_bilinear_align_corners(pred, H, W)
-    else:
-        pred = resize_bilinear_align_corners(pred, H, W)
-        pred = torch.where(torch.isinf(pred), config.max_depth_eval, pred)
-        pred = torch.where(torch.isnan(pred), config.min_depth_eval, pred)
-        pred = torch.clamp(pred, config.min_depth_eval, config.max_depth_eval)
-    return pred, prob
+        return resize_bilinear_align_corners(pred, H, W)
+    pred = resize_bilinear_align_corners(pred, H, W)
+    pred = torch.where(torch.isinf(pred), config.max_depth_eval, pred)
+    pred = torch.where(torch.isnan(pred), config.min_depth_eval, pred)
+    return torch.clamp(pred, config.min_depth_eval, config.max_depth_eval)
 
 
 def make_eval_step(model, config, geoms, protocol: str = "evaluate_all", compute_dtype=None):
-    """Returns ``batch -> (pred_full [B,H,W,1], prob)``, the model in eval
-    mode: ``eval_prediction`` on ``eval_batch_image(batch)``. The JAX eval
-    step casts nothing, and neither does this one unless ``compute_dtype``
-    is given (a model cast by ``models/deltar.py::cast_to_compute_dtype``:
-    the serving forward's arithmetic, ``serve/export.py``)."""
+    """Returns ``(batch, grid=None) -> (pred_full [B,H,W,1], prob)``, the
+    model in eval mode: ``eval_prediction`` on ``eval_batch_image(batch)``.
+    The JAX eval step casts nothing, and neither does this one unless
+    ``compute_dtype`` is given (a model cast by
+    ``models/deltar.py::cast_to_compute_dtype``: the serving forward's
+    arithmetic, ``serve/export.py``).
+
+    With ``grid`` (``--spatial_shards``) the batch, whole on the grid's
+    root, is placed on the grid (``shard_batch_spatial``), the forward runs
+    row-sharded, and the prediction's and probabilities' rows are gathered
+    on the root before the post-processing."""
 
     @torch.no_grad()
-    def eval_step(batch):
+    def eval_step(batch, grid=None):
         model.eval()
-        return eval_prediction(model, config, geoms, protocol, eval_batch_image(batch),
-                               batch["hist_data"], batch["mask"], compute_dtype)
+        if grid is None:
+            return eval_prediction(model, config, geoms, protocol, eval_batch_image(batch),
+                                   batch["hist_data"], batch["mask"], compute_dtype)
+        placed = spatial.shard_batch_spatial(
+            {k: batch[k] for k in ("image_u8", "image", "hist_data", "mask") if k in batch},
+            grid)
+        key = "image_u8" if "image_u8" in placed else "image"
+        image = spatial.each(lambda x: eval_batch_image({key: x}), placed[key])
+        hist = placed["hist_data"]
+        if compute_dtype is not None:
+            image = spatial.each(lambda x: x.to(compute_dtype), image)
+            hist = [h.to(compute_dtype) for h in hist]
+        _, pred, prob, _ = model(image, hist, placed["mask"], geoms, grid=grid)
+        H, W = batch[key].shape[1], batch[key].shape[2]
+        return (postprocess(config, protocol, spatial.gather(pred, grid.root, dim=1), H, W),
+                spatial.gather(prob, grid.root, dim=1))
 
     return eval_step
 

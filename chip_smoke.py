@@ -184,6 +184,14 @@ line:
     process's ``evaluate``. ``predict_sharded`` on the one card equals
     ``predict`` bit for bit on phase 15's bf16 artifact. A process that
     fails, or outlasts ``DP_TIMEOUT``, fails the script.
+18. spatial (``spatial_phase``, run after phase 17): ``--spatial_shards``
+    (``cfpnet_torch/parallel/spatial.py``) on a 1 x 2 grid of the one card
+    (``["cuda:0"] * 2``). The f32 eval forward at bs 2, 480x640: within
+    ``TOL`` of the one-device forward, its first row against the golden;
+    the bf16 forward within ``BF16_DRIFT``; 6 / 6 / 18 launches a forward;
+    the golden train step on the grid within ``TRAIN_GOLDEN_TOL`` (6 / 12 /
+    18 launches); the bs-16 step at 416x544 on the grid: ms a step beside
+    phase 9's, launches, peak memory; the card beside the numbers.
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -197,6 +205,8 @@ step, ``launches_train_step``; and in the loop phase's uninterrupted run,
 serving program, ``launches_serving`` by dtype; in phase 16's bs-16
 self-supervised step, ``launches_selfsup_step``; in phase 17's bs-16
 step of each of the two processes (8 rows each), ``launches_two_rank_step``;
+in phase 18's forward and bs-16 step on the grid, ``launches_spatial_forward``
+and ``launches_spatial_step``;
 from the bf16 phase, per
 bs=1 forward, ``card_ms_bf16``,
 ``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
@@ -943,10 +953,12 @@ def train_golden_errors(device="cuda", compute_dtype="float32"):
     return golden_errors(golden_record(model, loss), np.load(GOLDEN_TRAIN)), launches, float(loss)
 
 
-def golden_train_step(device="cuda", compute_dtype="float32", rows=lambda batch: batch):
+def golden_train_step(device="cuda", compute_dtype="float32", rows=lambda batch: batch,
+                      grid=None):
     """``train_golden_errors``' step: (the model after it, the loss, the
     launch counts of the step). ``rows`` takes the golden batch to the rows
-    the step runs on (a data-parallel process's: ``mesh.shard_batch``)."""
+    the step runs on (a data-parallel process's: ``mesh.shard_batch``);
+    ``grid`` is a spatial grid the step runs on (``parallel/spatial.py``)."""
     from cfpnet_torch import kernels, weights
     from cfpnet_torch.models import fusion
     from cfpnet_torch.models.deltar import make_model, model_geometries
@@ -958,7 +970,7 @@ def golden_train_step(device="cuda", compute_dtype="float32", rows=lambda batch:
     model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
     geoms = model_geometries(config, "train")
     state = steps.create_train_state(model, config, GOLDEN_TRAIN_TOTAL_STEPS)
-    train_step = steps.make_train_step(model, config, geoms)
+    train_step = steps.make_train_step(model, config, geoms, grid)
     batch = rows({k: torch.from_numpy(v).to(device)
                   for k, v in golden_train_batch(config).items()})
     offsets = [tuple(o) for o in ref["crop_offsets"].tolist()]
@@ -3091,6 +3103,111 @@ def multi_process_phase(artifact: str):
         seconds=time.perf_counter() - t_phase)
 
 
+# phase 18: spatial partitioning (--spatial_shards, cfpnet_torch/parallel/spatial.py)
+SPATIAL_GRID = (1, 2)  # (dp, sp) over ["cuda:0"] * 2: the one card, repeated
+SPATIAL_STEPS_TIMED = 6  # bs-16 grid steps between CUDA events (K = 3), after 2 warm ones
+
+
+def spatial_phase(tconfig, plain_step_ms: float, card: str):
+    """Phase 18: the production model with each image's rows split over a
+    1 x 2 grid of the one card (``SPATIAL_GRID``), the library's repeated
+    device list. The f32 eval forward at bs 2 (the golden image and its
+    mirror) against the one-device forward (max |diff| <= ``TOL`` x max
+    |one-device|) and its first row against the golden; the bf16 forward
+    within ``BF16_DRIFT`` of the golden; each forward launching 6 / 6 / 18;
+    the golden train step on the grid within ``TRAIN_GOLDEN_TOL``, 6 / 12 /
+    18 launches; the bs-16 step at 416x544 on the grid, ms a step beside
+    phase 9's one-device step, launches and peak memory. ``card`` (the
+    nvidia-smi line) goes beside every number."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
+    from cfpnet_torch.models.deltar import cast_to_compute_dtype, make_model, model_geometries
+    from cfpnet_torch.parallel import spatial
+    from cfpnet_torch.train import steps
+
+    dp, sp = SPATIAL_GRID
+    grid = spatial.make_mesh_2d(dp, sp, ["cuda:0"] * (dp * sp))
+    config = production_config()
+    geoms = model_geometries(config, "online_eval")
+    sd = weights.deterministic_state_dict(config)
+    img = torch.from_numpy(weights.det_leaf("img", (1, 480, 640, 3))).cuda()
+    img = torch.cat([img, img.flip(2)])
+    hist = torch.from_numpy(np.abs(weights.det_leaf("hist", (1, 64, 16))) * 20).cuda()
+    hist = hist.repeat(2, 1, 1)
+    mask = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+
+    def on_grid(model, dtype=torch.float32):
+        placed = spatial.shard_batch_spatial(dict(image=img, hist_data=hist, mask=mask), grid)
+        with torch.no_grad():
+            edges, pred, prob, _ = model(spatial.each(lambda x: x.to(dtype), placed["image"]),
+                                         [h.to(dtype) for h in placed["hist_data"]],
+                                         placed["mask"], geoms, grid=grid)
+        return edges, spatial.gather(pred, grid.root, 1), spatial.gather(prob, grid.root, 1)
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    model = make_model(config, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    got, launches = counted(lambda: on_grid(model))
+    check_launches(launches, 2)
+    with torch.no_grad():
+        one = model(img, hist, mask, geoms)[:3]
+    rel = {name: float((a - b).abs().max()) / float(b.abs().max())
+           for name, a, b in zip(("bin_edges", "pred", "prob"), got, one)}
+    if not all(math.isfinite(v) and v <= TOL for v in rel.values()):
+        raise AssertionError(f"the grid forward against the one-device forward: {rel}")
+    golden = golden_diffs(got[0][:1], got[1][:1])
+    forward_ms = device_ms(lambda: on_grid(model), reps=5, trials=3)
+    with torch.no_grad():
+        one_ms = device_ms(lambda: model(img, hist, mask, geoms), reps=5, trials=3)
+    cast_to_compute_dtype(model, torch.bfloat16)
+    got16, launches16 = counted(lambda: on_grid(model, torch.bfloat16))
+    check_launches(launches16, 2)
+    drift = bf16_drift(got16[1][:1])
+    del model, got, got16, one
+
+    gmodel, gloss, glaunches = golden_train_step(grid=grid)
+    errs = golden_errors(golden_record(gmodel, gloss), np.load(GOLDEN_TRAIN))
+    del gmodel
+    if glaunches != TRAIN_LAUNCHES:
+        raise AssertionError(f"the golden step on the grid launched {glaunches}")
+    if set(errs) != set(TRAIN_GOLDEN_TOL) or not all(
+            v <= TRAIN_GOLDEN_TOL[k] for k, v in errs.items()):
+        raise AssertionError(f"the golden step on the grid: {errs}, tolerance "
+                             f"{TRAIN_GOLDEN_TOL}")
+
+    model = make_model(tconfig, device="cuda")
+    model.load_state_dict(weights.deterministic_state_dict(tconfig), strict=True)
+    state = steps.create_train_state(model, tconfig, GOLDEN_TRAIN_TOTAL_STEPS)
+    step = steps.make_train_step(model, tconfig, model_geometries(tconfig, "train"), grid)
+    batch = make_train_batch(tconfig, tconfig.bs)
+    seeds = iter(range(tconfig.seed, tconfig.seed + 10 ** 6))
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(state, batch, next(seeds))) for _ in range(2)]
+    _, step_launches = counted(lambda: step(state, batch, next(seeds)))
+    if step_launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"a bs-{tconfig.bs} step on the grid launched {step_launches}")
+    ms = train_latency_ms(lambda: step(state, batch, next(seeds)), SPATIAL_STEPS_TIMED, 3)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"grid step losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, state
+    return dict(phase="spatial", card=card, grid=[dp, sp],
+                devices=[str(d) for d in grid.devices],
+                forward=dict(batch=2, size=[480, 640], max_rel_err_vs_one_device=rel,
+                             golden_max_abs_diff=golden, ms=forward_ms, one_device_ms=one_ms),
+                launches_forward=launches, launches_forward_bf16=launches16, bf16_drift=drift,
+                train_golden=dict(loss=float(gloss), launches=glaunches, errors=errs),
+                step16=dict(batch=tconfig.bs, size=[tconfig.input_height, tconfig.input_width],
+                            ms_a_step=ms, one_device_ms_a_step=plain_step_ms,
+                            steps_timed=SPATIAL_STEPS_TIMED, losses_warm=losses,
+                            launches_a_step=step_launches, max_memory_allocated_gib=peak))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
@@ -3283,6 +3400,14 @@ def main() -> int:
     for r in rows:
         r["launches_two_rank_step"] = dp["two_processes"]["step16"][0]["launches_a_step"][
             r["name"]]
+
+    # 18. spatial partitioning: the forward, the golden step and the bs-16
+    # step with each image's rows split over a 1 x 2 grid of the one card
+    grid18 = spatial_phase(tconfig, train["ms_a_step"], smi[0])
+    emit(grid18)
+    for r in rows:
+        r["launches_spatial_forward"] = grid18["launches_forward"][r["name"]]
+        r["launches_spatial_step"] = grid18["step16"]["launches_a_step"][r["name"]]
 
     # 13. the headline benchmark at reduced iterations (its own JSON line),
     # with the root bench's train keys: the bf16 step's, the f32 step's

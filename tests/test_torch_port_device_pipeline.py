@@ -26,6 +26,8 @@ from cfpnet_torch.data.geometry import ZoneGeometry as PtGeometry
 from cfpnet_tpu.data import tof_sim_jax as tsj
 from cfpnet_tpu.data.geometry import ZoneGeometry as JxGeometry
 
+torch.set_num_threads(1)  # tiny ops, shared cores (tests/torch_port_util.py)
+
 B, H, W, ZN, PX = 3, 96, 128, 4, 16
 Z = ZN * ZN
 AUG = dict(drop_hist=0.34, noise_prob=0.3, noise_mean=0.17, noise_sigma=0.2)

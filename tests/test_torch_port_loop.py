@@ -439,12 +439,17 @@ ENTRY = ["--tiny_model", "--n_bins", "16", "--native_height", "64", "--native_wi
          "--save_dir", "results/entry", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--multihost", "--spatial_shards", "2"], "§A 14"), (["--spatial_shards", "2"], "§A 14"),
-    (["--device_pipeline", "--train_zone_random_offset", "1"], "drop one of the two flags")])
-def test_entry_point_refusals(flags, item, tmp_path, monkeypatch):
+# the ids are those of the cases when both spatial ones were ROADMAP §A 14's
+# refusal; spatial sharding now runs and refuses what the JAX package does
+@pytest.mark.parametrize("flags,kind,item", [
+    pytest.param(["--multihost", "--spatial_shards", "2"], NotImplementedError,
+                 "single-controller", id="flags0-§A 14"),
+    pytest.param(["--spatial_shards", "2"], ValueError, "--safe_dw_vjp", id="flags1-§A 14"),
+    pytest.param(["--device_pipeline", "--train_zone_random_offset", "1"], NotImplementedError,
+                 "drop one of the two flags", id="flags2-drop one of the two flags")])
+def test_entry_point_refusals(flags, kind, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(kind, match=item):
         pt_train_main.main(ENTRY + flags)
     assert not os.listdir(tmp_path)
 

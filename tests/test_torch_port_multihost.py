@@ -39,6 +39,9 @@ from cfpnet_torch.train import steps as pt_steps
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120.0
 ENV = {"OMP_NUM_THREADS": "2"}
+# one torch thread in this process and in the processes that import this
+# module (``rank_worker``): tiny ops, shared cores (``tests/torch_port_util.py``)
+torch.set_num_threads(1)
 TINY = dict(n_bins=16, input_height=48, input_width=64, native_height=64, native_width=96,
             train_zone_num=2, eval_zone_num_cfg=2, train_patch_px=16, eval_patch_px=16,
             zone_sample_num=16, sample_uniform=True,

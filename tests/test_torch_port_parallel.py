@@ -25,7 +25,9 @@ import torch
 from cfpnet_torch import weights
 from cfpnet_torch.config import Config as PtConfig
 from cfpnet_torch.data import datasets as pt_ds
-from cfpnet_torch.parallel import launch, mesh
+from cfpnet_torch.models.deltar import model_geometries as pt_geometries
+from cfpnet_torch.parallel import launch, mesh, spatial
+from cfpnet_torch.train import steps as pt_steps
 from cfpnet_tpu.config import Config as JxConfig
 from cfpnet_tpu.data import datasets as jx_ds
 from cfpnet_tpu.data import pipeline as jx_pipe
@@ -39,7 +41,8 @@ from cfpnet_tpu.train import optim as jx_optim
 from cfpnet_tpu.train import selfsup as jx_selfsup
 from cfpnet_tpu.train import steps as jx_steps
 from tests.test_torch_port_device_pipeline import depth_maps, jax_draws
-from tests.test_torch_port_multihost import ENV, TIMEOUT, TINY, Float64
+from tests.test_torch_port_multihost import (ENV, TIMEOUT, TINY, Float64, _after, _port,
+                                             recorded_offsets, to_f64)
 from tests.test_torch_port_selfsup import _capture_grads, _pose_variables
 from tests.test_torch_port_train import _batch
 from tests.torch_port_util import close, enable_x64, random_tree
@@ -174,19 +177,58 @@ def jax_step(two_ranks):
     return cfg, step, _jx_state(cfg, two_ranks["model"], v["params"], v["batch_stats"])
 
 
-def _held_against_jax(two_ranks, jax_step, name):
-    cfg, step, start = jax_step
+def _jax_result(jax_step, batch, offsets):
+    """The JAX step on ``batch`` with the crop offsets ``offsets``."""
+    _, step, start = jax_step
+    with jax_offsets(offsets), enable_x64():
+        return step(start, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.key(0))
+
+
+def _assert_step(got, ref, cfg, name):
+    """A step's loss and state (a process's or a grid's) against the JAX
+    step's (state, loss)."""
+    state, loss = ref
+    close(float(got["loss"]), float(loss))
+    _assert_state(got["state"], state, cfg, name)
+
+
+@pytest.fixture(scope="module")
+def jax_plain(two_ranks, jax_step):
+    """The JAX step's (state, loss) on the plain case's global batch."""
+    inp = two_ranks["inp"]["plain"]
+    return _jax_result(jax_step, {k: v.numpy() for k, v in to_f64(inp["batch"]).items()},
+                       two_ranks["ranks"][0]["plain"]["offsets"])
+
+
+@pytest.fixture(scope="module")
+def jax_accum(two_ranks):
+    """The JAX step under ``--grad_accum 2`` with its microbatch loop
+    unrolled (``pre_split``, as ``test_torch_port_train.py``), compiled
+    once: (config, state, loss) on the case's global batch."""
+    cfg = JxConfig(**dict(STEP, grad_accum=2))
+    batch = {k: v.numpy() for k, v in to_f64(two_ranks["inp"]["grad_accum"]["batch"]).items()}
+    v = two_ranks["variables"]
+    with jax_offsets(two_ranks["ranks"][0]["grad_accum"]["offsets"]) as left, enable_x64():
+        step = jx_steps.make_train_step(two_ranks["model"], cfg, two_ranks["geoms"], jit=False,
+                                        pre_split=True)
+        split = {k: jnp.asarray(a.reshape((2, 2) + a.shape[1:])) for k, a in batch.items()}
+        state, loss = jax.jit(step)(_jx_state(cfg, two_ranks["model"], v["params"],
+                                              v["batch_stats"]), split, jax.random.key(0))
+        assert next(left, None) is None
+    return cfg, (state, loss)
+
+
+def _held_against_jax(two_ranks, jax_step, name, ref=None):
+    cfg = jax_step[0]
     r0, r1 = two_ranks["ranks"][0][name], two_ranks["ranks"][1][name]
     # one trace serves both cases: the same step seed, the same offsets
     assert r0["offsets"] == r1["offsets"] == two_ranks["ranks"][0]["plain"]["offsets"]
     assert len(r0["offsets"]) == 3
     batch = _global([r0["batch"], r1["batch"]])
-    with jax_offsets(r0["offsets"]), enable_x64():
-        state, loss = step(start, {k: jnp.asarray(v) for k, v in batch.items()},
-                           jax.random.key(0))
+    if ref is None:
+        ref = _jax_result(jax_step, batch, r0["offsets"])
     for r in (r0, r1):
-        close(float(r["loss"]), float(loss))
-        _assert_state(r["state"], state, cfg, name)
+        _assert_step(r, ref, cfg, name)
     return batch
 
 
@@ -230,10 +272,12 @@ def test_batchnorm_over_two_ranks_equals_flax_on_the_batch(two_ranks, channel_di
         close(g["var"].numpy(), np.asarray(upd["batch_stats"]["var"]))
 
 
-def test_two_rank_step_equals_the_jax_step_f64(two_ranks, jax_step):
+def test_two_rank_step_equals_the_jax_step_f64(two_ranks, jax_step, jax_plain):
     """The plain step (bs 4 as 2 + 2 rows): the global loss on both
     processes, every parameter and running statistic after it."""
-    _held_against_jax(two_ranks, jax_step, "plain")
+    batch = _held_against_jax(two_ranks, jax_step, "plain", jax_plain)
+    for k, v in to_f64(two_ranks["inp"]["plain"]["batch"]).items():
+        np.testing.assert_array_equal(batch[k], v.numpy(), k)
 
 
 def test_two_rank_device_pipeline_step_equals_jax_f64(two_ranks, jax_step):
@@ -255,28 +299,55 @@ def test_two_rank_device_pipeline_step_equals_jax_f64(two_ranks, jax_step):
     assert not np.array_equal(batch["image"][:2], batch["image"][2:])
 
 
-def test_two_rank_grad_accum_step_equals_jax_f64(two_ranks):
+def test_two_rank_grad_accum_step_equals_jax_f64(two_ranks, jax_accum):
     """``--grad_accum 2`` at bs 4: each process holds its row of each
     microbatch (``rank_rows``), the statistics thread through the two
     global microbatches; against the JAX step with its microbatch loop
-    unrolled (``pre_split``, as ``test_torch_port_train.py``)."""
-    cfg = JxConfig(**dict(STEP, grad_accum=2))
+    unrolled (``jax_accum``)."""
+    cfg, ref = jax_accum
     r0, r1 = (r["grad_accum"] for r in two_ranks["ranks"])
     assert r0["offsets"] == r1["offsets"] and len(r0["offsets"]) == 6
     batch = _global([r0["batch"], r1["batch"]], accum=2)
     np.testing.assert_array_equal(batch["image"],
                                   two_ranks["inp"]["grad_accum"]["batch"]["image"])
-    v = two_ranks["variables"]
-    with jax_offsets(r0["offsets"]) as left, enable_x64():
-        step = jx_steps.make_train_step(two_ranks["model"], cfg, two_ranks["geoms"], jit=False,
-                                        pre_split=True)
-        split = {k: jnp.asarray(a.reshape((2, 2) + a.shape[1:])) for k, a in batch.items()}
-        state, loss = jax.jit(step)(_jx_state(cfg, two_ranks["model"], v["params"],
-                                              v["batch_stats"]), split, jax.random.key(0))
-        assert next(left, None) is None
     for r in (r0, r1):
-        close(float(r["loss"]), float(loss))
-        _assert_state(r["state"], state, cfg, "grad_accum")
+        _assert_step(r, ref, cfg, "grad_accum")
+
+
+def _spatial_step(two_ranks, name, dp, sp, dtype="float32"):
+    """One step of case ``name`` in this process on a ``dp x sp`` grid of
+    CPU devices (``--spatial_shards sp``): its loss, offsets and state."""
+    sc = two_ranks["inp"][name]
+    cfg = PtConfig(**sc["config"]).replace(spatial_shards=sp, safe_dw_vjp=True)
+    port = _port(two_ranks["inp"]["state"], cfg)
+    state = pt_steps.create_train_state(port, cfg, total_steps=20)
+    grid = spatial.make_mesh_2d(dp, sp, ["cpu"] * (dp * sp))
+    with recorded_offsets() as drawn:
+        loss = pt_steps.make_train_step(port, cfg, pt_geometries(cfg, "train"), grid)(
+            state, to_f64(sc["batch"]), sc["seed"])
+    return _after(port, dict(loss=loss, offsets=drawn))
+
+
+@pytest.mark.parametrize("dp,sp", [(1, 2), (2, 2)])
+def test_spatial_step_equals_the_jax_step_f64(two_ranks, jax_step, jax_plain, dp, sp):
+    """The plain step (bs 4) in one process with each image's rows split
+    over ``sp`` shards and the batch over ``dp`` data groups: the loss,
+    every parameter and running statistic of the JAX step, the crop
+    offsets drawn once a fusion for the whole batch."""
+    got = _spatial_step(two_ranks, "plain", dp, sp)
+    assert got["offsets"] == two_ranks["ranks"][0]["plain"]["offsets"]
+    _assert_step(got, jax_plain, jax_step[0], f"spatial {dp}x{sp}")
+
+
+@pytest.mark.parametrize("dp,sp", [(1, 2), (2, 2)])
+def test_spatial_grad_accum_step_equals_jax_f64(two_ranks, jax_accum, dp, sp):
+    """``--grad_accum 2`` on the grid: microbatch-major rows (microbatch i
+    is rows [2i, 2i + 2), its images over the data groups), against the
+    unrolled JAX step."""
+    cfg, ref = jax_accum
+    got = _spatial_step(two_ranks, "grad_accum", dp, sp)
+    assert got["offsets"] == two_ranks["ranks"][0]["grad_accum"]["offsets"]
+    _assert_step(got, ref, cfg, f"spatial grad_accum {dp}x{sp}")
 
 
 def test_two_rank_selfsup_step_equals_jax_f64(two_ranks):
@@ -381,7 +452,7 @@ def test_new_modules_import_no_jax():
 
     scanned = set((ROOT / "cfpnet_torch").rglob("*.py"))
     for rel in ("cfpnet_torch/parallel/__init__.py", "cfpnet_torch/parallel/mesh.py",
-                "cfpnet_torch/parallel/launch.py", "cfpnet_torch/train/__main__.py",
-                "tests/test_torch_port_multihost.py"):
+                "cfpnet_torch/parallel/launch.py", "cfpnet_torch/parallel/spatial.py",
+                "cfpnet_torch/train/__main__.py", "tests/test_torch_port_multihost.py"):
         assert rel.startswith("tests/") or (ROOT / rel) in scanned, rel
         assert not set(_imports(ROOT / rel)) & set(FORBIDDEN), rel

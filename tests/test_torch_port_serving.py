@@ -327,6 +327,42 @@ def test_predict_sharded_over_two_devices_and_the_sharded_server(served):
         server.server_close()
 
 
+def test_spatial_sweep_through_the_artifact_matches_the_root_driver(served, tmp_path,
+                                                                   monkeypatch, capsys):
+    """``--serving_artifact`` with ``--spatial_shards 2``: the root driver
+    sweeps on a 1 x 2 mesh of its 8 devices (6 idle, said); the port, on
+    four CPU devices standing in for the cards, checks each batch against
+    a 1 x 2 grid (2 idle, said) and runs the artifact on the grid's root
+    (ROADMAP §C): the root driver's metrics (3 images)."""
+    import evaluate_all as jx_evaluate_all
+    import cfpnet_tpu.train.loop as jx_loop
+    from cfpnet_torch.parallel import spatial
+
+    argv = TINY_ARGS + ["--tiny_model", "--test_dataset", "synthetic", "--synthetic_length", "3",
+                        "--spatial_shards", "2"]
+    seen = []
+    evaluate = jx_loop.evaluate
+
+    def recording(*a, **kw):
+        seen.append(dict(evaluate(*a, **kw)))
+        return seen[-1]
+
+    monkeypatch.setattr(jx_loop, "evaluate", recording)
+    monkeypatch.setattr(jx_evaluate_all, "evaluate", recording, raising=False)
+    monkeypatch.setattr(sys, "argv", ["evaluate_all.py", *argv, "--serving_artifact",
+                                      served["jax_validate"], "--save_dir", str(tmp_path / "jax")])
+    jx_evaluate_all.main()
+    assert "dp=1 x sp=2 uses 2 of 8 devices (6 idle)" in capsys.readouterr().out
+    monkeypatch.setattr(spatial, "available_devices", lambda device: [torch.device("cpu")] * 4)
+    out = pt_evaluate_all.main(argv + ["--serving_artifact", served["validate"], "--save_dir",
+                                       str(tmp_path / "port"), "--device", "cpu"])
+    assert "dp=1 x sp=2 uses 2 of 4 devices (2 idle)" in capsys.readouterr().out
+    (want,), got = seen, out["metrics"][0]
+    assert set(got) == set(want) and len(want) == 9
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
 def test_sweep_through_the_artifact_matches_the_root_driver(served, tmp_path, monkeypatch):
     """(h) ``python -m cfpnet_torch.evaluate_all ... --test_dataset synthetic
     --serving_artifact`` writes one row, epoch ``artifact``, whose metrics

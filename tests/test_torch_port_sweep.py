@@ -211,6 +211,35 @@ def test_sweep_refusals(flags, env, item, tmp_path, monkeypatch):
     assert not os.path.exists("results")
 
 
+def test_spatial_sweep_equals_the_unsharded_sweep(weight_dirs, monkeypatch):
+    """``--spatial_shards 2``, which the port's ``evaluate`` once ignored
+    (ROADMAP §C, Fixed): with four devices (four CPU devices standing in for
+    the cards there are) the sweep splits each image's rows over 2 shards
+    of a 2 x 2 grid at ``--eval_bs 2`` and gives the unsharded sweep's
+    metrics (both float32); with one device the grid does not fit and the
+    sweep raises the JAX mesh's ``ValueError`` before any work."""
+    from cfpnet_torch.parallel import spatial
+
+    _, port_dir = weight_dirs
+    monkeypatch.chdir(port_dir)
+    argv = SWEEP_ARGV + ["--device", "cpu", "--selected_epoch", "best"]
+    plain = pt_evaluate_all.main(argv + ["--save_dir", "plain"])
+    with pytest.raises(ValueError, match="mesh 1x2 needs 2 devices, have 1"):
+        pt_evaluate_all.main(argv + ["--save_dir", "one", "--spatial_shards", "2"])
+    grids = []
+    make = spatial.make_mesh_2d
+    monkeypatch.setattr(spatial, "available_devices", lambda device: [torch.device("cpu")] * 4)
+    monkeypatch.setattr(spatial, "make_mesh_2d",
+                        lambda *a, **kw: grids.append(make(*a, **kw)) or grids[-1])
+    sharded = pt_evaluate_all.main(argv + ["--save_dir", "sharded", "--spatial_shards", "2",
+                                           "--eval_bs", "2"])
+    assert grids and {(g.dp, g.sp) for g in grids} == {(2, 2)}
+    (got,), (want,) = sharded["metrics"], plain["metrics"]
+    assert set(got) == set(want) and len(want) == 9
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+
+
 def test_shard_eval_with_one_process_is_a_no_op(weight_dirs, monkeypatch):
     _, port_dir = weight_dirs
     monkeypatch.chdir(port_dir)

@@ -17,6 +17,9 @@ float32, which a bf16 program does not.
   test: finite, falling losses within rtol 0.05 of the port's float32 ones
   and of JAX's bf16 ones; every parameter, both moments and every running
   statistic stay float32.
+- (a') The same loss and gradients with the rows split over a 2 x 2 grid
+  (``--spatial_shards``) within (a)'s bound of the port's one-device bf16
+  step.
 - (c) ``BatchNorm`` in training mode on bf16 gives bf16 and lands a running
   mean increment below one bf16 ulp in float32 (the port's copy of
   ``tests/test_bf16.py::test_bn_running_stats_accumulate_f32``); float32
@@ -45,6 +48,7 @@ from cfpnet_torch.config import Config as PtConfig
 from cfpnet_torch.models import fusion as pt_fusion
 from cfpnet_torch.models.deltar import make_model as pt_make_model
 from cfpnet_torch.models.layers import BatchNorm
+from cfpnet_torch.parallel import spatial
 from cfpnet_torch.train import __main__ as pt_train_main
 from cfpnet_torch.train import steps as pt_steps
 from cfpnet_tpu.config import Config as JxConfig
@@ -166,17 +170,21 @@ def _assert_f32_state(state):
         assert {t.dtype for t in moments.values()} == {torch.float32}
 
 
-def _port_loss_and_grads(twin, dtype):
-    """The port's loss and float32 gradients in ``dtype``, and the dtypes
-    of the first convolution's input and weight during the forward."""
+def _port_loss_and_grads(twin, dtype, grid=None):
+    """The port's loss and float32 gradients in ``dtype`` (on ``grid``,
+    ``--spatial_shards``, where given), and the dtypes of the first
+    convolution's input and weight during a one-device forward."""
     port, cfg = _port(twin, dtype)
     conv = next(m for m in port.modules() if isinstance(m, torch.nn.Conv2d))
     seen = []
     hook = conv.register_forward_pre_hook(
         lambda m, args: seen.append((args[0].dtype, m.weight.dtype)))
+    batch = _pt_batch(twin)
+    if grid is not None:
+        batch = spatial.shard_batch_spatial(batch, grid)
     with pinned(twin["draws"]):
-        loss = pt_steps.make_loss_fn(port, cfg, twin["geoms"])(
-            _pt_batch(twin), pt_steps.step_generator(SEED))
+        loss = pt_steps.make_loss_fn(port, cfg, twin["geoms"], grid)(
+            batch, pt_steps.step_generator(SEED))
     hook.remove()
     loss.backward()
     assert loss.dtype == torch.float32
@@ -211,6 +219,24 @@ def test_bf16_loss_and_gradients_match_jax(twin):
     assert loss_d <= 2 * jax_loss_d
     assert grad_d <= 2 * jax_grad_d
     assert own_grad_d >= 0.25 * jax_grad_d
+
+
+def test_bf16_spatial_step_within_the_bf16_tolerance(twin):
+    """The bf16 loss and gradients with each image's rows over a 2 x 2 grid
+    (``--spatial_shards 2``, ``parallel/spatial.py``): no farther from the
+    port's one-device bf16 step than (a)'s bound, twice JAX's own bf16 step's
+    distance from its float32 step; and as far from the port's float32
+    step as (a) asks of a bf16 step."""
+    grid = spatial.make_mesh_2d(2, 2, ["cpu"] * 4)
+    got, _ = _port_loss_and_grads(twin, "bfloat16", grid)
+    one, _ = _port_loss_and_grads(twin, "bfloat16")
+    got32, _ = _port_loss_and_grads(twin, "float32")
+    jax_loss_d, jax_grad_d = _distance(_jax_loss_and_grads(twin, "bfloat16"),
+                                       _jax_loss_and_grads(twin, "float32"))
+    loss_d, grad_d = _distance(got, one)
+    print(f"spatial bf16 vs one-device bf16: loss {loss_d:.3g}, grads {grad_d:.3g}")
+    assert loss_d <= 2 * jax_loss_d and grad_d <= 2 * jax_grad_d
+    assert _distance(got, got32)[1] >= 0.25 * jax_grad_d
 
 
 def test_four_bf16_steps_learn_and_keep_f32_state(twin):

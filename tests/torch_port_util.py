@@ -24,6 +24,12 @@ for _dtype in (torch.float32, torch.float64):
     for _fn in VML_FUNCTIONS:
         _fn(torch.full((1,), 0.5, dtype=_dtype))
 
+# The tests run tiny models, whose ops are too small to share among threads:
+# at torch's default of one thread a core a tiny training run took 3 times as
+# long on an idle 8-core machine as with one thread, and a test run's
+# workers share the cores besides. One thread a process.
+torch.set_num_threads(1)
+
 
 @contextmanager
 def enable_x64():
