@@ -2,9 +2,21 @@
 features.
 
 Port of ``cfpnet_tpu/models/fusion.py::TransformerFusion`` (reference
-src/models/fusion.py:12-188) for the layer names ``hist2image``,
-``combine1`` and ``image``; ``new_cross``, ``combine_N`` and ``cvxt_N``
-are not ported yet and raise.
+src/models/fusion.py:12-188), for every layer name the JAX package builds,
+chosen by the same tests in the same order (``layer_kind``): ``image``,
+``hist2image``, then any name holding ``new_cross`` (one bare
+``LoFTRNewCross9``), ``combine`` (``combine1``: one ``Combine1``;
+``combine_N``, any name with a ``_``: N of them in sequence), ``cvxt``
+(``Block14`` on the 2-D map, ``cvxt_N`` N of them); any other name raises.
+
+- The reference cannot construct ``new_cross``, ``combine_N`` or
+  ``cvxt[_N]`` (its constructor raises), so it has no torch keys for them.
+  The port's keys follow the flax names one index for one index: flax
+  ``layers_{i}`` is ``layers.{i}.*`` and flax ``layers_{i}_{j}`` is
+  ``layers.{i}.{j}.*`` (an ``nn.ModuleList``). So ``weights.py`` maps them
+  by one rule, and ``combine_1`` keeps the ``.0`` that flax's
+  ``layers_{i}_0`` has, while ``cvxt_1`` is ``layers.{i}.*`` as flax's
+  ``layers_{i}`` is.
 
 - All zone geometry arrives as a static ``ScaleGeometry``, so every slice,
   pad and reshape has a fixed shape.
@@ -25,7 +37,9 @@ from torch import nn
 
 from ..data.geometry import ScaleGeometry
 from ..ops.interp import resize_bilinear_align_corners
-from .transformer import Combine1, LoFTREncoderLayer, TwinsTransformer, twins_window_size
+from .convnext import Block14
+from .transformer import (Combine1, LoFTREncoderLayer, LoFTRNewCross9, TwinsTransformer,
+                          twins_window_size)
 
 
 def crop_offsets(H: int, W: int, maxH: int, maxW: int,
@@ -45,6 +59,24 @@ def crop_offsets(H: int, W: int, maxH: int, maxW: int,
     return off_y, off_x
 
 
+def layer_kind(name: str) -> Tuple[str, Optional[int]]:
+    """(kind, n) of a fusion layer name, by the tests of
+    ``cfpnet_tpu/models/fusion.py:106-192`` in their order. n is None where
+    flax builds one sublayer named ``layers_{i}`` and the number of
+    sublayers where it names them ``layers_{i}_{j}``: ``combine_N`` (any
+    ``combine`` name with a ``_``, N = 1 included) and ``cvxt_N`` with N > 1."""
+    if name in ("image", "hist2image"):
+        return name, None
+    if "new_cross" in name:
+        return "new_cross", None
+    if "combine" in name:
+        return "combine", int(name.split("_")[-1]) if "_" in name else None
+    if "cvxt" in name:
+        reps = int(name.split("_")[-1]) if "_" in name else 1
+        return "cvxt", None if reps == 1 else reps
+    raise NotImplementedError(f"attention layer '{name}'")
+
+
 class TransformerFusion(nn.Module):
     def __init__(self, embedding_dim: int, max_resolution: Tuple[int, int],
                  layer_names: Sequence[str], num_heads: int = 4, large_kernel: int = 7,
@@ -62,17 +94,18 @@ class TransformerFusion(nn.Module):
         self.positional_encodings2 = nn.Parameter(0.2 * torch.randn(zone_sample_num,
                                                                     embedding_dim))
         ws = twins_window_size(maxH, maxW)
-        layers = []
-        for name in self.layer_names:
-            if name == "image":
-                layers.append(TwinsTransformer(embedding_dim, ws))
-            elif name == "hist2image":
-                layers.append(LoFTREncoderLayer(embedding_dim, num_heads))
-            elif name == "combine1":
-                layers.append(Combine1(embedding_dim, num_heads, large_kernel))
-            else:
-                raise NotImplementedError(f"attention layer '{name}' is not ported yet")
-        self.layers = nn.ModuleList(layers)
+        build = {
+            "image": lambda: TwinsTransformer(embedding_dim, ws),
+            "hist2image": lambda: LoFTREncoderLayer(embedding_dim, num_heads),
+            "new_cross": lambda: LoFTRNewCross9(embedding_dim, num_heads),
+            "combine": lambda: Combine1(embedding_dim, num_heads, large_kernel),
+            "cvxt": lambda: Block14(embedding_dim, large_kernel),
+        }
+        kinds = [layer_kind(name) for name in self.layer_names]
+        self.kinds = tuple(kind for kind, _ in kinds)
+        self.layers = nn.ModuleList(
+            build[kind]() if n is None else nn.ModuleList(build[kind]() for _ in range(n))
+            for kind, n in kinds)
 
     def forward(self, x: torch.Tensor, feat1: torch.Tensor, hist_mask: torch.Tensor,
                 geom: ScaleGeometry, generator: Optional[torch.Generator] = None):
@@ -98,10 +131,10 @@ class TransformerFusion(nn.Module):
         zone_valid = hist_mask.reshape(B * Z, 1, 1).to(x.dtype)
         rect = (geom.zy0, geom.zy1, geom.zx0, geom.zx1)
 
-        for name, layer in zip(self.layer_names, self.layers):
-            if name == "image":
+        for kind, layer in zip(self.kinds, self.layers):
+            if kind == "image":
                 feat0 = layer(feat0, (H, W))
-            elif name == "hist2image":
+            elif kind == "hist2image":
                 src2d = feat0.reshape(B, H, W, C) if self.change_embedding else embeddings
                 padded = F.pad(src2d, (0, 0, geom.pad_w, geom.pad_w, geom.pad_h, geom.pad_h))
                 zone = padded[:, geom.sy:geom.ey, geom.sx:geom.ex, :]
@@ -124,7 +157,19 @@ class TransformerFusion(nn.Module):
                 f2d[:, geom.zy0:geom.zy1, geom.zx0:geom.zx1, :] = (
                     block if self.no_skip_inside else region + block)
                 feat0 = f2d.reshape(B, H * W, C)
-            else:  # combine1
-                feat0 = layer(feat0, rect, H, W)
+            elif kind in ("new_cross", "combine"):
+                for sub in _sublayers(layer):
+                    feat0 = sub(feat0, rect, H, W)
+            else:  # cvxt: Block14s on the 2-D map
+                f2d = feat0.reshape(B, H, W, C)
+                for sub in _sublayers(layer):
+                    f2d = sub(f2d)
+                feat0 = f2d.reshape(B, H * W, C)
 
         return feat0.reshape(B, H, W, C)
+
+
+def _sublayers(layer: nn.Module):
+    """The modules a layer name runs in sequence: those of its
+    ``nn.ModuleList``, or the one module."""
+    return layer if isinstance(layer, nn.ModuleList) else (layer,)

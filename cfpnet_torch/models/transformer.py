@@ -10,7 +10,7 @@ Port of ``cfpnet_tpu/models/transformer.py`` (``LoFTREncoderLayer``,
   of ``TwinsTransformer``) goes through ``ops.dispatch.loftr_layer``: on the
   card the whole layer is one call of the fused LoFTR kernel, on the CPU its
   plain version ``ops/loftr.py::loftr_apply``. A masked one runs through its
-  modules (CPU only). The JAX model never reaches its own fused kernel
+  modules on any device, its attention by the plain twin. The JAX model never reaches its own fused kernel
   (``cfpnet_tpu/ops/pallas_loftr.py:26-28`` says its eval path does;
   ``tests/test_pallas_loftr.py:7-8`` and ``cfpnet_tpu/ops/dispatch.py`` say
   nothing does, which is what its code does).
@@ -79,8 +79,8 @@ class LoFTREncoderLayer(nn.Module):
 
     def modules_forward(self, x, source, x_mask=None, source_mask=None):
         """The layer through its modules, one op at a time (cuBLAS linears,
-        ``dispatch.attention``, torch LayerNorm): the masked path on the CPU,
-        and on the card the unfused yardstick of the fused kernel."""
+        ``dispatch.attention``, torch LayerNorm): the masked path on every
+        device, and on the card the unfused yardstick of the fused kernel."""
         bs = x.shape[0]
         dim = self.d_model // self.nhead
         q = self.q_proj(x).reshape(bs, -1, self.nhead, dim)

@@ -1,10 +1,19 @@
 """Op dispatch between the plain PyTorch ops and the CUDA kernels.
 
 Port of ``cfpnet_tpu/ops/dispatch.py`` (``attention``, ``dwconv2d``), plus
-``loftr_layer``, which the JAX package has no switch for. The switch is the
-tensor's device, not a flag: a CPU tensor takes the plain version, a CUDA
-tensor always takes the kernel. Nothing falls back: a CUDA call the kernels
-cannot take (a masked attention or LoFTR layer, another dtype) raises.
+``loftr_layer``, which the JAX package has no switch for.
+
+- An unmasked call goes by the tensor's device, not a flag: a CPU tensor
+  takes the plain version, a CUDA tensor always takes the kernel. Nothing
+  falls back: an unmasked CUDA call the kernels cannot take (another dtype)
+  raises, and so does a tensor on any other device (meta, outside a trace).
+- A masked call (a mask given) takes the plain route on every device, in
+  the tensor's dtype, chosen before anything launches: masked attention the
+  plain twin ``ops/attention.py::linear_attention``, a masked LoFTR layer
+  its module path (``LoFTREncoderLayer.modules_forward``). No kernel takes a
+  mask, as no Pallas kernel does: the JAX package sends a masked call to its
+  XLA ``linear_attention`` (``cfpnet_tpu/ops/dispatch.py:60-66``) on its
+  chip too. No call of the main path is masked.
 
 On the card every unmasked ``LoFTREncoderLayer`` (the 18 hist2image, LSA and
 GSA layers of the eval forward) runs as one call of the fused LoFTR kernel,
@@ -29,11 +38,10 @@ from .attention import linear_attention
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_mask: Optional[torch.Tensor] = None,
               kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[N,L,H,D] linear attention."""
+    """[N,L,H,D] linear attention: unmasked, the kernel (its plain version
+    on the CPU); masked, the plain version on the tensors' device."""
     if q_mask is None and kv_mask is None:
         return attention_kernel.linear_attention(q, k, v)
-    if q.device.type != "cpu":
-        raise NotImplementedError("masked linear attention has no CUDA kernel yet")
     return linear_attention(q, k, v, q_mask=q_mask, kv_mask=kv_mask)
 
 
@@ -48,9 +56,7 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, layer,
                 source_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One ``models.transformer.LoFTREncoderLayer`` on x [N, L, C] against
     source [N, S, C]: unmasked, the fused kernel (its plain version on the
-    CPU); masked, the layer's module path, on the CPU only."""
+    CPU); masked, the layer's module path on the tensors' device."""
     if x_mask is None and source_mask is None:
         return loftr_kernel.fused_loftr(x, source, layer.loftr_params(), layer.nhead)
-    if x.device.type != "cpu":
-        raise NotImplementedError("a masked LoFTR layer has no CUDA kernel yet")
     return layer.modules_forward(x, source, x_mask, source_mask)

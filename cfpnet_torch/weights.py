@@ -21,7 +21,13 @@ reference torch graph's, so
   ``train/selfsup.py::SelfSupModel`` (keys ``depth.*`` and ``pose.*``);
 - ``load_reference_checkpoint`` reads a reference-trained ``Deltar``
   checkpoint: ``module.`` prefixes, the reference's dead parameters and BN
-  ``num_batches_tracked`` counters are dropped, the rest loads as is.
+  ``num_batches_tracked`` counters are dropped, the rest loads as is;
+  ``reference_state_dict`` adds the missing and unused keys, and
+  ``timm_backbone_state_dict`` maps a timm ``tf_efficientnetv2_b3``
+  state_dict onto the backbone (``python -m cfpnet_torch.import_weights``);
+- the fusion layer names the reference cannot construct (``new_cross``,
+  ``combine_N``, ``cvxt[_N]``) have the port's own keys, one torch index a
+  flax index (``models/fusion.py``); the JAX tool maps none of them.
 
 Layouts (flax -> torch): conv HWIO -> OIHW, depthwise [k,k,1,C] ->
 [C,1,k,k], dense [I,O] -> [O,I], PointNet Conv1d [I,O] -> [O,I,1],
@@ -38,6 +44,7 @@ import torch
 
 from .models.deltar import make_model
 from .models.efficientnetv2 import V2_B3_STAGES, V2_TINY_STAGES
+from .models.fusion import layer_kind
 from .models.posenet import WIDTHS as POSENET_WIDTHS
 from .ops.loftr import LoFTRParams
 
@@ -122,30 +129,60 @@ def _newcross_entries():
     return e
 
 
+def _combine_entries():
+    return ([(f"transformer_path.{tn}", ("transformer_path",) + fp, kind, col)
+             for tn, fp, kind, col in _newcross_entries()]
+            + [(f"large_kernel_path.{tn}", ("large_kernel_path",) + fp, kind, col)
+               for tn, fp, kind, col in _block14_entries()])
+
+
+def _image_entries():
+    e = [(f"{sub}.encoder_layer.{tn}", (sub, "encoder_layer") + fp, kind, col)
+         for tn, fp, kind, col in _loftr_entries() for sub in ("lga", "gsa")]
+    e += [("gsa.sr.weight", ("gsa", "sr", "kernel"), "conv", "params"),
+          ("gsa.sr.bias", ("gsa", "sr", "bias"), "raw", "params")]
+    return e + [(f"gsa.{tn}", ("gsa",) + fp, kind, col)
+                for tn, fp, kind, col in _ln("norm", "norm")]
+
+
+_LAYER_ENTRIES = {"image": _image_entries, "hist2image": _loftr_entries,
+                  "new_cross": _newcross_entries, "combine": _combine_entries,
+                  "cvxt": _block14_entries}
+
+
 def _fusion_entries(layer_names, h: int, w: int) -> Dict[str, Entry]:
+    """A fusion's keys, by ``models/fusion.py::layer_kind``: flax
+    ``layers_{i}`` is ``layers.{i}``, flax ``layers_{i}_{j}`` is
+    ``layers.{i}.{j}``."""
     out = {"positional_encodings": (("positional_encodings",), ("pos", h, w), "params"),
            "positional_encodings2": (("positional_encodings2",), "raw", "params")}
     for i, name in enumerate(layer_names):
-        li = f"layers_{i}"
-        if name == "hist2image":
-            for tn, fp, kind, col in _loftr_entries():
-                out[f"layers.{i}.{tn}"] = ((li,) + fp, kind, col)
-        elif name == "image":
-            for tn, fp, kind, col in _loftr_entries():
-                for sub in ("lga", "gsa"):
-                    out[f"layers.{i}.{sub}.encoder_layer.{tn}"] = (
-                        (li, sub, "encoder_layer") + fp, kind, col)
-            out[f"layers.{i}.gsa.sr.weight"] = ((li, "gsa", "sr", "kernel"), "conv", "params")
-            out[f"layers.{i}.gsa.sr.bias"] = ((li, "gsa", "sr", "bias"), "raw", "params")
-            for tn, fp, kind, col in _ln("norm", "norm"):
-                out[f"layers.{i}.gsa.{tn}"] = ((li, "gsa") + fp, kind, col)
-        elif name == "combine1":
-            for tn, fp, kind, col in _newcross_entries():
-                out[f"layers.{i}.transformer_path.{tn}"] = (
-                    (li, "transformer_path") + fp, kind, col)
-            for tn, fp, kind, col in _block14_entries():
-                out[f"layers.{i}.large_kernel_path.{tn}"] = (
-                    (li, "large_kernel_path") + fp, kind, col)
+        kind, n = layer_kind(name)
+        subs = ([(f"layers.{i}", f"layers_{i}")] if n is None
+                else [(f"layers.{i}.{j}", f"layers_{i}_{j}") for j in range(n)])
+        for tprefix, fname in subs:
+            for tn, fp, kind_, col in _LAYER_ENTRIES[kind]():
+                out[f"{tprefix}.{tn}"] = ((fname,) + fp, kind_, col)
+    return out
+
+
+# the reference ImageEncoder's wrapper name of each backbone stage
+# (reference encoder.py:58-69): timm's blocks.{si} is img_encoder.{WRAPPER[si]}
+WRAPPER = ("conv0.2", "conv1", "conv2", "conv3.0", "conv3.1", "conv4")
+
+
+def _backbone_entries(stages):
+    """(timm key, port key under ``img_encoder.``, flax path under
+    ``backbone``, kind, collection) of every backbone leaf, in the order of
+    ``tools/import_torch_weights.py::backbone_mapping``."""
+    out = [("conv_stem.weight", "conv0.0.weight", ("conv_stem", "kernel"), "conv", "params")]
+    out += [(f"bn1.{tn[len('conv0.1.'):]}", tn, fp, kind, col)
+            for tn, fp, kind, col in _bn("conv0.1", "bn1")]
+    for si, spec in enumerate(stages):
+        for bi in range(spec.repeats):
+            for tn, fp, kind, col in _block_entries(spec.block):
+                out.append((f"blocks.{si}.{bi}.{tn}", f"{WRAPPER[si]}.{bi}.{tn}",
+                            (f"blocks_{si}_{bi}",) + fp, kind, col))
     return out
 
 
@@ -153,16 +190,8 @@ def name_map(config, stages=V2_B3_STAGES) -> Dict[str, Entry]:
     """Port (= reference torch) key -> (flax path, layout kind, collection)."""
     out: Dict[str, Entry] = {}
     bb = ("img_encoder", "backbone")
-    out["img_encoder.conv0.0.weight"] = (bb + ("conv_stem", "kernel"), "conv", "params")
-    for tn, fp, kind, col in _bn("conv0.1", "bn1"):
-        out[f"img_encoder.{tn}"] = (bb + fp, kind, col)
-    wrapper = {"conv0.2": 0, "conv1": 1, "conv2": 2, "conv3.0": 3, "conv3.1": 4, "conv4": 5}
-    for prefix, si in wrapper.items():
-        spec = stages[si]
-        for bi in range(spec.repeats):
-            for tn, fp, kind, col in _block_entries(spec.block):
-                out[f"img_encoder.{prefix}.{bi}.{tn}"] = (bb + (f"blocks_{si}_{bi}",) + fp,
-                                                          kind, col)
+    for _, key, fp, kind, col in _backbone_entries(stages):
+        out[f"img_encoder.{key}"] = (bb + fp, kind, col)
 
     for k in (1, 2, 3):
         base = f"hist_encoder.hist_extractor{k}.pointnet_encoder"
@@ -373,6 +402,44 @@ def load_reference_checkpoint(src) -> Dict[str, torch.Tensor]:
         if not _dead(k):
             out[k] = torch.as_tensor(v)
     return out
+
+
+# timm's classification head, which the backbone does not have: expected
+# leftovers of a timm checkpoint (tools/import_torch_weights.py:322-323)
+TIMM_HEAD = ("classifier", "conv_head", "bn2")
+
+
+def timm_backbone_state_dict(sd, stages=V2_B3_STAGES):
+    """A timm ``tf_efficientnetv2_b3`` state_dict -> (the port's
+    ``img_encoder.*`` state_dict, missing, unused), as
+    ``tools/import_torch_weights.py::import_timm_backbone`` followed by
+    ``from_flax``. timm's blocks are the port's (timm's layout is the
+    reference's), so each value is copied as it is under its wrapper name
+    (``conv_stem``/``bn1`` -> ``conv0.0``/``conv0.1``, ``blocks.{si}.{bi}``
+    -> ``WRAPPER[si].{bi}``). ``missing`` lists the timm keys the backbone
+    needs and ``sd`` lacks; ``unused`` the keys of ``sd`` that map to
+    nothing, but ``num_batches_tracked`` and the head (``TIMM_HEAD``)."""
+    out, missing, used = {}, [], set()
+    for timm_key, key, _, _, _ in _backbone_entries(stages):
+        if timm_key not in sd:
+            missing.append(timm_key)
+            continue
+        out[f"img_encoder.{key}"] = torch.as_tensor(sd[timm_key])
+        used.add(timm_key)
+    unused = [k for k in sd if k not in used and not k.endswith("num_batches_tracked")
+              and not k.startswith(TIMM_HEAD)]
+    return out, missing, unused
+
+
+def reference_state_dict(sd, config, stages=V2_B3_STAGES):
+    """A reference ``Deltar`` checkpoint -> (``load_reference_checkpoint``'s
+    state_dict, missing, unused), the lists of
+    ``tools/import_torch_weights.py::import_reference_checkpoint``: the
+    port's keys (``name_map``) the checkpoint lacks, and its keys that map
+    to nothing once the dead parameters and counters are dropped."""
+    out = load_reference_checkpoint(sd)
+    table = name_map(config, stages)
+    return out, [k for k in table if k not in out], [k for k in out if k not in table]
 
 
 def _fields(node) -> Dict[str, object]:

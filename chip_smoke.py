@@ -192,6 +192,24 @@ line:
     the golden train step on the grid within ``TRAIN_GOLDEN_TOL`` (6 / 12 /
     18 launches); the bs-16 step at 416x544 on the grid: ms a step beside
     phase 9's, launches, peak memory; the card beside the numbers.
+19. configs (``configs_phase``, run after phase 18): the DELTAR baseline
+    (``configs/train_deltar_baseline.txt``, ``--attention_layer hist2image
+    image hist2image image``) at 480x640 on the deterministic weights: the
+    f32 bs=1 forward eager and replayed from its CUDA graph against
+    ``tests/golden/torch_port_baseline_forward.npz`` (rtol 5e-4, atol
+    5e-5), 0 / 0 / 18 launches; the bf16 forward within ``BF16_DRIFT`` of
+    that golden, 0 / 0 / 18 on bf16; ``evaluate_time``'s replay ms in f32
+    and bf16; ``evaluate`` on 2 synthetic images; one bs-16 step at 416x544
+    (losses, 0 / 0 / 18 launches, ms, peak memory). The production
+    configuration with ``--attention_layer hist2image new_cross combine_2
+    image cvxt_2`` (``FUSION_NAMES``): the f32 forward eager and replayed
+    against ``tests/golden/torch_port_fusion_names_forward.npz``, 9 / 12 / 9
+    launches, replay ms. Masked attention and a masked LoFTR layer at the
+    1/4 scale's hist2image shape in f32 and bf16 against the CPU in float64
+    (``MASKED_TOL``), launching nothing, the same calls unmasked launching
+    their kernels (``masked_calls``). ``cfpnet_torch.demo.predict`` on the
+    synthetic frame against the phase's own eager forward, resized
+    (``demo_check``).
 
 Then the kernel table as one JSON line (each row also carries its
 kernel's per-forward ms and bound, and its worst error over max |plain|,
@@ -206,7 +224,8 @@ serving program, ``launches_serving`` by dtype; in phase 16's bs-16
 self-supervised step, ``launches_selfsup_step``; in phase 17's bs-16
 step of each of the two processes (8 rows each), ``launches_two_rank_step``;
 in phase 18's forward and bs-16 step on the grid, ``launches_spatial_forward``
-and ``launches_spatial_step``;
+and ``launches_spatial_step``; in phase 19's baseline forward and step and
+fusion-names forward, ``launches_configs``;
 from the bf16 phase, per
 bs=1 forward, ``card_ms_bf16``,
 ``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
@@ -291,6 +310,25 @@ TRAIN_GOLDEN_TOL_BF16 = dict(
     trunk_grad_sum_median=0.05, trunk_grad_at=70, trunk_grad_at_median=3.4,
     trunk_param_at=8.1, trunk_param_at_median=0.49)
 PROD_CONFIG = os.path.join(ROOT, "configs", "train_cfpnet_combine1.txt")
+# phase 19: the DELTAR baseline configuration, and the production one with the
+# fusion layer names no shipped configuration uses, each (golden, config
+# arguments) against the JAX package's f32 forward on the CPU
+# (tests/test_torch_port_configs.py::write_golden; the weights and inputs of
+# full_forward.npz), and the kernels' launches of one forward
+BASELINE_CONFIG = os.path.join(ROOT, "configs", "train_deltar_baseline.txt")
+FUSION_NAMES = ("hist2image", "new_cross", "combine_2", "image", "cvxt_2")
+CONFIG_GOLDENS = {
+    "baseline": (os.path.join(ROOT, "tests", "golden", "torch_port_baseline_forward.npz"),
+                 (f"@{BASELINE_CONFIG}",)),
+    "fusion_names": (os.path.join(ROOT, "tests", "golden", "torch_port_fusion_names_forward.npz"),
+                     (f"@{PROD_CONFIG}", "--attention_layer") + FUSION_NAMES),
+}
+CONFIG_LAUNCHES = {
+    "baseline": {"linear_attention": 0, "dwconv": 0, "fused_loftr": 18},
+    # a scale: new_cross 1 + combine_2 2 attention; combine_2 2 + cvxt_2 2
+    # dwconv; hist2image 1 + image 2 fused LoFTR
+    "fusion_names": {"linear_attention": 9, "dwconv": 12, "fused_loftr": 9},
+}
 TOL = 1e-4  # max |kernel - plain| / max |plain|
 # published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
 # the TF32 tensor-core rate over three (a 3xTF32 product is three TF32 ones),
@@ -1094,31 +1132,33 @@ def selfsup_golden_errors(device="cuda"):
     return errs, launches, {k: float(v) for k, v in terms.items()}
 
 
-def golden_diffs(bin_edges, pred):
-    """Max abs differences of a bs=1 forward's outputs from
-    ``tests/golden/full_forward.npz``; raises outside that test's tolerance
-    (rtol 5e-4, atol 5e-5)."""
-    ref = np.load(GOLDEN_FULL)
+def golden_diffs(bin_edges, pred, golden: str = GOLDEN_FULL):
+    """Max abs differences of a bs=1 forward's outputs from ``golden``
+    (default ``tests/golden/full_forward.npz``); raises outside that test's
+    tolerance (rtol 5e-4, atol 5e-5)."""
+    ref = np.load(golden)
     got = dict(pred_slice=pred.cpu().numpy()[0, ::16, ::16, 0],
                bin_edges16=bin_edges.cpu().numpy()[0, ::16],
                pred_mean=pred.mean().cpu().numpy()[None])
     diffs = {}
     for key, val in got.items():
         np.testing.assert_allclose(val, ref[key], rtol=5e-4, atol=5e-5,
-                                   err_msg=f"full-size golden mismatch in {key}")
+                                   err_msg=f"{os.path.basename(golden)}: mismatch in {key}")
         diffs[key] = float(np.abs(val - ref[key]).max())
     return diffs
 
 
 def eager_launches(model, args, geoms):
-    """The kernels' launch counts of one eager forward."""
+    """The kernels' launch counts of one eager forward (all 0 on the CPU,
+    where the wrappers run their plain versions)."""
     from cfpnet_torch import kernels
 
     kernels.reset_launches()
     with torch.no_grad():
         out = model(*args, geoms)
-    torch.cuda.synchronize()
-    return out, {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+    if out[1].is_cuda:
+        torch.cuda.synchronize()
+    return out, launch_counts()
 
 
 def check_launches(launches, batch):
@@ -2198,12 +2238,12 @@ def bf16_row_fields(name, lines, lines_bs8):
                 bound_ms_bs8_bf16=per_forward(lines_bs8, "bound_ms"), **extra)
 
 
-def bf16_drift(pred):
+def bf16_drift(pred, golden: str = GOLDEN_FULL):
     """Median relative and absolute distance of a bs=1 prediction from the
-    f32 golden ``tests/golden/full_forward.npz`` (its every-16th-pixel
-    slice), as ``tests/test_bf16.py`` measures bf16 against f32:
-    |pred - golden| / (|golden| + 1e-2). Raises beyond ``BF16_DRIFT``."""
-    ref = np.load(GOLDEN_FULL)["pred_slice"]
+    f32 ``golden`` (default ``tests/golden/full_forward.npz``; its
+    every-16th-pixel slice), as ``tests/test_bf16.py`` measures bf16 against
+    f32: |pred - golden| / (|golden| + 1e-2). Raises beyond ``BF16_DRIFT``."""
+    ref = np.load(golden)["pred_slice"]
     got = pred.float().cpu().numpy()[0, ::16, ::16, 0]
     err = np.abs(got - ref)
     out = dict(median_rel=float(np.median(err / (np.abs(ref) + 1e-2))),
@@ -3208,6 +3248,255 @@ def spatial_phase(tconfig, plain_step_ms: float, card: str):
                             launches_a_step=step_launches, max_memory_allocated_gib=peak))
 
 
+# phase 19: the DELTAR baseline, the fusion layer names, masked calls, the demo
+CONFIG_ITERS = 50  # evaluate_time --niters of the phase's replays
+CONFIG_STEPS_TIMED = 4  # bs-16 baseline steps between CUDA events (K = 2), after 2 warm ones
+# max |card - CPU float64| / max |CPU float64| of a masked call, by dtype
+MASKED_TOL = {torch.float32: 1e-5, torch.bfloat16: BF16_TOL}
+
+
+def config_argv(name: str):
+    """The config arguments of phase 19's configuration ``name``."""
+    return list(CONFIG_GOLDENS[name][1])
+
+
+def config_forward(name: str, device="cuda"):
+    """The f32 bs=1 forward of configuration ``name`` (``CONFIG_GOLDENS``)
+    on the deterministic weights and the golden's inputs: its eager outputs
+    against the golden, their launches against ``CONFIG_LAUNCHES``, and (on
+    the card) its CUDA graph's replay bit for bit the eager forward and the
+    golden. Returns (the line's fields, the model, its config, the inputs)."""
+    from cfpnet_torch import weights
+    from cfpnet_torch.config import parse_config
+    from cfpnet_torch.graphs import CapturedForward
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+
+    golden = CONFIG_GOLDENS[name][0]
+    config = parse_config(config_argv(name)).replace(mode="online_eval")
+    geoms = model_geometries(config, "online_eval")
+    model = make_model(config, device=device)
+    model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
+    img = torch.from_numpy(weights.det_leaf("img", (1, 480, 640, 3))).to(device)
+    hist = torch.from_numpy(np.abs(weights.det_leaf("hist", (1, 64, 16))) * 20).to(device)
+    mask = torch.ones((1, 64), dtype=torch.bool, device=device)
+    args = (img, hist, mask)
+    (edges, pred, prob, _), launches = eager_launches(model, args, geoms)
+    if device != "cpu" and launches != CONFIG_LAUNCHES[name]:
+        raise AssertionError(f"{name}: the bs=1 forward launched {launches}, expected "
+                             f"{CONFIG_LAUNCHES[name]}")
+    if not (torch.isfinite(pred).all() and torch.isfinite(prob).all()):
+        raise AssertionError(f"{name}: non-finite forward output")
+    out = dict(launches=launches, golden=os.path.relpath(golden, ROOT),
+               golden_max_abs_diff=golden_diffs(edges, pred, golden))
+    if device != "cpu":
+        captured = CapturedForward(model, geoms, 1, config)
+        got = [t.clone() for t in captured(*args)[:3]]
+        same_outputs(got, (edges, pred, prob), f"{name}: bs=1 replay")
+        out["replay_golden_max_abs_diff"] = golden_diffs(got[0], got[1], golden)
+        del captured
+    return out, model, config, args
+
+
+def replay_ms(argv, dtype: str) -> float:
+    """``python -m cfpnet_torch.evaluate_time`` on ``argv`` (the synthetic
+    sample, the deterministic weights) in ``dtype``: ms of a bs=1 replay."""
+    from cfpnet_torch import evaluate_time
+
+    out = evaluate_time.main(argv + ["--compute_dtype", dtype, "--test_dataset", "synthetic",
+                                     "--niters", str(CONFIG_ITERS)])
+    if out["dtype"] != dtype or not out["latency_ms_bs1"] > 0:
+        raise AssertionError(f"evaluate_time {argv} --compute_dtype {dtype}: {out}")
+    return out["latency_ms_bs1"]
+
+
+def baseline_step(config):
+    """The baseline's bs-16 train step at 416x544 in f32 from the
+    deterministic weights: finite losses, the launches of one step, ms a
+    step, peak memory."""
+    from cfpnet_torch import kernels, weights
+    from cfpnet_torch.evaluate_time import make_train_batch, train_config, train_latency_ms
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.train import steps
+
+    tconfig = train_config(config)
+    model = make_model(tconfig, device="cuda")
+    model.load_state_dict(weights.deterministic_state_dict(tconfig), strict=True)
+    state = steps.create_train_state(model, tconfig, GOLDEN_TRAIN_TOTAL_STEPS)
+    step = steps.make_train_step(model, tconfig, model_geometries(tconfig, "train"))
+    batch = make_train_batch(tconfig, tconfig.bs)
+    seeds = iter(range(tconfig.seed, tconfig.seed + 10 ** 6))
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(state, batch, next(seeds))) for _ in range(2)]
+    kernels.reset_launches()
+    losses.append(float(step(state, batch, next(seeds))))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != CONFIG_LAUNCHES["baseline"]:
+        raise AssertionError(f"a baseline bs-{tconfig.bs} step launched {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"baseline step losses {losses}")
+    ms = train_latency_ms(lambda: step(state, batch, next(seeds)), CONFIG_STEPS_TIMED, 2)
+    return dict(batch=tconfig.bs, size=[tconfig.input_height, tconfig.input_width],
+                dtype="float32", losses=losses, launches_a_step=launches, ms_a_step=ms,
+                steps_timed=CONFIG_STEPS_TIMED,
+                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def masked_calls(device="cuda", scale: int = 4):
+    """Masked linear attention and a masked LoFTR layer at the bs=1
+    hist2image shape of ``scale`` (N = 64 zones, L = p1 * p2, S = 16, C =
+    128 / 64 / 32 at 1/16 / 1/8 / 1/4, 4 heads), about half of each mask
+    false, on numpy-seeded inputs and weights (std 0.1): on ``device`` in
+    f32 and bf16 against the same call on the CPU in float64 on the same
+    values, within ``MASKED_TOL`` x max |float64|, with no kernel launched
+    (the plain route); the same calls unmasked launch their kernels on the
+    card."""
+    from cfpnet_torch import kernels
+    from cfpnet_torch.models.deltar import model_geometries
+    from cfpnet_torch.models.transformer import LoFTREncoderLayer
+    from cfpnet_torch.ops import dispatch
+
+    g = model_geometries(production_config(), "online_eval")[scale]
+    N, L, S, C, H = g.zone_num ** 2, g.p1 * g.p2, 16, 8 * scale, 4
+    rng = np.random.default_rng(SEED)
+    q = rng.standard_normal((N, L, H, C // H))
+    k, v = rng.standard_normal((2, N, S, H, C // H))
+    x, src = rng.standard_normal((N, L, C)), rng.standard_normal((N, S, C))
+    x_mask, kv_mask = rng.random((N, L)) > 0.5, rng.random((N, S)) > 0.5
+    kv_mask[:, 0] = True  # every zone keeps a key
+    layer64 = LoFTREncoderLayer(C, H).double()
+    with torch.no_grad():
+        for n, p in layer64.named_parameters():  # LayerNorm scales near 1
+            p.copy_(torch.from_numpy(0.1 * rng.standard_normal(tuple(p.shape))
+                                     + (p.dim() == 1 and n.endswith("weight"))))
+    masks = {n: torch.from_numpy(m) for n, m in (("x", x_mask), ("kv", kv_mask))}
+
+    def run(dtype, dev, layer, masked=True):
+        ts = [torch.from_numpy(a).to(dev, dtype) for a in (q, k, v, x, src)]
+        m = {n: (t.to(dev) if masked else None) for n, t in masks.items()}
+        with torch.no_grad():
+            return (dispatch.attention(*ts[:3], q_mask=m["x"], kv_mask=m["kv"]),
+                    layer(ts[3], ts[4], m["x"], m["kv"]))
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        layer = LoFTREncoderLayer(C, H).to(device, dtype)
+        layer.load_state_dict(layer64.state_dict())
+        # the float64 reference on the values the dtype holds
+        ref_layer = LoFTREncoderLayer(C, H).double()
+        ref_layer.load_state_dict({n: t.to(dtype).double()
+                                   for n, t in layer64.state_dict().items()})
+        with torch.no_grad():
+            ts = [torch.from_numpy(a).to(dtype).double() for a in (q, k, v, x, src)]
+            ref = (dispatch.attention(*ts[:3], q_mask=masks["x"], kv_mask=masks["kv"]),
+                   ref_layer(ts[3], ts[4], masks["x"], masks["kv"]))
+        kernels.reset_launches()
+        got = run(dtype, device, layer)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = launch_counts()
+        errs = {}
+        for what, a, b in zip(("attention", "loftr_layer"), got, ref):
+            if a.dtype != dtype or a.device.type != torch.device(device).type:
+                raise AssertionError(f"masked {what}: {a.dtype} on {a.device}")
+            errs[what] = float((a.double().cpu() - b).abs().max()) / float(b.abs().max())
+        if not all(math.isfinite(e) and e <= MASKED_TOL[dtype] for e in errs.values()):
+            raise AssertionError(f"masked calls in {dtype}: {errs}, limit {MASKED_TOL[dtype]}")
+        if any(launches.values()):
+            raise AssertionError(f"masked calls in {dtype} launched {launches}")
+        unmasked = None
+        if device != "cpu":
+            kernels.reset_launches()
+            run(dtype, device, layer, masked=False)
+            torch.cuda.synchronize()
+            unmasked = launch_counts()
+            if unmasked != {"linear_attention": 1, "dwconv": 0, "fused_loftr": 1}:
+                raise AssertionError(f"the unmasked calls in {dtype} launched {unmasked}")
+        out[str(dtype).replace("torch.", "")] = dict(
+            max_rel_err=errs, limit=MASKED_TOL[dtype], launches_masked=launches,
+            launches_unmasked=unmasked)
+    return dict(shape=dict(N=N, L=L, S=S, C=C, H=H),
+                mask_false_share=dict(x=float(1 - x_mask.mean()), kv=float(1 - kv_mask.mean())),
+                **out)
+
+
+def demo_check(device="cuda"):
+    """``cfpnet_torch.demo.predict`` on the synthetic frame with the
+    deterministic weights against this phase's own eager f32 forward of the
+    same model on that frame, resized the same way (max |diff| <= 1e-6 x
+    max |forward|)."""
+    from cfpnet_torch import demo, weights
+    from cfpnet_torch.data.datasets import sample_image_f32
+    from cfpnet_torch.models.deltar import make_model, model_geometries
+    from cfpnet_torch.ops.interp import resize_bilinear_align_corners
+
+    config = demo.demo_config()
+    sample = demo.load_frame(config)
+    got = demo.predict(config, sample, device=device)
+    model = make_model(config, device=device)
+    model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
+    image = torch.from_numpy(sample_image_f32(sample)[None]).to(device)
+    with torch.no_grad():
+        pred = model(image, torch.from_numpy(sample["hist_data"][None]).to(device),
+                     torch.from_numpy(sample["mask"][None]).to(device),
+                     model_geometries(config, "online_eval"))[1]
+        want = resize_bilinear_align_corners(pred, image.shape[1], image.shape[2])
+    want = want[0, :, :, 0].cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    if got.shape != (480, 640) or not np.isfinite(got).all() or not rel <= 1e-6:
+        raise AssertionError(f"demo.predict: shape {got.shape}, finite "
+                             f"{bool(np.isfinite(got).all())}, max rel diff {rel}")
+    return dict(shape=list(got.shape), max_rel_diff_vs_forward=rel, min=float(got.min()),
+                max=float(got.max()), mean=float(got.mean()))
+
+
+def configs_phase(card: str):
+    """Phase 19: (a) the DELTAR baseline (``configs/train_deltar_baseline.txt``:
+    no combine1, so no dwconv and no cross-zone attention): the f32 bs=1
+    forward eager and replayed against ``torch_port_baseline_forward.npz``,
+    0 / 0 / 18 launches, the bf16 forward within ``BF16_DRIFT`` of that
+    golden (0 / 0 / 18 on bf16), replay ms of both dtypes through
+    ``evaluate_time``, ``evaluate`` on 2 synthetic images, and the bs-16
+    train step; (b) the production configuration with the fusion layer names
+    ``FUSION_NAMES``: the f32 forward eager and replayed against
+    ``torch_port_fusion_names_forward.npz``, 9 / 12 / 9 launches, replay ms;
+    (c) ``masked_calls``; (d) ``demo_check``. ``card`` (the nvidia-smi line)
+    goes beside every number."""
+    from cfpnet_torch import evaluate
+    from cfpnet_torch.models.deltar import cast_to_compute_dtype, model_geometries
+
+    t0 = time.perf_counter()
+    base, model, config, args = config_forward("baseline")
+    cast_to_compute_dtype(model, torch.bfloat16)
+    img, hist, mask = args
+    (_, pred16, _, _), launches16 = eager_launches(
+        model, (img.to(torch.bfloat16), hist.to(torch.bfloat16), mask),
+        model_geometries(config, "online_eval"))
+    by_dtype = launches_by_dtype()
+    if launches16 != CONFIG_LAUNCHES["baseline"] or any(
+            set(d) - {"bfloat16"} for d in by_dtype.values()):
+        raise AssertionError(f"the baseline's bf16 forward launched {by_dtype}")
+    base.update(launches_bf16=launches16,
+                bf16_drift=bf16_drift(pred16, CONFIG_GOLDENS["baseline"][0]))
+    del model
+    base["replay_ms"] = {dt: replay_ms(config_argv("baseline"), dt)
+                         for dt in ("float32", "bfloat16")}
+    entry = evaluate.main(config_argv("baseline") + [
+        "--test_dataset", "synthetic", "--synthetic_length", "2", "--time_iters", "0"])
+    if len(entry["metrics"]) != 9 or not all(math.isfinite(v)
+                                             for v in entry["metrics"].values()):
+        raise AssertionError(f"evaluate on the baseline: {entry['metrics']}")
+    base["evaluate_metrics"] = entry["metrics"]
+    base["step16"] = baseline_step(config)
+
+    names, model, _, _ = config_forward("fusion_names")
+    del model
+    names["replay_ms"] = {"float32": replay_ms(config_argv("fusion_names"), "float32")}
+    return dict(phase="configs", card=card, baseline=base,
+                fusion_names=dict(names, attention_layer=list(FUSION_NAMES)),
+                masked=masked_calls(), demo=demo_check(), seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
@@ -3408,6 +3697,16 @@ def main() -> int:
     for r in rows:
         r["launches_spatial_forward"] = grid18["launches_forward"][r["name"]]
         r["launches_spatial_step"] = grid18["step16"]["launches_a_step"][r["name"]]
+
+    # 19. the DELTAR baseline and the fusion layer names against their
+    # goldens, masked calls on the plain route, the demo's forward
+    configs = configs_phase(smi[0])
+    emit(configs)
+    for r in rows:
+        r["launches_configs"] = dict(
+            baseline_forward=configs["baseline"]["launches"][r["name"]],
+            baseline_step=configs["baseline"]["step16"]["launches_a_step"][r["name"]],
+            fusion_names_forward=configs["fusion_names"]["launches"][r["name"]])
 
     # 13. the headline benchmark at reduced iterations (its own JSON line),
     # with the root bench's train keys: the bf16 step's, the f32 step's

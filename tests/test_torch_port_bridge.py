@@ -111,5 +111,8 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "cfpnet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    # the command-line tools' ports are read as every other module
+    assert {ROOT / "cfpnet_torch" / f"{m}.py"
+            for m in ("import_weights", "extract_nyu_mat", "demo")} <= set(files)
     bad = {(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f) if m in FORBIDDEN}
     assert not bad, f"the port imports the JAX stack: {sorted(bad)}"

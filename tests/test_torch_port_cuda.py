@@ -667,3 +667,40 @@ def test_captured_forward_bf16(gen):
     _assert_equal(captured(*one)[:3], want)
     with pytest.raises(ValueError):
         captured(inputs[0][:1], inputs[1][:1], inputs[2][:1])
+
+
+@pytest.mark.parametrize("scale", [16, 8, 4])
+def test_masked_calls_take_the_plain_route(gen, scale):
+    """Masked attention and a masked LoFTR layer at each bs=1 hist2image
+    shape, in f32 and bf16: the plain route on the card within
+    ``chip_smoke.MASKED_TOL`` of the CPU in float64, no kernel launched;
+    the same calls unmasked launch their kernels."""
+    from chip_smoke import masked_calls
+
+    out = masked_calls("cuda", scale)
+    for dtype in ("float32", "bfloat16"):
+        assert not any(out[dtype]["launches_masked"].values())
+        assert out[dtype]["launches_unmasked"] == {"linear_attention": 1, "dwconv": 0,
+                                                   "fused_loftr": 1}
+
+
+@pytest.mark.parametrize("name", ["baseline", "fusion_names"])
+def test_config_forward_launches(gen, name):
+    """A forward of the DELTAR baseline's and of the fusion names' layers
+    (production widths at the 64x96 geometry) launches
+    ``chip_smoke.CONFIG_LAUNCHES``: 0 / 0 / 18 and 9 / 12 / 9."""
+    from chip_smoke import CONFIG_LAUNCHES, FUSION_NAMES
+    from cfpnet_torch.bench import smoke_config
+    from cfpnet_torch.evaluate_time import load_model
+
+    layers = {"baseline": ["hist2image", "image", "hist2image", "image"],
+              "fusion_names": list(FUSION_NAMES)}[name]
+    config = smoke_config().replace(tiny_model=False, attention_layer=layers)
+    model = load_model(config)
+    _, _, geoms, inputs = _captured_model()
+    kernels.reset_launches()
+    out = _eager(model, [a[:1] for a in inputs], geoms)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[1]).all()
+    assert {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS} == \
+        CONFIG_LAUNCHES[name]

@@ -174,18 +174,24 @@ def test_module_grads_reach_linear_weights():
         close(a.numpy(), b.numpy(), atol=1e-11)
 
 
-def test_loftr_layer_dispatch_rules():
+def test_loftr_layer_dispatch_rules(monkeypatch):
     """Off the CPU an unmasked layer reaches the kernel's checks (which take
-    only CUDA float32 tensors) and a masked one raises: nothing falls back."""
+    only CUDA tensors): nothing falls back. A masked one takes the layer's
+    module path on its device, chosen before the kernel's wrapper is
+    reached."""
     layer = pt_tr.LoFTREncoderLayer(32, 4).to("meta")
     x = torch.empty(2, 8, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         dispatch.loftr_layer(x, x, layer)
     mask = torch.ones(2, 8, dtype=torch.bool, device="meta")
-    with pytest.raises(NotImplementedError):
-        dispatch.loftr_layer(x, x, layer, x_mask=mask, source_mask=mask)
-    with pytest.raises(NotImplementedError):
-        layer(x, x, x_mask=mask)
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("a masked layer reached the fused kernel's wrapper")
+
+    monkeypatch.setattr(loftr_kernel, "fused_loftr", no_kernel)
+    for out in (dispatch.loftr_layer(x, x, layer, x_mask=mask, source_mask=mask),
+                layer(x, x, x_mask=mask)):
+        assert out.device.type == "meta" and out.shape == x.shape
 
 
 # the nine LoFTR-layer shapes of the 480x640 forward, (N, L, S, C, H)

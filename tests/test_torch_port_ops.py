@@ -1,6 +1,7 @@
 """Port ops against the JAX package, float64 on the CPU: linear attention,
 the large-kernel depthwise conv, the align-corners resizes, and the
-dispatch rules (CPU tensors take the plain version; nothing else falls back).
+dispatch rules (CPU tensors take the plain version; an unmasked call on
+another device never falls back; a masked call takes the plain route).
 """
 
 import jax.numpy as jnp
@@ -100,13 +101,20 @@ def test_resize_matches_jax_f64(size):
     close(resize_bilinear_align_corners(t(x), oh, ow).numpy(), ref)
 
 
-def test_nothing_off_the_cpu_falls_back():
-    """A tensor that is not on the CPU goes to the kernel or raises: masked
-    attention has no kernel, and the kernels take only CUDA f32 tensors."""
+def test_nothing_off_the_cpu_falls_back(monkeypatch):
+    """An unmasked tensor that is not on the CPU goes to the kernel or
+    raises: the kernels take only CUDA tensors. A masked call takes the
+    plain route on any device, chosen before any kernel wrapper is reached."""
     q = torch.empty(1, 4, 4, 8, device="meta")
     mask = torch.ones(1, 4, dtype=torch.bool, device="meta")
-    with pytest.raises(NotImplementedError):
-        dispatch.attention(q, q, q, q_mask=mask)
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("a masked call reached a kernel wrapper")
+
+    with monkeypatch.context() as m:
+        m.setattr(attention_kernel, "linear_attention", no_kernel)
+        out = dispatch.attention(q, q, q, q_mask=mask)
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
     with pytest.raises(ValueError):
         dispatch.attention(q, q, q)
     x = torch.empty(1, 8, 8, 4, device="meta")

@@ -334,13 +334,14 @@ def test_eval_batch_takes_the_datasets_geometry(monkeypatch):
 
 NEW_MODULES = ("cfpnet_torch/evaluate_all.py", "cfpnet_torch/utils/__init__.py",
                "cfpnet_torch/utils/xlsx.py", "cfpnet_torch/utils/vis.py",
-               "cfpnet_torch/kernels/dtypes.py")
+               "cfpnet_torch/kernels/dtypes.py", "cfpnet_torch/import_weights.py",
+               "cfpnet_torch/extract_nyu_mat.py", "cfpnet_torch/demo.py")
 
 
 def test_new_modules_import_no_jax():
     """``tests/test_torch_port_bridge.py::test_port_imports_no_jax`` reads
-    every file of the port; these are this slice's. None names the JAX
-    stack, and importing them with JAX made unimportable works."""
+    every file of the port; these are the sweep's and the tools'. None names
+    the JAX stack, and importing them with JAX made unimportable works."""
     for name in NEW_MODULES:
         path = ROOT / name
         assert path.is_file(), name
@@ -350,7 +351,8 @@ def test_new_modules_import_no_jax():
             "    sys.modules[m] = None\n"
             "import cfpnet_torch.evaluate_all, cfpnet_torch.utils.vis, cfpnet_torch.utils.xlsx\n"
             "import cfpnet_torch.evaluate, cfpnet_torch.evaluate_time, cfpnet_torch.bench\n"
-            "import cfpnet_torch.kernels.dtypes\n")
+            "import cfpnet_torch.kernels.dtypes\n"
+            "import cfpnet_torch.import_weights, cfpnet_torch.extract_nyu_mat, cfpnet_torch.demo\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
