@@ -1,0 +1,21 @@
+"""Host milliseconds a train step spends in the losses of its microbatches: the
+port's span ``train.forward`` (``cfpnet_torch/train/steps.py``, the training
+forward and the loss), summed over each step, the mean over the traced
+steps: the last ``run.trace.items`` spans ``train.step``, so that an earlier
+traced attempt is not read again. The port's spans record while the profiler
+runs (``cfpnet_torch.tracing``); none where the port has no such span."""
+
+NAME = "train.forward"
+
+
+def read(run):
+    try:
+        from cfpnet_torch import tracing
+    except ImportError:
+        return None
+    spans = tracing.snapshot().spans
+    steps = [s.root for s in spans if s.name == "train.step"][-run.trace.items:]
+    if not steps:
+        return None
+    roots = set(steps)
+    return sum(s.ms for s in spans if s.name == NAME and s.root in roots) / len(steps)

@@ -30,12 +30,12 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..parallel import mesh
 from .datasets import collate, make_dataset
 from .geometry import zone_offset_for
@@ -46,11 +46,12 @@ class DataLoader:
 
     ``world`` processes split each full batch, process ``rank`` decoding
     its rows (``mesh.rank_rows``, microbatch-major under ``accum`` > 1);
-    ``indices`` holds the dataset indices of the rows last yielded. For
-    the current (or last) pass over the loader, ``wait_s`` holds the seconds
-    the consumer spent blocked on the queue for each batch it took, and
-    ``produce_s`` the producer's seconds to decode, collate and pin each
-    batch it made."""
+    ``indices`` holds the dataset indices of the rows last yielded.
+
+    Tracing (``tracing.py``): the span ``data.wait`` is the consumer blocked
+    on the queue for each batch it takes, ``data.produce`` the producer
+    thread's decode, collate and pin of each batch it makes (a root on its
+    own thread)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, prefetch: int = 2,
@@ -68,8 +69,6 @@ class DataLoader:
         self.device = torch.device(device)
         self.epoch = 0
         self.indices = None
-        self.wait_s: List[float] = []
-        self.produce_s: List[float] = []
 
     def set_epoch(self, epoch: int):
         """Pin the epoch counter (shuffle and zone-offset streams), so that
@@ -101,8 +100,6 @@ class DataLoader:
         nb = len(self)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
-        wait_s, produce_s = [], []
-        self.wait_s, self.produce_s = wait_s, produce_s
 
         def producer():
             try:
@@ -115,9 +112,8 @@ class DataLoader:
                     chunk = order[b * self.batch_size: (b + 1) * self.batch_size]
                     if self.rows is not None and len(chunk) == self.batch_size:
                         chunk = chunk[self.rows]
-                    t0 = time.perf_counter()
-                    batch = self._host_batch(chunk)
-                    produce_s.append(time.perf_counter() - t0)
+                    with tracing.span("data.produce"):
+                        batch = self._host_batch(chunk)
                     q.put((chunk, batch))
             except Exception as e:  # raised in the consumer
                 q.put(e)
@@ -127,14 +123,13 @@ class DataLoader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                t0 = time.perf_counter()
-                item = q.get()
-                if item is None:
+            for _ in range(nb):
+                with tracing.span("data.wait"):
+                    item = q.get()
+                if item is None:  # the producer stopped without a batch or an error
                     break
                 if isinstance(item, Exception):
                     raise item
-                wait_s.append(time.perf_counter() - t0)
                 self.indices, batch = item
                 yield {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
         finally:

@@ -32,8 +32,13 @@ What the graph bakes in:
   other launch keeps a full edge to its predecessor. The attention apply
   pass reads q before ``griddepcontrol.wait``, which is safe only because
   its summary pass keeps that full edge.
-- The kernels' launch counters (``kernels/*.py``) count in Python, so they
-  count at capture and never at a replay: count launches on an eager pass.
+
+Tracing (``tracing.py``): a call on new inputs is the span ``graph.call``
+over ``graph.copy_in`` and ``graph.replay``, the build the span
+``graph.capture``. The kernels' launch counters (``kernels/*.py``) count in Python, where a capture
+records the launches without running them: ``CapturedCall`` takes the
+capture's counts back and adds them at each replay (``launches``), so the
+counters count what the device ran.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from . import tracing
 from .data.geometry import ScaleGeometry
 
 WARMUP = 3  # eager calls before the capture
@@ -57,7 +63,8 @@ class CapturedCall:
     call ``captured(*tensors)`` copies the tensors into the buffers first,
     and raises ``ValueError`` on other shapes or dtypes. The next replay
     overwrites the outputs: clone what must outlive it. An error during
-    capture propagates; it never runs eagerly instead.
+    capture propagates; it never runs eagerly instead. ``launches`` holds
+    the kernel launch counters' increments of one replay.
     """
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], names: Sequence[str]):
@@ -66,18 +73,26 @@ class CapturedCall:
             raise ValueError(f"{type(self).__name__} needs inputs on a CUDA device, got {device}")
         self._inputs, self.names = tuple(inputs), tuple(names)
 
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.no_grad(), torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                fn(*self.inputs)
-        torch.cuda.current_stream(device).wait_stream(side)
+        with tracing.span("graph.capture"):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.no_grad(), torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    fn(*self.inputs)
+            torch.cuda.current_stream(device).wait_stream(side)
 
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph):
-            self.outputs = fn(*self.inputs)
-        self.graph.replay()
-        torch.cuda.synchronize(device)
+            self.graph = torch.cuda.CUDAGraph()
+            before = tracing.counters("kernel.")
+            with torch.no_grad(), torch.cuda.graph(self.graph):
+                self.outputs = fn(*self.inputs)
+            # the kernel launches the graph holds, by counter: recorded, not run
+            self.launches = {k: n - before.get(k, 0)
+                             for k, n in tracing.counters("kernel.").items()
+                             if n != before.get(k, 0)}
+            for k, n in self.launches.items():
+                tracing.count(k, -n)
+            self.replay()
+            torch.cuda.synchronize(device)
 
     @property
     def inputs(self):
@@ -86,17 +101,22 @@ class CapturedCall:
 
     def replay(self):
         """One replay on the inputs already in the static buffers."""
-        self.graph.replay()
+        with tracing.span("graph.replay"):
+            self.graph.replay()
+        for k, n in self.launches.items():
+            tracing.count(k, n)
         return self.outputs
 
     def __call__(self, *tensors: torch.Tensor):
-        for name, got, static in zip(self.names, tensors, self.inputs):
-            if got.shape != static.shape or got.dtype != static.dtype:
-                raise ValueError(f"{type(self).__name__}: {name} {tuple(got.shape)} {got.dtype}; "
-                                 f"the graph was captured for {tuple(static.shape)} "
-                                 f"{static.dtype}")
-            static.copy_(got)
-        return self.replay()
+        with tracing.span("graph.call"):
+            with tracing.span("graph.copy_in"):
+                for name, got, static in zip(self.names, tensors, self.inputs):
+                    if got.shape != static.shape or got.dtype != static.dtype:
+                        raise ValueError(f"{type(self).__name__}: {name} {tuple(got.shape)} "
+                                         f"{got.dtype}; the graph was captured for "
+                                         f"{tuple(static.shape)} {static.dtype}")
+                    static.copy_(got)
+            return self.replay()
 
 
 class CapturedForward(CapturedCall):

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels (sources in ``cfpnet_torch/csrc``).
 
-One module per kernel: its wrapper, its launch count and its plain twin.
+One module per kernel: its wrapper, its launch count (a view of the
+counters of ``cfpnet_torch.tracing``) and its plain twin.
 Nothing is built or loaded when this package is imported.
 """
 

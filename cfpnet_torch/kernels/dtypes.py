@@ -1,13 +1,17 @@
 """What the three wrappers share: the element types the kernels take (the C
-entry suffix of each, the check that a call's tensors share one of them,
-the launch count by element type), the output of an op under a trace, and
-the operations of an op as ``torch.utils.flop_counter`` counts them."""
+entry suffix of each, the check that a call's tensors share one of them),
+the launch counters (``kernel.<name>.launches.<dtype>`` in
+``cfpnet_torch.tracing``, graph replays included) and each wrapper's views of
+them, the output of an op under a trace, and the operations of an op as
+``torch.utils.flop_counter`` counts them."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+
+from .. import tracing
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}  # element type -> C entry suffix
 
@@ -30,10 +34,29 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def count_launch(by_dtype: Dict[str, int], dtype: torch.dtype) -> None:
-    """Adds one launch on ``dtype`` ("float32", "bfloat16") to ``by_dtype``."""
-    key = dtype_name(dtype)
-    by_dtype[key] = by_dtype.get(key, 0) + 1
+def count_launch(kernel: str, dtype: torch.dtype) -> None:
+    """Counts one launch of ``kernel`` on ``dtype`` ("float32", "bfloat16")."""
+    tracing.count(f"kernel.{kernel}.launches.{dtype_name(dtype)}")
+
+
+def launch_views(kernel: str) -> Callable[[str], object]:
+    """A wrapper module's ``__getattr__``: ``launches``, the kernel's launches
+    since the last ``reset_launches()``, and ``launches_by_dtype``, the same
+    by element type ("float32", "bfloat16"), both read from the counters."""
+    prefix = f"kernel.{kernel}.launches."
+
+    def __getattr__(name: str):
+        if name not in ("launches", "launches_by_dtype"):
+            raise AttributeError(f"module {__package__}.{kernel} has no attribute {name!r}")
+        by_dtype = {k[len(prefix):]: n for k, n in tracing.counters(prefix).items()}
+        return by_dtype if name == "launches_by_dtype" else sum(by_dtype.values())
+
+    return __getattr__
+
+
+def reset_launches(kernel: str) -> None:
+    """Sets ``kernel``'s launch counters to 0."""
+    tracing.reset_counters(f"kernel.{kernel}.launches.")
 
 
 def traced_output(kernel: str, like: torch.Tensor) -> torch.Tensor:

@@ -30,13 +30,14 @@ import ctypes
 import functools
 import math
 from types import MappingProxyType
-from typing import Dict, Mapping, NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 
 from ..ops.dwconv import depthwise_conv2d as depthwise_conv2d_plain
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch, traced_output
+from .dtypes import DTYPES, check_dtypes, count_launch, launch_views, traced_output
+from .dtypes import reset_launches as reset_kernel_launches
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use
@@ -72,18 +73,16 @@ TILING = {31: Tiling(8, 2, 10, 8, 2, 640, 16), 15: Tiling(4, 2, 10, 8, 2, 640, 8
           7: Tiling(4, 1, 6, 8, 1, 512, 8)}
 SUPPORTED_K = tuple(TILING)
 
-# kernel launches since the last reset_launches(): a forward call launches
-# once, and its backward once more for dx (the flipped taps), so a train step
-# of the production model launches 6 times for the outputs and 6 for dx
-launches = 0
-# the same launches by element type ("float32", "bfloat16")
-launches_by_dtype: Dict[str, int] = {}
+# ``launches`` and ``launches_by_dtype``: the kernel's launches since the last
+# reset_launches(), graph replays included, read from the counters
+# (dtypes.launch_views). A forward call launches once, and its backward once
+# more for dx (the flipped taps), so a train step of the production model
+# launches 6 times for the outputs and 6 for dx
+__getattr__ = launch_views("dwconv")
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launches_by_dtype.clear()
+    reset_kernel_launches("dwconv")
 
 
 def _round4(n: int) -> int:
@@ -244,7 +243,6 @@ dwconv2d.register_autograd(_backward, setup_context=_setup_context)
 
 def _launch(x, weight, bias):
     _check(x, weight, bias)
-    global launches
     B, H, W, C = x.shape
     k = weight.shape[-1]
     p = launch_plan(B, H, W, C, k)
@@ -254,8 +252,7 @@ def _launch(x, weight, bias):
                    p["plane"], p["wplane"], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dwconv kernel launch failed: cudaError {rc}")
-    launches += 1
-    count_launch(launches_by_dtype, x.dtype)
+    count_launch("dwconv", x.dtype)
     return out
 
 

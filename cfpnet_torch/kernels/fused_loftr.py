@@ -41,15 +41,16 @@ from __future__ import annotations
 import ctypes
 import functools
 from types import MappingProxyType
-from typing import Dict, List, Mapping
+from typing import List, Mapping
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ..ops.loftr import LoFTRParams, loftr_apply
 from . import build
-from .dtypes import (DTYPES, check_dtypes, count_launch, dtype_name, meta, plain_flops,
-                     traced_output)
+from .dtypes import (DTYPES, check_dtypes, count_launch, dtype_name, launch_views, meta,
+                     plain_flops, traced_output)
+from .dtypes import reset_launches as reset_kernel_launches
 from .dwconv import (MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK, SMEM_PER_SM,
                      SMEM_RESERVED, SMS)
 
@@ -80,15 +81,14 @@ SUM_BLOCKS = 4 * SMS
 # (cudaOccupancyMaxActiveClusters on the card; cfp_fused_loftr_bf16_resident)
 CLUSTERS_RESIDENT = {(2, 1): 66, (4, 1): 30}
 
-launches = 0  # kernel launches since the last reset_launches()
-# the same launches by element type ("float32", "bfloat16")
-launches_by_dtype: Dict[str, int] = {}
+# ``launches`` and ``launches_by_dtype``: the wrapper's calls that launched
+# since the last reset_launches(), graph replays included, read from the
+# counters (dtypes.launch_views)
+__getattr__ = launch_views("fused_loftr")
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launches_by_dtype.clear()
+    reset_kernel_launches("fused_loftr")
 
 
 def row_smem(C: int, D: int, tm: int, cl: int, dtype: torch.dtype) -> int:
@@ -291,7 +291,6 @@ def _flop_formula(x_shape, source_shape, weight_shapes, nhead, eps, out_shape=No
 
 def _launch(x, source, p, nhead, eps):
     _check(x, source, p, nhead)
-    global launches
     N, L, C = x.shape
     S = source.shape[1]
     D = C // nhead
@@ -307,8 +306,7 @@ def _launch(x, source, p, nhead, eps):
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_loftr kernel launch failed: cudaError {rc}")
-    launches += 1
-    count_launch(launches_by_dtype, x.dtype)
+    count_launch("fused_loftr", x.dtype)
     return out
 
 

@@ -30,14 +30,16 @@ import ctypes
 import functools
 import math
 from types import MappingProxyType
-from typing import Dict, Mapping
+from typing import Mapping
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ..ops.attention import linear_attention as linear_attention_plain
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch, meta, plain_flops, traced_output
+from .dtypes import (DTYPES, check_dtypes, count_launch, launch_views, meta, plain_flops,
+                     traced_output)
+from .dtypes import reset_launches as reset_kernel_launches
 from .dwconv import (MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK,
                      SMEM_PER_SM, SMEM_RESERVED, SMS)
 
@@ -73,15 +75,14 @@ def outputs_per_thread(D: int) -> int:
     return 4 if D in (4, 32) else 8
 
 
-launches = 0  # kernel launches since the last reset_launches()
-# the same launches by element type ("float32", "bfloat16")
-launches_by_dtype: Dict[str, int] = {}
+# ``launches`` and ``launches_by_dtype``: the kernel's launches since the last
+# reset_launches(), graph replays included, read from the counters
+# (dtypes.launch_views)
+__getattr__ = launch_views("linear_attention")
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launches_by_dtype.clear()
+    reset_kernel_launches("linear_attention")
 
 
 def _blocks_per_sm(threads: int, smem: int, max_threads: int, min_blocks: int = 1) -> int:
@@ -226,7 +227,6 @@ def _flop_formula(q_shape, k_shape, v_shape, eps, out_shape=None, **kwargs) -> i
 
 def _launch(q, k, v, eps):
     _check(q, k, v)
-    global launches
     N, L, H, D = q.shape
     S = k.shape[1]
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -241,8 +241,7 @@ def _launch(q, k, v, eps):
         p["apply_smem"], eps, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"linear_attention kernel launch failed: cudaError {rc}")
-    launches += 1
-    count_launch(launches_by_dtype, q.dtype)
+    count_launch("linear_attention", q.dtype)
     return out
 
 

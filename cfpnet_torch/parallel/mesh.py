@@ -21,6 +21,10 @@ process holds its own rows, so the collectives are written out:
 
 With no process group, or a world of one, the model and the loss
 communicate nothing and compute what they compute in one process.
+
+Every all-reduce of the model, the loss and the gradients is counted
+(``tracing.py``: ``parallel.all_reduce``, ``parallel.all_reduce_bytes``);
+the gradients' falls in the train step's span ``train.allreduce``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .. import tracing
 
 
 def is_distributed() -> bool:
@@ -159,6 +165,14 @@ def shard_batch(batch: Dict[str, torch.Tensor], accum: int = 1) -> Dict[str, tor
     return {k: v[torch.as_tensor(rows, device=v.device)] for k, v in batch.items()}
 
 
+def _all_reduce(t: torch.Tensor) -> None:
+    """``dist.all_reduce(t)`` (a sum, in place), counted: the counters
+    ``parallel.all_reduce`` and ``parallel.all_reduce_bytes``."""
+    tracing.count("parallel.all_reduce")
+    tracing.count("parallel.all_reduce_bytes", t.numel() * t.element_size())
+    dist.all_reduce(t)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the processes; its gradient is the sum of the processes'
     gradients of the result."""
@@ -166,13 +180,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        _all_reduce(out)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        _all_reduce(out)
         return out
 
 
@@ -215,7 +229,7 @@ def average_gradients(grads: List[torch.Tensor]) -> None:
     world = world_size()
 
     def reduce(flat):
-        dist.all_reduce(flat)
+        _all_reduce(flat)
         flat.div_(world)
 
     _coalesced(grads, reduce)

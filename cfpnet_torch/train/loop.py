@@ -37,6 +37,15 @@ eval steps cast nothing, and the checkpoints hold the float32 state.
 The loop makes no host sync in a step: the losses are summed on the device
 and read at the JSONL ``train`` lines (every 50 steps) and at the end of an
 epoch, where the JAX loop reads each step's loss (``float(loss)``).
+
+``run_training`` traces in a ``tracing.session()``: an epoch's steps are the
+span ``loop.train`` over ``loop.step`` (each over ``data.wait``,
+``loop.preprocess`` under ``--device_pipeline``, and ``train.step``) and
+``loop.log``, then ``loop.validate`` and ``loop.checkpoint``. Each epoch's
+JSONL ``epoch`` line takes its timing from them (``epoch_timing``) and
+carries their aggregates by name as ``spans``, and the counters' increments
+over the epoch as ``counters``: the kernels' launches by element type, and
+the all-reduces and their bytes in a process group.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data import native
 from ..data.geometry import geometry_for, zone_offset_for
 from ..data.pipeline import make_loader
@@ -280,6 +290,39 @@ def evaluate_sharded(model, config, dataset, protocol: str = "validate", steps=N
     return {k: float(v / total) for k, v in zip(EVAL_METRIC_KEYS, sums)}
 
 
+def epoch_seconds(spans: tracing.Snapshot) -> float:
+    """Seconds of an epoch's steps and validation so far, from its spans."""
+    return sum(spans.aggregates.get(name, {}).get("total_ms", 0.0)
+               for name in ("loop.train", "loop.validate")) / 1e3
+
+
+def epoch_timing(spans: tracing.Snapshot, steps: int, counted: Dict[str, int]) -> Dict:
+    """The timing of an epoch's JSONL line, from the epoch's spans:
+    ``steps``; ``train_s``, the seconds of its steps up to the read of their
+    losses (``loop.train``); ``loader_wait_ms``, the consumer's wait for each
+    batch of those steps, and ``producer_ms``, the producer's time to make
+    each batch it made in that interval: which of the two sets the loop's
+    pace; ``val_s`` and ``checkpoint_s`` where the epoch validated and
+    wrote checkpoints; ``spans``, the aggregates of every span of the
+    epoch by name (``n``, ``total_ms``, ``self_ms``, ``max_ms``); and
+    ``counters``, what each counter has counted since it read ``counted``
+    (``tracing.counters()`` at the epoch's start)."""
+    agg = spans.aggregates
+    train = [s for s in spans.spans if s.name == "loop.train"][-1]
+    timing = dict(steps=steps, train_s=train.ms / 1e3,
+                  loader_wait_ms=[s.ms for s in spans.spans
+                                  if s.name == "data.wait" and s.root == train.id],
+                  producer_ms=[s.ms for s in spans.spans if s.name == "data.produce"
+                               and train.start_ns <= s.start_ns <= train.end_ns])
+    for key, name in (("val_s", "loop.validate"), ("checkpoint_s", "loop.checkpoint")):
+        if name in agg:
+            timing[key] = agg[name]["total_ms"] / 1e3
+    timing["spans"] = agg
+    timing["counters"] = {k: n - counted.get(k, 0) for k, n in tracing.counters().items()
+                          if n != counted.get(k, 0)}
+    return timing
+
+
 def prep_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of step ``step``'s device-pipeline draws, on
     ``device``: seeded from (seed, step, 777), the JAX loop's
@@ -417,72 +460,77 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
                   make_metric_step(config, protocol="validate"))
 
     step = state.step
-    for epoch in range(start_epoch, config.epochs):
-        t_epoch = time.perf_counter()
-        train_loader.set_epoch(epoch)  # align the shuffle and zone-offset streams
-        loss_sum = torch.zeros((), device=device)
-        n_steps = 0
-        batches = iter(train_loader)
-        try:
-            while True:
-                with step_context(step):
-                    batch = next(batches, None)
-                    if batch is None or (max_steps_per_epoch and n_steps >= max_steps_per_epoch):
-                        break
-                    o = zone_offset_for(config.seed, epoch, n_steps, zone_off) if zone_off else 0
-                    lr = float(state.tx.lr_fn(state.tx.count))
-                    if pix_geom is not None:
-                        batch = preprocess_batch(batch, config, pix_geom,
-                                                 prep_generator(config.seed, step, device))
-                    loss = train_step_for(o)(state, batch, config.seed + step)
-                    loss_sum += loss
-                    if trace is not None:
-                        trace.append(dict(epoch=epoch, step=step, zone_offset=o, lr=lr,
-                                          indices=[int(j) for j in train_loader.indices],
-                                          loss=loss))
-                    n_steps += 1
-                    step += 1
-                    if step % 50 == 0:
-                        logger.log(kind="train", epoch=epoch, step=step, loss=float(loss))
-        finally:
-            batches.close()
-        epoch_loss = float(loss_sum) / max(n_steps, 1)  # the epoch's one read of the losses
-        train_s = time.perf_counter() - t_epoch
-        # the consumer's wait for each step's batch, and the producer's time
-        # to make each batch: which of the two sets the loop's pace
-        timing = dict(steps=n_steps, train_s=train_s,
-                      loader_wait_ms=[1e3 * w for w in train_loader.wait_s],
-                      producer_ms=[1e3 * p for p in train_loader.produce_s])
+    with tracing.session() as spans:
+        for epoch in range(start_epoch, config.epochs):
+            counted = tracing.counters()
+            with tracing.span("loop.train"):
+                train_loader.set_epoch(epoch)  # align the shuffle and zone-offset streams
+                loss_sum = torch.zeros((), device=device)
+                n_steps = 0
+                batches = iter(train_loader)
+                try:
+                    while n_steps < steps_per_epoch:
+                        with step_context(step):
+                            with tracing.span("loop.step"):
+                                batch = next(batches, None)
+                                if batch is None:
+                                    break
+                                o = (zone_offset_for(config.seed, epoch, n_steps, zone_off)
+                                     if zone_off else 0)
+                                lr = float(state.tx.lr_fn(state.tx.count))
+                                if pix_geom is not None:
+                                    with tracing.span("loop.preprocess"):
+                                        batch = preprocess_batch(
+                                            batch, config, pix_geom,
+                                            prep_generator(config.seed, step, device))
+                                loss = train_step_for(o)(state, batch, config.seed + step)
+                                loss_sum += loss
+                                if trace is not None:
+                                    trace.append(dict(
+                                        epoch=epoch, step=step, zone_offset=o, lr=lr,
+                                        indices=[int(j) for j in train_loader.indices],
+                                        loss=loss))
+                                n_steps += 1
+                                step += 1
+                            if step % 50 == 0:
+                                with tracing.span("loop.log"):
+                                    logger.log(kind="train", epoch=epoch, step=step,
+                                               loss=float(loss))
+                finally:
+                    batches.close()
+                # the epoch's one read of the losses
+                epoch_loss = float(loss_sum) / max(n_steps, 1)
 
-        # validation and checkpoints every validate_every epochs and always at
-        # the last, so that no run ends without a checkpoint
-        stride = max(int(config.validate_every), 1)
-        if (epoch + 1) % stride == 0 or epoch + 1 == config.epochs:
-            t_val = time.perf_counter()
-            if mesh.world_size() > 1:
-                metrics = evaluate_sharded(model, config, eval_loader.dataset,
-                                           protocol="validate", steps=eval_steps, device=device)
-            else:
-                metrics = evaluate(model, config, eval_loader, protocol="validate",
-                                   steps=eval_steps, devices=devices)
-            timing["val_s"] = time.perf_counter() - t_val
-            rmse = metrics.get("rmse", float("inf"))
-            logger.log(kind="val", epoch=epoch, step=step, **metrics)
-            print(f"epoch {epoch}: loss {epoch_loss:.4f} rmse {rmse:.4f} "
-                  f"({time.perf_counter() - t_epoch:.0f}s)")
-            if writer:
-                t_ckpt = time.perf_counter()
-                # the epoch's checkpoint carries best_rmse from before this
-                # epoch's update, as the JAX package's does
-                save_checkpoint(f"checkpoints/{config.name}/{epoch}_{rmse:.3f}", state, epoch,
-                                best_rmse)
-                save_weights(f"weights/{config.name}/{epoch}_{rmse:.3f}", model)
-                if rmse < best_rmse:
-                    best_rmse = rmse
-                    save_checkpoint(f"checkpoints/{config.name}/best", state, epoch, best_rmse)
-                    save_weights(f"weights/{config.name}/best", model)
-                timing["checkpoint_s"] = time.perf_counter() - t_ckpt
-            mesh.barrier()  # the others wait for rank 0's files
-        logger.log(kind="epoch", epoch=epoch, step=step, loss=epoch_loss, **timing)
+            # validation and checkpoints every validate_every epochs and always at
+            # the last, so that no run ends without a checkpoint
+            stride = max(int(config.validate_every), 1)
+            if (epoch + 1) % stride == 0 or epoch + 1 == config.epochs:
+                with tracing.span("loop.validate"):
+                    if mesh.world_size() > 1:
+                        metrics = evaluate_sharded(model, config, eval_loader.dataset,
+                                                   protocol="validate", steps=eval_steps,
+                                                   device=device)
+                    else:
+                        metrics = evaluate(model, config, eval_loader, protocol="validate",
+                                           steps=eval_steps, devices=devices)
+                rmse = metrics.get("rmse", float("inf"))
+                logger.log(kind="val", epoch=epoch, step=step, **metrics)
+                print(f"epoch {epoch}: loss {epoch_loss:.4f} rmse {rmse:.4f} "
+                      f"({epoch_seconds(spans.snapshot()):.0f}s)")
+                if writer:
+                    with tracing.span("loop.checkpoint"):
+                        # the epoch's checkpoint carries best_rmse from before this
+                        # epoch's update, as the JAX package's does
+                        save_checkpoint(f"checkpoints/{config.name}/{epoch}_{rmse:.3f}", state,
+                                        epoch, best_rmse)
+                        save_weights(f"weights/{config.name}/{epoch}_{rmse:.3f}", model)
+                        if rmse < best_rmse:
+                            best_rmse = rmse
+                            save_checkpoint(f"checkpoints/{config.name}/best", state, epoch,
+                                            best_rmse)
+                            save_weights(f"weights/{config.name}/best", model)
+                mesh.barrier()  # the others wait for rank 0's files
+            logger.log(kind="epoch", epoch=epoch, step=step, loss=epoch_loss,
+                       **epoch_timing(spans.drain(), n_steps, counted))
     logger.close()
     return state

@@ -41,12 +41,12 @@ Behaviours of the JAX path that the port keeps as they are:
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from .. import tracing
 from ..data.geometry import geometry_for
 from ..data.pipeline import make_loader
 from ..models.deltar import make_model, model_geometries
@@ -56,7 +56,7 @@ from ..ops.warp import (absolute, clip, photometric_loss, pose_to_transform, smo
                         warp_frame)
 from ..parallel import mesh
 from .checkpoint import save_weights
-from .loop import JsonlLogger, debug_nans_step, evaluate
+from .loop import JsonlLogger, debug_nans_step, epoch_seconds, epoch_timing, evaluate
 from .optim import make_optimizer
 from .steps import TrainState, make_eval_step, make_metric_step, step_generator
 
@@ -147,13 +147,19 @@ def make_selfsup_train_step(state: TrainState, config, geoms, pixel_geom):
     loss_fn = make_selfsup_loss_fn(joint.depth, joint.pose, config, geoms, pixel_geom)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
-        for p in state.tx.params:
-            p.grad = None
-        terms = loss_fn(batch, step_generator(seed))
-        terms["loss"].backward()
-        if mesh.is_distributed():
-            mesh.average_gradients([p.grad for p in state.tx.params if p.grad is not None])
-        state.tx.step()
+        with tracing.span("train.step"):
+            for p in state.tx.params:
+                p.grad = None
+            with tracing.span("train.forward"):
+                terms = loss_fn(batch, step_generator(seed))
+            with tracing.span("train.backward"):
+                terms["loss"].backward()
+            if mesh.is_distributed():
+                with tracing.span("train.allreduce"):
+                    mesh.average_gradients([p.grad for p in state.tx.params
+                                            if p.grad is not None])
+            with tracing.span("train.optimizer"):
+                state.tx.step()
         return {k: v.detach() for k, v in terms.items()}
 
     return train_step
@@ -176,7 +182,9 @@ def run_selfsup_training(config, tiny: bool = False, max_steps_per_epoch: Option
     objective): each epoch, train steps over the pair loader (at most
     ``max_steps_per_epoch``), the ``validate`` sweep of the depth model on
     the eval loader, a ``selfsup_val`` line in
-    ``{save_dir}/selfsup_log.jsonl`` and the depth weights. Step ``s`` draws
+    ``{save_dir}/selfsup_log.jsonl`` (the metrics, and the epoch's timing
+    spans and counters as ``loop.epoch_timing`` gives them) and the depth weights.
+    The loop traces in a ``tracing.session()``. Step ``s`` draws
     its crop offsets from ``steps.step_generator(seed + s)``. Returns the
     final state."""
     device = torch.device(device)
@@ -204,32 +212,40 @@ def run_selfsup_training(config, tiny: bool = False, max_steps_per_epoch: Option
     logger = JsonlLogger(
         os.path.join(config.save_dir, "selfsup_log.jsonl") if writer else None)
     step, best_rmse = 0, float("inf")
-    for epoch in range(config.epochs):
-        t0 = time.perf_counter()
-        train_loader.set_epoch(epoch)
-        loss_sum = torch.zeros((), device=device)
-        n_steps = 0
-        batches = iter(train_loader)
-        try:
-            for batch in batches:
-                if max_steps_per_epoch and n_steps >= max_steps_per_epoch:
-                    break
-                loss_sum += train_step(state, batch, config.seed + step)["loss"]
-                n_steps += 1
-                step += 1
-        finally:
-            batches.close()
-        loss = float(loss_sum) / max(n_steps, 1)  # the epoch's one read of the losses
-        metrics = evaluate(model, config, eval_loader, protocol="validate", steps=eval_steps)
-        rmse = metrics.get("rmse", float("inf"))
-        logger.log(kind="selfsup_val", epoch=epoch, step=step, loss=loss, **metrics)
-        print(f"selfsup epoch {epoch}: loss {loss:.4f} rmse {rmse:.4f} "
-              f"({time.perf_counter() - t0:.0f}s)")
-        if writer:
-            save_weights(f"weights/{config.name}/{epoch}_{rmse:.3f}", model)
-            if rmse < best_rmse:
-                best_rmse = rmse
-                save_weights(f"weights/{config.name}/best", model)
-        mesh.barrier()
+    with tracing.session() as spans:
+        for epoch in range(config.epochs):
+            counted = tracing.counters()
+            with tracing.span("loop.train"):
+                train_loader.set_epoch(epoch)
+                loss_sum = torch.zeros((), device=device)
+                n_steps = 0
+                batches = iter(train_loader)
+                try:
+                    while n_steps < steps_per_epoch:
+                        with tracing.span("loop.step"):
+                            batch = next(batches, None)
+                            if batch is None:
+                                break
+                            loss_sum += train_step(state, batch, config.seed + step)["loss"]
+                            n_steps += 1
+                            step += 1
+                finally:
+                    batches.close()
+                loss = float(loss_sum) / max(n_steps, 1)  # the epoch's one read of the losses
+            with tracing.span("loop.validate"):
+                metrics = evaluate(model, config, eval_loader, protocol="validate",
+                                   steps=eval_steps)
+            rmse = metrics.get("rmse", float("inf"))
+            print(f"selfsup epoch {epoch}: loss {loss:.4f} rmse {rmse:.4f} "
+                  f"({epoch_seconds(spans.snapshot()):.0f}s)")
+            if writer:
+                with tracing.span("loop.checkpoint"):
+                    save_weights(f"weights/{config.name}/{epoch}_{rmse:.3f}", model)
+                    if rmse < best_rmse:
+                        best_rmse = rmse
+                        save_weights(f"weights/{config.name}/best", model)
+            mesh.barrier()
+            logger.log(kind="selfsup_val", epoch=epoch, step=step, loss=loss, **metrics,
+                       **epoch_timing(spans.drain(), n_steps, counted))
     logger.close()
     return state

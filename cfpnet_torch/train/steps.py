@@ -36,6 +36,10 @@ process; after the backward one all-reduce averages the gradients over the
 processes (``mesh.average_gradients``), which gives the global batch's
 gradient, and every process takes the same optimizer step. A process group
 of one process reduces too, over itself.
+
+A step is the span ``train.step`` (``tracing.py``) over ``train.forward``
+(each microbatch's loss), ``train.backward``, ``train.allreduce`` (in a
+process group) and ``train.optimizer`` (the clip and the update).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import tracing
 from ..models.deltar import compute_dtype
 from ..ops.interp import device_constant, resize_bilinear_align_corners
 from ..parallel import spatial
@@ -157,21 +162,26 @@ def make_train_step(model, config, geoms, grid=None):
         return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(accum)]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int) -> torch.Tensor:
-        for p in state.tx.params:
-            p.grad = None
-        generator = step_generator(seed)
-        loss = None
-        for part in microbatches(batch):  # the generator draws each microbatch's own offsets
-            part_loss = loss_fn(part, generator)
-            part_loss.backward()  # .grad sums the microbatches' gradients
-            loss = part_loss.detach() if loss is None else loss + part_loss.detach()
-        grads = [p.grad for p in state.tx.params if p.grad is not None]
-        if is_distributed():
-            average_gradients(grads)
-        if accum > 1:
-            torch._foreach_div_(grads, float(accum))
-            loss = loss / accum
-        state.tx.step()
+        with tracing.span("train.step"):
+            for p in state.tx.params:
+                p.grad = None
+            generator = step_generator(seed)
+            loss = None
+            for part in microbatches(batch):  # the generator draws each microbatch's own offsets
+                with tracing.span("train.forward"):
+                    part_loss = loss_fn(part, generator)
+                with tracing.span("train.backward"):
+                    part_loss.backward()  # .grad sums the microbatches' gradients
+                loss = part_loss.detach() if loss is None else loss + part_loss.detach()
+            grads = [p.grad for p in state.tx.params if p.grad is not None]
+            if is_distributed():
+                with tracing.span("train.allreduce"):
+                    average_gradients(grads)
+            if accum > 1:
+                torch._foreach_div_(grads, float(accum))
+                loss = loss / accum
+            with tracing.span("train.optimizer"):
+                state.tx.step()
         return loss
 
     return train_step

@@ -1815,15 +1815,17 @@ def producer_ms(cfg, device_pipeline: bool):
     synthetic train set (decode, ToF simulation where the host does it,
     collate, pin), with or without ``--device_pipeline``, as ms; and the
     first batch, on the card."""
+    from cfpnet_torch import tracing
     from cfpnet_torch.data.datasets import SyntheticDataset
     from cfpnet_torch.data.pipeline import DataLoader
 
     c = cfg.replace(device_pipeline=device_pipeline)
     loader = DataLoader(SyntheticDataset(c, "train", LOOP_SAMPLES), c.bs, shuffle=True,
                         drop_last=True, seed=c.seed, device="cuda")
-    batches = [b for b in loader]
+    with tracing.session() as spans:
+        batches = [b for b in loader]
     torch.cuda.synchronize()
-    return [1e3 * s for s in loader.produce_s], batches[0]
+    return [s.ms for s in spans.drain().spans if s.name == "data.produce"], batches[0]
 
 
 def device_preprocess_check(tconfig):

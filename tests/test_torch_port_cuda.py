@@ -380,6 +380,30 @@ def test_captured_forward_is_bitwise_stable(gen):
     _assert_equal(got, want)
 
 
+def test_captured_forward_counts_its_replays(gen):
+    """The launch counters count what the device ran, graph replays included:
+    a capture records the forward's launches without running them, so the
+    build (``WARMUP`` eager forwards and one replay) counts 4 forwards; then
+    10 replays add 10 times one forward's launches (3 / 3 / 9 at this
+    geometry)."""
+    from cfpnet_torch.graphs import WARMUP, CapturedForward
+
+    config, model, geoms, inputs = _captured_model()
+    kernels.reset_launches()
+
+    def counts():
+        return linear_attention.launches, dwconv.launches, fused_loftr.launches
+
+    captured = CapturedForward(model, geoms, 1, config)
+    assert counts() == tuple((WARMUP + 1) * n for n in (3, 3, 9))
+    assert sorted(captured.launches.values()) == [3, 3, 9]
+    before = counts()
+    for _ in range(10):
+        captured.replay()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (30, 30, 90)
+
+
 def test_captured_forward_rows_match_bs1(gen):
     """At bs=8 the eager pass launches 6/6/18 and each row of the replay
     matches the bs=1 forward of its sample (rtol 5e-4, atol 5e-5, the

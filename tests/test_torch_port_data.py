@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from cfpnet_torch import tracing
 from cfpnet_torch.config import Config as PtConfig
 from cfpnet_torch.data import datasets as pt_ds
 from cfpnet_torch.data import native as pt_native
@@ -308,17 +309,22 @@ def test_loader_batches_equal_jax_over_two_epochs(zone_offset):
         order = pt._index_order()
         np.testing.assert_array_equal(order, jx._index_order())
         seen = []
-        for b, (got, ref) in enumerate(zip(pt, jx)):
-            assert all(isinstance(v, torch.Tensor) for v in got.values())
-            np.testing.assert_array_equal(pt.indices, order[3 * b: 3 * b + 3])
-            assert_same_sample({k: v.numpy() for k, v in got.items()},
-                               {k: np.asarray(v) for k, v in ref.items()}, f"{epoch}/{b}")
-            seen.extend(pt.indices)
+        with tracing.session() as spans:
+            for b, (got, ref) in enumerate(zip(pt, jx)):
+                assert all(isinstance(v, torch.Tensor) for v in got.values())
+                np.testing.assert_array_equal(pt.indices, order[3 * b: 3 * b + 3])
+                assert_same_sample({k: v.numpy() for k, v in got.items()},
+                                   {k: np.asarray(v) for k, v in ref.items()}, f"{epoch}/{b}")
+                seen.extend(pt.indices)
         assert len(seen) == 9 and len(set(seen)) == 9
         orders.append(order)
     assert not np.array_equal(orders[0], orders[1])
-    assert len(pt.wait_s) == len(pt.produce_s) == 3
-    assert all(w >= 0 for w in pt.wait_s) and all(p > 0 for p in pt.produce_s)
+    # the last pass: a wait of the consumer and a make of the producer a batch
+    last = spans.snapshot().spans
+    waits = [s for s in last if s.name == "data.wait"]
+    made = [s for s in last if s.name == "data.produce"]
+    assert len(waits) == len(made) == 3
+    assert all(s.end_ns >= s.start_ns for s in waits) and all(s.end_ns > s.start_ns for s in made)
 
 
 def test_loader_eval_policy_and_ragged_tail():

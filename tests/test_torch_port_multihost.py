@@ -322,6 +322,25 @@ def test_multihost_training_entry_point(entry_run):
     assert kinds == ["header", "val", "epoch"]
 
 
+def test_multihost_epoch_line_counts_the_all_reduces(entry_run):
+    """Rank 0's epoch line carries the epoch's counters: the all-reduces of
+    its two steps and their bytes, at least each step's gradients once (the
+    model, the loss and validation reduce more); no kernel on the CPU."""
+    from cfpnet_torch.config import parse_config
+
+    cwd, _ = entry_run
+    with open(cwd / "results" / "dp" / "train_log.jsonl") as f:
+        (epoch,) = [line for line in map(json.loads, f) if line["kind"] == "epoch"]
+    config = parse_config(ENTRY[:ENTRY.index("--device")]).replace(mode="train")
+    model = make_model(config, tiny=True, device="cpu")
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters()
+                     if p.requires_grad)
+    counted = epoch["counters"]
+    assert sorted(counted) == ["parallel.all_reduce", "parallel.all_reduce_bytes"]
+    assert counted["parallel.all_reduce"] >= 2
+    assert counted["parallel.all_reduce_bytes"] >= epoch["steps"] * grad_bytes > 0
+
+
 def test_multihost_sweep_with_shard_eval(entry_run, monkeypatch):
     """``python -m cfpnet_torch.evaluate_all --multihost --shard_eval`` over
     the run's weights as two processes: the images split between them, the
