@@ -5,9 +5,9 @@ counters of ``cfpnet_torch.tracing``) and its plain twin.
 Nothing is built or loaded when this package is imported.
 """
 
-from . import dwconv, fused_loftr, linear_attention
+from . import bn_act, dwconv, fused_loftr, linear_attention
 
-KERNELS = (linear_attention, dwconv, fused_loftr)
+KERNELS = (linear_attention, dwconv, fused_loftr, bn_act)
 
 
 def reset_launches() -> None:

@@ -59,18 +59,21 @@ def reset_launches(kernel: str) -> None:
     tracing.reset_counters(f"kernel.{kernel}.launches.")
 
 
-def traced_output(kernel: str, like: torch.Tensor) -> torch.Tensor:
+def traced_output(kernel: str, like: torch.Tensor,
+                  memory_format=torch.contiguous_format) -> torch.Tensor:
     """The fake implementation of a kernel's op: under a trace
     (``torch.export``, whose tensors are fake), an empty tensor like
-    ``like``, the output's shape and dtype. A meta tensor outside a trace
-    raises as the kernel's checks do for any tensor off a CUDA device: an op
-    computes on the card or, for a CPU tensor, by its plain version, and on
-    nothing else."""
+    ``like``, the output's shape and dtype, in the layout the kernel gives
+    (contiguous, as the kernels that take only contiguous inputs write it,
+    whatever strides the trace's fake input has; ``bn_act`` keeps its
+    input's). A meta tensor outside a trace raises as the kernel's checks do
+    for any tensor off a CUDA device: an op computes on the card or, for a
+    CPU tensor, by its plain version, and on nothing else."""
     from torch._subclasses.fake_tensor import is_fake
 
     if not is_fake(like):
         raise ValueError(f"{kernel}: the kernel takes tensors on a CUDA device, got {like.device}")
-    return torch.empty_like(like)
+    return torch.empty_like(like, memory_format=memory_format)
 
 
 def meta(shape) -> torch.Tensor:

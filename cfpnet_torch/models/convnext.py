@@ -44,6 +44,6 @@ class Block14(nn.Module):
 
     def forward(self, x):
         # x: [B, H, W, C]
-        y = F.relu(self.bn1(self.dwconv2(x)))
+        y = self.bn1(self.dwconv2(x), "relu")
         y = self.pwconv2(F.gelu(self.pwconv1(self.norm(y))))
         return x + y

@@ -3,7 +3,9 @@
 Port of ``cfpnet_tpu/models/decoder.py`` (``UpSampleBN``,
 ``DepthRegression``, ``Decoder``; reference src/models/decoder.py).
 - ``UpSampleBN``: align-corners bilinear upsample to the skip's size,
-  concat, 2x (conv3x3 + BN + LeakyReLU), as ``_net``.
+  concat, 2x (conv3x3 + BN + LeakyReLU), as ``_net`` (the reference's
+  ``nn.Sequential`` and parameter names); each LeakyReLU runs inside the
+  BatchNorm call before it (``models/layers.py``, ``act``).
 - ``Decoder``: encoder chans [232,136,56,40,16], decoder chans
   [256,256,128,64,32]; three ``TransformerFusion`` insertions at 1/16, 1/8,
   1/4 with embed dims 128/64/32 and large kernels 7/15/31. The fusion path
@@ -54,14 +56,19 @@ class UpSampleBN(nn.Module):
     def forward(self, x, concat_with):
         up = _nchw(resize_bilinear_align_corners(_nhwc(x), concat_with.shape[2],
                                                  concat_with.shape[3]))
-        return self._net(torch.cat([up, concat_with], dim=1))
+        conv1, bn1, _, conv2, bn2, _ = self._net
+        y = bn1(conv1(torch.cat([up, concat_with], dim=1)), "leaky_relu")
+        return bn2(conv2(y), "leaky_relu")
 
     def forward_rows(self, X, skip, grid):
         """Over row-sharded maps: each shard resizes to its rows of the
         skip's global size."""
         up = spatial.each(_nchw, spatial.resize_rows(spatial.each(_nhwc, X),
                                                      spatial.height(skip), skip[0][0].shape[3]))
-        return spatial.apply_rows(self._net, spatial.each(_cat, up, skip), grid)
+        conv1, bn1, _, conv2, bn2, _ = self._net
+        y = bn1.forward_rows(spatial.apply_rows(conv1, spatial.each(_cat, up, skip), grid), grid,
+                             "leaky_relu")
+        return bn2.forward_rows(spatial.apply_rows(conv2, y, grid), grid, "leaky_relu")
 
 
 class DepthRegression(nn.Module):

@@ -93,12 +93,11 @@ class ConvBnAct(nn.Module):
         self.has_residual = stride == 1 and in_chs == out_chs
 
     def forward(self, x):
-        y = F.silu(self.bn1(self.conv(x)))
-        return y + x if self.has_residual else y
+        return self.bn1(self.conv(x), "silu", x if self.has_residual else None)
 
     def forward_rows(self, X, grid):
-        y = spatial.each(F.silu, spatial.chain((self.conv, self.bn1), X, grid))
-        return spatial.each(torch.add, y, X) if self.has_residual else y
+        return self.bn1.forward_rows(spatial.apply_rows(self.conv, X, grid), grid, "silu",
+                                     X if self.has_residual else None)
 
 
 class EdgeResidual(nn.Module):
@@ -114,14 +113,13 @@ class EdgeResidual(nn.Module):
         self.has_residual = stride == 1 and in_chs == out_chs
 
     def forward(self, x):
-        y = F.silu(self.bn1(self.conv_exp(x)))
-        y = self.bn2(self.conv_pwl(y))
-        return y + x if self.has_residual else y
+        y = self.bn1(self.conv_exp(x), "silu")
+        return self.bn2(self.conv_pwl(y), residual=x if self.has_residual else None)
 
     def forward_rows(self, X, grid):
-        y = spatial.each(F.silu, spatial.chain((self.conv_exp, self.bn1), X, grid))
-        y = spatial.chain((self.conv_pwl, self.bn2), y, grid)
-        return spatial.each(torch.add, y, X) if self.has_residual else y
+        y = self.bn1.forward_rows(spatial.apply_rows(self.conv_exp, X, grid), grid, "silu")
+        return self.bn2.forward_rows(spatial.apply_rows(self.conv_pwl, y, grid), grid,
+                                     residual=X if self.has_residual else None)
 
 
 class InvertedResidual(nn.Module):
@@ -141,16 +139,15 @@ class InvertedResidual(nn.Module):
         self.has_residual = stride == 1 and in_chs == out_chs
 
     def forward(self, x):
-        y = F.silu(self.bn1(self.conv_pw(x)))
-        y = F.silu(self.bn2(self.conv_dw(y)))
-        y = self.bn3(self.conv_pwl(self.se(y)))
-        return y + x if self.has_residual else y
+        y = self.bn1(self.conv_pw(x), "silu")
+        y = self.bn2(self.conv_dw(y), "silu")
+        return self.bn3(self.conv_pwl(self.se(y)), residual=x if self.has_residual else None)
 
     def forward_rows(self, X, grid):
-        y = spatial.each(F.silu, spatial.chain((self.conv_pw, self.bn1), X, grid))
-        y = spatial.each(F.silu, spatial.chain((self.conv_dw, self.bn2), y, grid))
-        y = spatial.chain((self.se, self.conv_pwl, self.bn3), y, grid)
-        return spatial.each(torch.add, y, X) if self.has_residual else y
+        y = self.bn1.forward_rows(spatial.apply_rows(self.conv_pw, X, grid), grid, "silu")
+        y = self.bn2.forward_rows(spatial.apply_rows(self.conv_dw, y, grid), grid, "silu")
+        y = spatial.chain((self.se, self.conv_pwl), y, grid)
+        return self.bn3.forward_rows(y, grid, residual=X if self.has_residual else None)
 
 
 @dataclass(frozen=True)

@@ -42,7 +42,7 @@ class PointNetEncoder(nn.Module):
         # x: [B', N, D]
         for i in range(1, 4):
             conv = getattr(self, f"conv{i}")
-            x = F.relu(getattr(self, f"bn{i}")(F.linear(x, conv.weight[:, :, 0], conv.bias)))
+            x = getattr(self, f"bn{i}")(F.linear(x, conv.weight[:, :, 0], conv.bias), "relu")
         return x
 
 
@@ -96,7 +96,7 @@ class ImageEncoder(nn.Module):
         if grid is not None:
             return self.forward_rows(x, grid)
         stem, bn1, stage0 = self.conv0
-        x0 = stage0(F.silu(bn1(stem(x))))
+        x0 = stage0(bn1(stem(x), "silu"))
         x1 = self.conv1(x0)
         x2 = self.conv2(x1)
         x3 = self.conv3[1](self.conv3[0](x2))
@@ -105,8 +105,8 @@ class ImageEncoder(nn.Module):
 
     def forward_rows(self, X, grid):
         stem, bn1, stage0 = self.conv0
-        x0 = spatial.apply_rows(stage0, spatial.each(F.silu, spatial.chain((stem, bn1), X,
-                                                                           grid)), grid)
+        x0 = spatial.apply_rows(stage0, bn1.forward_rows(spatial.apply_rows(stem, X, grid), grid,
+                                                         "silu"), grid)
         x1 = spatial.apply_rows(self.conv1, x0, grid)
         x2 = spatial.apply_rows(self.conv2, x1, grid)
         x3 = spatial.chain(self.conv3, x2, grid)

@@ -6,7 +6,17 @@ graph's parameter names (``weight``, ``bias``, ``running_mean``,
 axis (``channel_dim`` 1 for NCHW, -1 for channels-last tokens).
 
 - Eval: ``y = (x - running_mean) * (rsqrt(running_var + eps) * weight) +
-  bias``.
+  bias``. A call may name the activation that follows (``act``: SiLU,
+  LeakyReLU(0.01) or ReLU) and the shortcut added after it (``residual``),
+  so that the blocks hand their epilogue to one call:
+  ``act(bn(x)) + residual``.
+- The route: ``ops/dispatch.py::batch_norm`` sends an eval call on the
+  card that needs no gradient to the hand-written kernel
+  ``kernels/bn_act.py`` (scale and shift computed in f32 from the
+  parameters and running statistics at each call, the activation and the
+  shortcut on the way, one rounding to the element type), and every other
+  call to the formula written out in PyTorch, then ``act``, then
+  ``+ residual``, op for op as before the kernel.
 - Train: the same formula on the batch's statistics over every axis but the
   channel, computed as flax 0.12 computes them (``use_fast_variance``):
   ``var = max(0, E[x^2] - E[x]^2)``, the *biased* variance, in float32 or
@@ -41,10 +51,12 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Optional
 
 import torch
 from torch import nn
 
+from ..ops import dispatch
 from ..parallel import spatial
 from ..parallel.mesh import all_reduce_sum, world_size
 
@@ -75,36 +87,39 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: str = "identity",
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``act(BatchNorm(x)) + residual`` (``act`` one of
+        ``kernels/bn_act.py::ACTS``; no shortcut where ``residual`` is None)."""
         if self.training:
             mean, var = self._batch_stats(x)
         else:
             mean, var = self.running_mean, self.running_var
-        return self._normalize(x, mean, var)
+        return self._normalize(x, mean, var, act, residual)
 
-    def forward_rows(self, X, grid):
+    def forward_rows(self, X, grid, act: str = "identity", residual=None):
         """Over a row-sharded map (``parallel/spatial.py``): in training the
         statistics of every shard of every data group, summed on the
-        grid's root, the running statistics moved once."""
+        grid's root, the running statistics moved once; ``act`` and the
+        row-sharded ``residual`` shard by shard."""
         if self.training:
             sums = spatial.sum_to([self._sums(x) for parts in X for x in parts], grid.root)
             mean, var = self._update_running(*self._from_sums(sums))
         else:
             mean, var = self.running_mean, self.running_var
-        return spatial.each(lambda x: self._normalize(x, mean.to(x.device), var.to(x.device)), X)
 
-    def _normalize(self, x, mean, var):
-        shape = [1] * x.dim()
-        shape[self.channel_dim] = -1
+        def normalize(x, r=None):
+            return self._normalize(x, mean.to(x.device), var.to(x.device), act, r)
+
+        return spatial.each(normalize, X) if residual is None else spatial.each(normalize, X,
+                                                                                residual)
+
+    def _normalize(self, x, mean, var, act="identity", residual=None):
         weight, bias = self.weight, self.bias
         if weight.device != x.device:  # a shard on another device of the grid
             weight, bias = weight.to(x.device), bias.to(x.device)
-        mul = torch.rsqrt(var + self.eps) * weight
-        y = (x - mean.view(shape)) * mul.view(shape) + bias.view(shape)
-        # flax's _normalize: the output takes the dtype of (x, scale, bias),
-        # not that of the f32 statistics (a bf16 step's BatchNorm gives bf16)
-        return y.to(torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype),
-                                        self.bias.dtype))
+        return dispatch.batch_norm(x, weight, bias, mean, var, self.eps, act, self.channel_dim,
+                                   residual, self.training)
 
     def _sums(self, x: torch.Tensor) -> torch.Tensor:
         """[sum x, sum x^2 per channel, count], in float32 or wider."""

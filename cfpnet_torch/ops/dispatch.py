@@ -1,7 +1,7 @@
 """Op dispatch between the plain PyTorch ops and the CUDA kernels.
 
 Port of ``cfpnet_tpu/ops/dispatch.py`` (``attention``, ``dwconv2d``), plus
-``loftr_layer``, which the JAX package has no switch for.
+``loftr_layer`` and ``batch_norm``, which the JAX package has no switch for.
 
 - An unmasked call goes by the tensor's device, not a flag: a CPU tensor
   takes the plain version, a CUDA tensor always takes the kernel. Nothing
@@ -14,6 +14,19 @@ Port of ``cfpnet_tpu/ops/dispatch.py`` (``attention``, ``dwconv2d``), plus
   mask, as no Pallas kernel does: the JAX package sends a masked call to its
   XLA ``linear_attention`` (``cfpnet_tpu/ops/dispatch.py:60-66``) on its
   chip too. No call of the main path is masked.
+- BatchNorm (``batch_norm``, called by ``models/layers.py::BatchNorm``)
+  routes by training mode and by the need for a gradient, chosen before
+  anything launches: an eval-mode call on a CUDA tensor that needs no
+  gradient (grad mode off, or nothing that requires one) goes to the
+  kernel ``kernels/bn_act.py`` with its activation and shortcut, and raises
+  there on what the kernel does not take (a layout it does not read, mixed
+  element types), as the unmasked calls above do. Training mode (the train
+  step, ``--remat``'s recompute, the self-supervised step) and a call that
+  needs a gradient take BatchNorm's formula written out in PyTorch
+  (``bn_act_plain``), a different computation and not a fallback: the
+  kernel has no gradient and no batch statistics, as the JAX package has
+  no kernel there (XLA fuses the formula). So does every call off the
+  card.
 
 On the card every unmasked ``LoFTREncoderLayer`` (the 18 hist2image, LSA and
 GSA layers of the eval forward) runs as one call of the fused LoFTR kernel,
@@ -29,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels import bn_act as bn_act_kernel
 from ..kernels import dwconv as dwconv_kernel
 from ..kernels import fused_loftr as loftr_kernel
 from ..kernels import linear_attention as attention_kernel
@@ -60,3 +74,17 @@ def loftr_layer(x: torch.Tensor, source: torch.Tensor, layer,
     if x_mask is None and source_mask is None:
         return loftr_kernel.fused_loftr(x, source, layer.loftr_params(), layer.nhead)
     return layer.modules_forward(x, source, x_mask, source_mask)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+               var: torch.Tensor, eps: float, act: str = "identity", channel_dim: int = 1,
+               residual: Optional[torch.Tensor] = None, training: bool = False) -> torch.Tensor:
+    """``act(BatchNorm(x)) + residual`` with the statistics given: in eval
+    mode on the card with no gradient needed, the kernel; otherwise the
+    formula written out (module docstring)."""
+    args = (x, weight, bias, mean, var, eps, act, channel_dim, residual)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, weight, bias, mean, var, residual))
+    if x.device.type == "cuda" and not training and not needs_grad:
+        return bn_act_kernel.bn_act(*args)
+    return bn_act_kernel.bn_act_plain(*args)

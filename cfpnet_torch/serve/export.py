@@ -22,7 +22,9 @@ manifest), and the reverse holds: its graph calls the three hand-written
 kernels as the ``torch.library`` ops ``cfpnet::linear_attention``,
 ``cfpnet::dwconv2d`` and ``cfpnet::fused_loftr`` (6 / 6 / 18 calls in the
 production model), which run the CUDA kernels on the card and their plain
-versions on the CPU. Neither package reads the other's artifact.
+versions on the CPU; a card's program also calls ``cfpnet::bn_act`` once a
+BatchNorm (122 calls), where a CPU program has BatchNorm's plain formula
+(``models/layers.py``). Neither package reads the other's artifact.
 
 Batch sizes are static (one program per size): ``ServingModel.predict``
 pads a partial batch to the smallest exported size that fits and chunks a
@@ -58,7 +60,8 @@ from ..train import steps
 
 MANIFEST_NAME = "manifest.json"
 FORMAT = "cfpnet-torch-serving-v1"
-CUSTOM_OPS = ("cfpnet::linear_attention", "cfpnet::dwconv2d", "cfpnet::fused_loftr")
+CUSTOM_OPS = ("cfpnet::linear_attention", "cfpnet::dwconv2d", "cfpnet::fused_loftr",
+              "cfpnet::bn_act")
 
 
 def geometry_dict(geoms) -> Dict[str, dict]:

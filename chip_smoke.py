@@ -54,7 +54,11 @@ line:
    topology) at 480x640, bs=1, with the golden tests' deterministic
    weights, against ``tests/golden/full_forward.npz`` at that test's
    tolerance (rtol 5e-4, atol 5e-5); the launch counts of that forward must
-   be 6 attention, 6 depthwise-conv and 18 fused-LoFTR launches.
+   be 6 attention, 6 depthwise-conv, 18 fused-LoFTR and 122 bn_act launches
+   (``EVAL_LAUNCHES``; one a BatchNorm, none in a training step). Then
+   (``bn_act_phase``) the BatchNorm kernel at each of that forward's 122
+   calls in f32 and bf16 against its plain twin, its device ms a forward
+   beside the plain twin's and its bound by bytes.
 6. graph: the forward captured in a CUDA graph (``cfpnet_torch.graphs``).
    At bs=1 the replay equals the eager forward bit for bit and matches the
    golden, and 20 replays on changed inputs each equal their eager forward;
@@ -324,10 +328,10 @@ CONFIG_GOLDENS = {
                      (f"@{PROD_CONFIG}", "--attention_layer") + FUSION_NAMES),
 }
 CONFIG_LAUNCHES = {
-    "baseline": {"linear_attention": 0, "dwconv": 0, "fused_loftr": 18},
+    "baseline": {"linear_attention": 0, "dwconv": 0, "fused_loftr": 18, "bn_act": 104},
     # a scale: new_cross 1 + combine_2 2 attention; combine_2 2 + cvxt_2 2
-    # dwconv; hist2image 1 + image 2 fused LoFTR
-    "fusion_names": {"linear_attention": 9, "dwconv": 12, "fused_loftr": 9},
+    # dwconv; hist2image 1 + image 2 fused LoFTR; one bn_act a BatchNorm
+    "fusion_names": {"linear_attention": 9, "dwconv": 12, "fused_loftr": 9, "bn_act": 134},
 }
 TOL = 1e-4  # max |kernel - plain| / max |plain|
 # published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
@@ -1161,10 +1165,101 @@ def eager_launches(model, args, geoms):
     return out, launch_counts()
 
 
-def check_launches(launches, batch):
-    if launches != {"linear_attention": 6, "dwconv": 6, "fused_loftr": 18}:
-        raise AssertionError(f"the bs={batch} forward launched {launches}, expected 6 "
-                             "attention, 6 dwconv and 18 fused LoFTR launches")
+def bn_calls(model, *args):
+    """The BatchNorm calls of one no-grad ``model(*args)``, in order: (x, act,
+    the shortcut or None, the module), recorded by a forward hook on each."""
+    from cfpnet_torch.models.layers import BatchNorm
+
+    calls = []
+
+    def hook(module, a, kw, out):
+        act = a[1] if len(a) > 1 else kw.get("act", "identity")
+        residual = a[2] if len(a) > 2 else kw.get("residual")
+        calls.append((a[0], act, residual, module))
+
+    handles = [m.register_forward_hook(hook, with_kwargs=True) for m in model.modules()
+               if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model(*args)
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def bn_act_phase(model, geoms, args):
+    """Phase 5b: the eval-mode BatchNorm kernel (``kernels/bn_act.py``) at the
+    calls of the bs=1 forward (a hook on every BatchNorm; 122), in f32 and
+    bf16, on random inputs and statistics of each call's shape, layout,
+    activation and shortcut: the kernel against its plain twin (f32 within
+    1e-6 of its largest value; bf16 no farther from the f32 formula than the
+    plain bf16 twin), and the device ms of the kernel and of the plain twin
+    summed over the forward's calls (``device_ms`` a distinct call, times
+    its count; back-to-back calls, so the maps sit in L2) beside the
+    least time of the same calls by bytes (``bytes_moved`` at
+    ``PEAK_BYTES``), with the launch plan's modes and each distinct call's
+    µs against its bound."""
+    from collections import Counter
+
+    from cfpnet_torch.kernels import bn_act
+    from cfpnet_torch.kernels.dtypes import dtype_name
+
+    calls = Counter((tuple(x.shape), x.stride(), m.channel_dim, act, r is not None)
+                    for x, act, r, m in bn_calls(model, *args, geoms))
+    gen = torch.Generator().manual_seed(SEED)
+    out = dict(phase="bn_act", calls=sum(calls.values()), distinct_calls=len(calls))
+    for dtype in (torch.float32, torch.bfloat16):
+        ms = plain_ms = bound_ms = 0.0
+        modes, worst_f32, worst_ratio, per_call = Counter(), 0.0, 0.0, []
+        for (shape, stride, cd, act, residual), n in calls.items():
+            def tensor():
+                t = torch.empty_strided(shape, stride, device="cuda", dtype=dtype)
+                return t.copy_(3 * torch.randn(shape, generator=gen))
+
+            x, r = tensor(), (tensor() if residual else None)
+            C = shape[cd]
+            params = [f(torch.randn(C, generator=gen)).to("cuda", dtype) for f in (
+                lambda t: 1 + 0.3 * t, lambda t: 0.2 * t, lambda t: 0.5 * t,
+                lambda t: 1 + t.tanh() / 2)]
+            call = (x, *params, 1e-3, act, cd, r)
+            got, plain = bn_act.bn_act(*call), bn_act.bn_act_plain(*call)
+            if dtype == torch.float32:
+                worst_f32 = max(worst_f32, float((got - plain).abs().max())
+                                / float(plain.abs().max()))
+            else:
+                f32 = bn_act.bn_act_plain(*(a.float() if isinstance(a, torch.Tensor) else a
+                                            for a in call))
+                err = float((got.float() - f32).abs().max())
+                plain_err = float((plain.float() - f32).abs().max())
+                if err > plain_err:
+                    raise AssertionError(f"bn_act bf16 at {shape} {act}: error {err} against "
+                                         f"the plain twin's {plain_err}")
+                worst_ratio = max(worst_ratio, err / plain_err if plain_err else 0.0)
+            one = device_ms(lambda: bn_act.bn_act(*call))
+            one_bound = 1e3 * bn_act.bytes_moved(x.numel(), C, x.element_size(),
+                                                 residual) / PEAK_BYTES
+            ms += n * one
+            plain_ms += n * device_ms(lambda: bn_act.bn_act_plain(*call))
+            bound_ms += n * one_bound
+            mode = bn_act.launch_plan(x.numel(), *bn_act.memory_layout(x, cd),
+                                      16 // x.element_size(), True)["mode"]
+            modes[mode] += n
+            per_call.append(dict(shape=shape, mode=mode, act=act, residual=residual, n=n,
+                                 us=1e3 * one, bound_us=1e3 * one_bound))
+        if worst_f32 > 1e-6:
+            raise AssertionError(f"bn_act f32 against its plain twin: {worst_f32}")
+        out[dtype_name(dtype)] = dict(
+            ms_a_forward=ms, plain_ms_a_forward=plain_ms, bound_ms=bound_ms,
+            roofline_pct=100.0 * bound_ms / ms, modes=dict(modes), max_rel_err_f32=worst_f32,
+            max_err_over_plain_bf16=worst_ratio, per_call=per_call)
+    return out
+
+
+def check_launches(launches, batch, want=None):
+    want = EVAL_LAUNCHES if want is None else want
+    if launches != want:
+        raise AssertionError(f"the bs={batch} forward launched {launches}, expected {want}")
 
 
 def same_outputs(got, want, what):
@@ -1362,8 +1457,13 @@ def check_host_waits(profile):
                              f"host-to-device copies and {profile['stream_syncs']} stream syncs")
 
 
-TRAIN_LAUNCHES = {"linear_attention": 6, "dwconv": 12, "fused_loftr": 18}
-EVAL_LAUNCHES = {"linear_attention": 6, "dwconv": 6, "fused_loftr": 18}
+# a training step's BatchNorms take the plain route (ops/dispatch.py); an eval
+# forward's 122 each launch bn_act once
+TRAIN_LAUNCHES = {"linear_attention": 6, "dwconv": 12, "fused_loftr": 18, "bn_act": 0}
+EVAL_LAUNCHES = {"linear_attention": 6, "dwconv": 6, "fused_loftr": 18, "bn_act": 122}
+# phase 18's forward on the 1 x 2 grid: a row-sharded module's BatchNorm
+# launches once a shard (tests/test_torch_port_bn_act.py counts them)
+GRID_EVAL_LAUNCHES = dict(EVAL_LAUNCHES, bn_act=217)
 EVAL_METRICS = ("a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel")
 # the kernels of a profiled train step, by kind (device kernel names)
 KINDS = (("ported kernels", ("attention_sum_kernel", "attention_apply_kernel", "dwconv_kernel",
@@ -1769,8 +1869,8 @@ def loop_bf16_phase(config):
         if len(losses) != LOOP_SAMPLES // cfg.bs or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"bf16 loop losses {losses}")
         eval_images = min(LOOP_SAMPLES, 64)
-        want = {k: {"bfloat16": len(trace) * TRAIN_LAUNCHES[k],
-                    "float32": eval_images * EVAL_LAUNCHES[k]} for k in TRAIN_LAUNCHES}
+        want = launched({k: {"bfloat16": len(trace) * TRAIN_LAUNCHES[k],
+                             "float32": eval_images * EVAL_LAUNCHES[k]} for k in TRAIN_LAUNCHES})
         if by_dtype != want:
             raise AssertionError(f"the bf16 loop launched {by_dtype}, expected {want}")
         (val,) = [line for line in log if line["kind"] == "val"]
@@ -1950,8 +2050,8 @@ def loop_device_pipeline_check(tconfig, loop):
         bad = {t["step"]: probe.launches[t["step"]] for t in trace_a
                if probe.launches[t["step"]] != TRAIN_LAUNCHES}
         eval_images = min(LOOP_SAMPLES, 64)
-        want = {k: {"bfloat16": len(trace_a) * TRAIN_LAUNCHES[k],
-                    "float32": eval_images * EVAL_LAUNCHES[k]} for k in TRAIN_LAUNCHES}
+        want = launched({k: {"bfloat16": len(trace_a) * TRAIN_LAUNCHES[k],
+                             "float32": eval_images * EVAL_LAUNCHES[k]} for k in TRAIN_LAUNCHES})
         if bad or by_dtype != want:
             raise AssertionError(f"device-pipeline loop launched {by_dtype} (steps off: {bad}), "
                                  f"expected {want}")
@@ -2257,9 +2357,19 @@ def bf16_drift(pred, golden: str = GOLDEN_FULL):
 
 
 def launches_by_dtype():
+    """Each kernel's launches by element type, kernels that launched nothing
+    left out."""
     from cfpnet_torch import kernels
 
-    return {k.__name__.rsplit(".", 1)[-1]: dict(k.launches_by_dtype) for k in kernels.KERNELS}
+    return launched({k.__name__.rsplit(".", 1)[-1]: dict(k.launches_by_dtype)
+                     for k in kernels.KERNELS})
+
+
+def launched(by_dtype):
+    """``by_dtype`` ({kernel: {dtype: launches}}) without its zero counts and
+    the kernels left with none."""
+    out = {k: {dt: n for dt, n in d.items() if n} for k, d in by_dtype.items()}
+    return {k: d for k, d in out.items() if d}
 
 
 def bf16_phase(config, geoms, args, f32_replay_ms):
@@ -2391,7 +2501,8 @@ def sweep_phase(work: str):
 
 # phase 15: serving
 SERVING_ARTIFACTS = (("bfloat16", (1, 8)), ("float32", (1,)))
-SERVING_OPS = {"cfpnet::linear_attention": 6, "cfpnet::dwconv2d": 6, "cfpnet::fused_loftr": 18}
+SERVING_OPS = {"cfpnet::linear_attention": 6, "cfpnet::dwconv2d": 6, "cfpnet::fused_loftr": 18,
+               "cfpnet::bn_act": 122}
 # device kernels of one replay of the bs=1 serving graph, by name
 SERVING_DEVICE_KERNELS = {"attention_sum_kernel": 6, "attention_apply_kernel": 6,
                           "dwconv_kernel": 6, "summary_kernel": 18, "rows_kernel": 18}
@@ -3156,7 +3267,8 @@ def spatial_phase(tconfig, plain_step_ms: float, card: str):
     device list. The f32 eval forward at bs 2 (the golden image and its
     mirror) against the one-device forward (max |diff| <= ``TOL`` x max
     |one-device|) and its first row against the golden; the bf16 forward
-    within ``BF16_DRIFT`` of the golden; each forward launching 6 / 6 / 18;
+    within ``BF16_DRIFT`` of the golden; each forward launching 6 / 6 / 18
+    and 217 bn_act (``GRID_EVAL_LAUNCHES``);
     the golden train step on the grid within ``TRAIN_GOLDEN_TOL``, 6 / 12 /
     18 launches; the bs-16 step at 416x544 on the grid, ms a step beside
     phase 9's one-device step, launches and peak memory. ``card`` (the
@@ -3195,7 +3307,7 @@ def spatial_phase(tconfig, plain_step_ms: float, card: str):
     model = make_model(config, device="cuda")
     model.load_state_dict(sd, strict=True)
     got, launches = counted(lambda: on_grid(model))
-    check_launches(launches, 2)
+    check_launches(launches, 2, GRID_EVAL_LAUNCHES)
     with torch.no_grad():
         one = model(img, hist, mask, geoms)[:3]
     rel = {name: float((a - b).abs().max()) / float(b.abs().max())
@@ -3208,7 +3320,7 @@ def spatial_phase(tconfig, plain_step_ms: float, card: str):
         one_ms = device_ms(lambda: model(img, hist, mask, geoms), reps=5, trials=3)
     cast_to_compute_dtype(model, torch.bfloat16)
     got16, launches16 = counted(lambda: on_grid(model, torch.bfloat16))
-    check_launches(launches16, 2)
+    check_launches(launches16, 2, GRID_EVAL_LAUNCHES)
     drift = bf16_drift(got16[1][:1])
     del model, got, got16, one
 
@@ -3333,7 +3445,7 @@ def baseline_step(config):
     losses.append(float(step(state, batch, next(seeds))))
     torch.cuda.synchronize()
     launches = launch_counts()
-    if launches != CONFIG_LAUNCHES["baseline"]:
+    if launches != dict(CONFIG_LAUNCHES["baseline"], bn_act=0):
         raise AssertionError(f"a baseline bs-{tconfig.bs} step launched {launches}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"baseline step losses {losses}")
@@ -3412,7 +3524,7 @@ def masked_calls(device="cuda", scale: int = 4):
             run(dtype, device, layer, masked=False)
             torch.cuda.synchronize()
             unmasked = launch_counts()
-            if unmasked != {"linear_attention": 1, "dwconv": 0, "fused_loftr": 1}:
+            if unmasked != {"linear_attention": 1, "dwconv": 0, "fused_loftr": 1, "bn_act": 0}:
                 raise AssertionError(f"the unmasked calls in {dtype} launched {unmasked}")
         out[str(dtype).replace("torch.", "")] = dict(
             max_rel_err=errs, limit=MASKED_TOL[dtype], launches_masked=launches,
@@ -3570,6 +3682,7 @@ def main() -> int:
         raise AssertionError("non-finite forward output")
     emit(dict(phase="slice", launches=launches, golden_max_abs_diff=golden_diffs(bin_edges, pred),
               pred_mean=float(pred.mean())))
+    emit(bn_act_phase(model, geoms, args))
 
     # 6. graph: the forward captured in a CUDA graph at bs=1 and bs=8
     emit(graph_phase(model, config, geoms, args))

@@ -385,7 +385,7 @@ def test_captured_forward_counts_its_replays(gen):
     a capture records the forward's launches without running them, so the
     build (``WARMUP`` eager forwards and one replay) counts 4 forwards; then
     10 replays add 10 times one forward's launches (3 / 3 / 9 at this
-    geometry)."""
+    geometry, and 113 bn_act, one a BatchNorm)."""
     from cfpnet_torch.graphs import WARMUP, CapturedForward
 
     config, model, geoms, inputs = _captured_model()
@@ -396,7 +396,7 @@ def test_captured_forward_counts_its_replays(gen):
 
     captured = CapturedForward(model, geoms, 1, config)
     assert counts() == tuple((WARMUP + 1) * n for n in (3, 3, 9))
-    assert sorted(captured.launches.values()) == [3, 3, 9]
+    assert sorted(captured.launches.values()) == [3, 3, 9, 113]
     before = counts()
     for _ in range(10):
         captured.replay()
@@ -455,7 +455,8 @@ def test_serving_artifact_on_the_card(gen, dtype, tmp_path):
     hist, mask = inputs[1][:3], inputs[2][:3]
     for bs in (1, 2):
         assert custom_op_calls(m.exported(bs)) == {
-            "cfpnet::linear_attention": 3, "cfpnet::dwconv2d": 3, "cfpnet::fused_loftr": 9}
+            "cfpnet::linear_attention": 3, "cfpnet::dwconv2d": 3, "cfpnet::fused_loftr": 9,
+            "cfpnet::bn_act": 113}
         kernels.reset_launches()
         with torch.no_grad():
             m.module(bs)(image[:bs], hist[:bs], mask[:bs])
@@ -705,7 +706,7 @@ def test_masked_calls_take_the_plain_route(gen, scale):
     for dtype in ("float32", "bfloat16"):
         assert not any(out[dtype]["launches_masked"].values())
         assert out[dtype]["launches_unmasked"] == {"linear_attention": 1, "dwconv": 0,
-                                                   "fused_loftr": 1}
+                                                   "fused_loftr": 1, "bn_act": 0}
 
 
 @pytest.mark.parametrize("name", ["baseline", "fusion_names"])

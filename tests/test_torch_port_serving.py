@@ -53,7 +53,9 @@ from tests.test_torch_port_bridge import FORBIDDEN, ROOT, _imports
 from tests.torch_port_util import random_tree
 
 N_INPUTS = 5
-OPS = {"cfpnet::linear_attention": 3, "cfpnet::dwconv2d": 3, "cfpnet::fused_loftr": 9}
+# a CPU program: BatchNorm's plain formula, no cfpnet::bn_act
+OPS = {"cfpnet::linear_attention": 3, "cfpnet::dwconv2d": 3, "cfpnet::fused_loftr": 9,
+       "cfpnet::bn_act": 0}
 
 
 def _inputs(cfg):
