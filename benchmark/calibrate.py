@@ -8,7 +8,8 @@ load and its output check, printing one JSON line with the gaps of the
 system under test (``program``) and, with ``--control``, of the reference
 put in its place in the precision below the cell's (``control``:
 ``reference/precision.py::CONTROL``). ``--fault half_batch`` plants a
-fault in the train step: it steps on the first half of each batch only.
+fault in the train step that the cell's family builds
+(``family.train_program``): it steps on the first half of each batch only.
 """
 
 from __future__ import annotations
@@ -26,16 +27,17 @@ from .reference import precision
 from .spec import Spec
 
 
-def half_batch(make_train_step):
-    def make(model, config, geoms, grid=None):
-        step = make_train_step(model, config, geoms, grid)
+def half_batch(train_program):
+    """``train_program`` whose step sees the first half of each batch only."""
+    def program(*args, **kwargs):
+        model, opt_state, step = train_program(*args, **kwargs)
 
         def half(state, batch, seed):
             return step(state, {k: v[:v.shape[0] // 2] for k, v in batch.items()}, seed)
 
-        return half
+        return model, opt_state, half
 
-    return make
+    return program
 
 
 def main(argv=None) -> int:
@@ -52,16 +54,15 @@ def main(argv=None) -> int:
     spec = Spec(Path.cwd() / "BENCHMARK.json")
     cell = spec.cell(args.workload)
     settings, traffic = spec.config(cell)["settings"], spec.traffic(cell)
+    family = spec.family(cell)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.fault == "half_batch":
-        from cfpnet_torch.train import steps
-
-        steps.make_train_step = half_batch(steps.make_train_step)
+        family.train_program = half_batch(family.train_program)
     control = precision.CONTROL[traffic["dtype"]] if args.control else None
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        driver = drivers.DRIVERS[traffic["driver"]](settings, traffic, seed)
+        driver = drivers.DRIVERS[traffic["driver"]](family, settings, traffic, seed)
         window = driver.window(args.seconds)
         program, ctl = driver.check(control)
         print(json.dumps(dict(workload=cell["name"], seed=seed, fault=args.fault,

@@ -4,29 +4,32 @@ A mix's ``driver`` names one of them; everything else it holds is a
 parameter of that driver. Each driver builds the system in set-up, runs the
 measured window, runs the traced items, and then judges what the timed path
 produced against the reference (``check``), after freeing the system's
-state.
+state. What belongs to the model (its inputs, weights, the port's model and
+step, the plain reference, the comparison) the driver takes from the cell's
+family (``families/<name>.py``), passed in as ``family``; ``tiny`` asks the
+family for its test widths.
 
 - ``frames``: one client in a closed loop sends frames of ``batch`` images
-  from a pool of ``pool`` distinct ones, cycled. A frame is the port's eval
-  forward captured in a CUDA graph (``graphs.CapturedForward``) on the model
-  cast to ``dtype`` (``models/deltar.py::cast_to_compute_dtype``), called on
-  the frame's pinned host tensors, its depth map and bin edges copied back to
-  pinned host memory; its time runs from the call until both are on the
-  host. ``check_frames`` outputs of the window, a sample drawn from the seed,
-  are kept and compared with the reference's forward on the same inputs.
-- ``train``: the production train step (``train/steps.py::make_train_step``
-  on ``create_train_state``), eager, in a closed loop over a pool of
+  from a pool of ``pool`` distinct ones, cycled. A frame is the family's
+  captured forward (for ``cfpnet``: the port's eval forward in a CUDA graph,
+  ``graphs.CapturedForward``) on the model cast to ``dtype``, called on the
+  frame's pinned host tensors (``family.SERVED``), its first
+  ``family.HOST_OUTPUTS`` outputs (for ``cfpnet``: bin edges and depth map)
+  copied back to pinned host memory; its time runs from the call until they
+  are on the host. ``check_frames`` outputs of the window, a sample drawn
+  from the seed, are kept and compared with the reference's forward on the
+  same inputs (``family.frame_gaps``).
+- ``train``: the family's train step, eager, in a closed loop over a pool of
   ``pool`` distinct batches of ``batch`` images staged on the card, each step
   with its own seed. Set-up drives the step through its first
   ``check_steps`` steps, keeps their losses, the first gradient's norm per
-  parameter (worked out from the first moment after one step) and the norm
-  of each parameter's change, and the window continues from that state; the
-  reference repeats those steps from the same weights.
+  parameter (``family.first_gradient``, from the optimizer's state after one
+  step) and the norm of each parameter's change, and the window continues
+  from that state; the reference repeats those steps from the same weights.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import random
 import statistics
@@ -35,19 +38,6 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-
-from . import inputs, weights
-from .reference import geometry
-from .reference import model as ref
-from .reference import train as ref_train
-
-
-def port_config(settings: Dict, **over):
-    """The port's ``Config`` carrying a configuration's settings."""
-    from cfpnet_torch.config import Config
-
-    fields = {f.name for f in dataclasses.fields(Config)}
-    return Config().replace(**{**{k: v for k, v in settings.items() if k in fields}, **over})
 
 
 def step_seed(seed: int, i: int) -> int:
@@ -59,13 +49,6 @@ def free(device) -> None:
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-
-
-def capture_forward(model, geoms, batch: int, config):
-    """The port's forward captured in a CUDA graph (the timed path)."""
-    from cfpnet_torch.graphs import CapturedForward
-
-    return CapturedForward(model, geoms, batch, config)
 
 
 class Phases(dict):
@@ -82,38 +65,31 @@ class Phases(dict):
 
 
 class Frames:
-    def __init__(self, settings: Dict, traffic: Dict, seed: int, device="cuda",
-                 widths: Dict = ref.B3):
-        from cfpnet_torch.models.deltar import cast_to_compute_dtype, make_model, model_geometries
-
-        self.settings, self.traffic, self.seed, self.device = settings, traffic, seed, device
-        self.widths = widths
+    def __init__(self, family, settings: Dict, traffic: Dict, seed: int, device="cuda",
+                 tiny: bool = False):
+        self.family, self.settings, self.traffic, self.seed = family, settings, traffic, seed
+        self.device, self.tiny = device, tiny
         self.phases = Phases()
         self.dtype = getattr(torch, traffic["dtype"])
         bs, n = traffic["batch"], traffic["pool"]
-        data = inputs.make(settings, "online_eval", n * bs, seed)
+        data = family.inputs(settings, "frames", n * bs, seed)
         pin = torch.device(device).type == "cuda"
-        # the served inputs, in the dtype they are served in; the reference reads the same values
-        self.pool = [tuple(torch.from_numpy(data[k][i * bs:(i + 1) * bs]).to(
-            self.dtype if k != "mask" else torch.bool) for k in ("image", "hist_data", "mask"))
-            for i in range(n)]
+        # the served inputs, the floating ones in the dtype they are served in; the reference
+        # reads the same values
+        self.pool = [tuple(_served(torch.from_numpy(data[k][i * bs:(i + 1) * bs]), self.dtype)
+                           for k in family.SERVED) for i in range(n)]
         if pin:
             self.pool = [tuple(t.pin_memory() for t in frame) for frame in self.pool]
         self.phases.mark("inputs")
-        self.state = weights.init_state(settings, seed, device, widths)
+        self.state = family.init_state(settings, seed, device, tiny)
         if pin:
             torch.cuda.reset_peak_memory_stats()
         self.phases.mark("weights")
-        config = port_config(settings, mode="online_eval",
-                             tiny_model=widths is not ref.B3)
-        model = make_model(config, device=device)
-        model.load_state_dict(self.state)
-        self.model = cast_to_compute_dtype(model, self.dtype)
+        self.model = family.frame_model(settings, self.state, self.dtype, device, tiny)
         self.phases.mark("model")
-        self.forward = capture_forward(self.model, model_geometries(config, "online_eval"), bs,
-                                       config)
+        self.forward = family.capture_frames(self.model, settings, bs, tiny)
         self.out = [torch.empty(o.shape, dtype=o.dtype, pin_memory=pin)
-                    for o in self.forward(*self.pool[0])[:2]]
+                    for o in self.forward(*self.pool[0])[:family.HOST_OUTPUTS]]
         self.phases.mark("capture")
         self.sample: List = []
         self.frames = 0
@@ -130,7 +106,7 @@ class Frames:
         k = i % len(self.pool)
         with torch.profiler.record_function("bench.frame"):
             outs = self.forward(*self.pool[k])
-            for host, dev in zip(self.out, outs[:2]):
+            for host, dev in zip(self.out, outs):
                 host.copy_(dev, non_blocking=True)
             if self.out[0].is_pinned():
                 torch.cuda.current_stream().synchronize()
@@ -167,78 +143,58 @@ class Frames:
 
     def check(self, control=None):
         """Frees the port, runs the reference on each sampled frame's inputs
-        and returns the gaps (``frame_gaps``) of the port's outputs; with
-        ``control`` (a context the reference then runs in, for a lower
+        and returns the gaps (``family.frame_gaps``) of the port's outputs;
+        with ``control`` (a context the reference then runs in, for a lower
         precision) also those of the control's outputs on the same frames,
         else None."""
         del self.forward, self.model
         free(self.device)
-        model = ref.build(self.settings, self.device, self.widths)
-        model.load_state_dict(self.state)
+        family = self.family
+        model = family.frame_reference(self.settings, self.state, torch.float32, self.device,
+                                       self.tiny)
         low = None
         if self.dtype != torch.float32:
-            low = ref.build(self.settings, self.device, self.widths).to(self.dtype)
-            low.load_state_dict(self.state)
-        geoms = geometry.for_mode(self.settings, "online_eval")
+            low = family.frame_reference(self.settings, self.state, self.dtype, self.device,
+                                         self.tiny)
         want, same, got, ctl = [], [], [], []
         with torch.no_grad():
             for k, outs in self.sample:
-                image, hist, mask = (t.to(self.device) for t in self.pool[k])
-                args = (image.float(), hist.float(), mask, geoms)
-                want.append([t.cpu() for t in model(*args)])
+                served = [t.to(self.device) for t in self.pool[k]]
+                wide = [_served(t, torch.float32) for t in served]
+                want.append([t.cpu() for t in model(*wide)])
                 got.append(outs)
                 if low is not None:
-                    same.append([t.cpu() for t in low(image, hist, mask, geoms)])
+                    same.append([t.cpu() for t in low(*served)])
                 if control is not None:
                     with control():
-                        ctl.append([t.cpu() for t in model(*args)])
-        return (frame_gaps(got, want, same),
-                frame_gaps(ctl, want, same) if control is not None else None)
+                        ctl.append([t.cpu() for t in model(*wide)])
+        return (family.frame_gaps(got, want, same),
+                family.frame_gaps(ctl, want, same) if control is not None else None)
 
 
-def frame_gaps(got, want, same) -> Dict[str, float]:
-    """``pred``: the RMS error of the depth maps of all sampled frames over
-    the same RMS error of the plain reference run in the cell's dtype
-    (``same``; 1 where that is float32): the error in units of the error
-    that the dtype alone makes on these frames and weights, which differs
-    from seed to seed by a factor of four. The bin edges are not compared
-    on their own: they come from a mean over the whole map, which averages
-    rounding away (fp8's error on them is under twice bf16's), and every
-    depth reads them through the bin centres."""
-    err = _rms([g[1] for g in got], [w[1] for w in want])
-    return dict(pred=err / (_rms([s[1] for s in same], [w[1] for w in want]) if same else 1.0))
-
-
-def _rms(xs, ys) -> float:
-    return float(torch.sqrt(sum(((x.double() - y.double()) ** 2).sum() for x, y in zip(xs, ys))
-                            / sum(y.numel() for y in ys)))
+def _served(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` where it is floating; a mask as it is."""
+    return t.to(dtype) if t.is_floating_point() else t
 
 
 class Train:
-    def __init__(self, settings: Dict, traffic: Dict, seed: int, device="cuda",
-                 widths: Dict = ref.B3):
-        from cfpnet_torch.models.deltar import make_model, model_geometries
-        from cfpnet_torch.train import steps
-
-        self.settings, self.traffic, self.seed, self.device = settings, traffic, seed, device
-        self.widths = widths
+    def __init__(self, family, settings: Dict, traffic: Dict, seed: int, device="cuda",
+                 tiny: bool = False):
+        self.family, self.settings, self.traffic, self.seed = family, settings, traffic, seed
+        self.device, self.tiny = device, tiny
         self.phases = Phases()
         bs, n = traffic["batch"], traffic["pool"]
-        data = inputs.make(settings, "train", n * bs, seed)
+        data = family.inputs(settings, "train", n * bs, seed)
         self.host = {k: torch.from_numpy(v) for k, v in data.items()}
         dev = {k: v.to(device) for k, v in self.host.items()}
         self.batches = [{k: v[i * bs:(i + 1) * bs] for k, v in dev.items()} for i in range(n)]
         self.phases.mark("inputs")
-        self.state = weights.init_state(settings, seed, device, widths)
-        self.start = {k: v.cpu() for k, v in self.state.items()}
+        state = family.init_state(settings, seed, device, tiny)
+        self.start = {k: v.cpu() for k, v in state.items()}
         self.phases.mark("weights")
-        config = port_config(settings, mode="train", compute_dtype=traffic["dtype"], bs=bs,
-                             tiny_model=widths is not ref.B3)
-        self.model = make_model(config, device=device)
-        self.model.load_state_dict(self.state)
-        del self.state
-        self.opt_state = steps.create_train_state(self.model, config, settings["total_steps"])
-        self.step = steps.make_train_step(self.model, config, model_geometries(config, "train"))
+        self.model, self.opt_state, self.step = family.train_program(settings, state, traffic,
+                                                                     device, tiny)
+        del state
         self.phases.mark("model")
         self.steps = 0
         self.readings = self._first_steps(traffic["check_steps"])
@@ -266,15 +222,13 @@ class Train:
         for i in range(n):
             with torch.enable_grad():
                 losses.append(self.one())
-            if i == 0:  # the first moment after one step, as the optimizer keeps it
-                mu = {k: v for group in self.opt_state.tx.state_dict().values()
-                      for k, v in group["mu"].items()}
-                first = torch.stack(torch._foreach_norm([mu[k] for k, _ in named])).cpu()
+            if i == 0:  # from the optimizer's state after one step
+                grads = self.family.first_gradient(self.opt_state, self.settings)
         change = torch.stack(torch._foreach_norm(torch._foreach_sub(
             [p.detach() for _, p in named], start))).cpu()
         names = [name for name, _ in named]
-        return dict(losses=[float(v) for v in losses],
-                    mu=dict(zip(names, first.tolist())), change=dict(zip(names, change.tolist())))
+        return dict(losses=[float(v) for v in losses], grads=grads,
+                    change=dict(zip(names, change.tolist())))
 
     def window(self, seconds: float) -> Dict:
         losses = []
@@ -306,10 +260,7 @@ class Train:
         del self.step, self.opt_state, self.model, self.batches
         free(self.device)
         want = self.reference()
-        got = dict(self.readings)
-        b1 = ref_train.first_moment_factor(self.settings)
-        got["grads"] = {k: v / b1 for k, v in got.pop("mu").items()}
-        worst = train_gaps(got, want)
+        worst = train_gaps(self.readings, want)
         if control is None:
             return worst, None
         with control():
@@ -317,18 +268,13 @@ class Train:
 
     def reference(self) -> Dict:
         """The reference's first steps from the same weights on the same
-        batches and seeds: ``losses``, ``grads`` (first gradient norms) and
-        ``change`` (change norms) by parameter name."""
+        batches and seeds (``family.reference_steps``)."""
         n, bs = self.traffic["check_steps"], self.traffic["batch"]
-        model = ref.build(self.settings, self.device, self.widths)
-        model.load_state_dict(self.start)
         batches = [{k: v[i * bs:(i + 1) * bs].to(self.device) for k, v in self.host.items()}
                    for i in range(n)]
-        losses, grads, change = ref_train.train_steps(
-            model, self.settings, geometry.for_mode(self.settings, "train"), batches,
-            [step_seed(self.seed, i) for i in range(n)], self.settings["total_steps"])
-        names = [name for name, _ in model.named_parameters()]
-        return dict(losses=losses, grads=dict(zip(names, grads)), change=dict(zip(names, change)))
+        return self.family.reference_steps(self.settings, self.start, batches,
+                                           [step_seed(self.seed, i) for i in range(n)],
+                                           self.device, self.tiny)
 
 
 def train_gaps(got: Dict, want: Dict) -> Dict[str, float]:

@@ -1,5 +1,6 @@
-"""The benchmark's inputs: synthetic scenes and their ToF zone histograms,
-made in bulk on the host from the run's seed.
+"""The inputs of the ``cfpnet`` family (``families/cfpnet.py::inputs``):
+synthetic scenes and their ToF zone histograms, made in bulk on the host
+from the run's seed.
 
 A frozen copy of a sound generator, vectorized over frames: the scenes of
 ``cfpnet_torch/data/datasets.py::SyntheticDataset`` (depth a smooth field of

@@ -2,9 +2,9 @@
 
     python3 -m benchmark.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-From the root of a checkout. The cell's configuration, traffic mix, limits
-and per-layer readers are found by name (``spec.py``). The run builds the
-system under test (``cfpnet_torch``) and warms it up (``setup_s``, from the
+From the root of a checkout. The cell's configuration, its model family,
+traffic mix, limits and per-layer readers are found by name (``spec.py``).
+The run builds the system under test (``cfpnet_torch``) and warms it up (``setup_s``, from the
 start of this module), measures for ``--seconds`` (``--trace 0``: the cell's
 end-to-end metrics), or measures and then profiles the mix's traced items
 (``--trace 1``: its per-layer metrics), reads the peak of device memory,
@@ -34,7 +34,6 @@ from types import SimpleNamespace  # noqa: E402
 import torch  # noqa: E402
 
 from . import drivers, trace  # noqa: E402
-from .reference import counters  # noqa: E402
 from .spec import Spec  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cfpnet_tpu")
@@ -56,10 +55,10 @@ def card_line() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
-def main(argv=None, device="cuda", widths=None, overrides=None) -> int:
-    """One run; returns the exit code. ``device``, ``widths`` and
-    ``overrides`` (settings replaced) let the tests drive a run at a small
-    size on the CPU."""
+def main(argv=None, device="cuda", tiny=False, overrides=None) -> int:
+    """One run; returns the exit code. ``device``, ``tiny`` (the family's
+    test widths) and ``overrides`` (settings replaced) let the tests drive a
+    run at a small size on the CPU."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -74,6 +73,7 @@ def main(argv=None, device="cuda", widths=None, overrides=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
     config, traffic, limits = spec.config(cell), spec.traffic(cell), spec.limits(cell)
+    family = spec.family(cell)
     settings = dict(config["settings"], **(overrides or {}))
     if cuda:
         from cfpnet_torch.kernels import build
@@ -81,8 +81,8 @@ def main(argv=None, device="cuda", widths=None, overrides=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         build.build()
-    driver = drivers.DRIVERS[traffic["driver"]](settings, traffic, args.seed, device,
-                                                **({"widths": widths} if widths else {}))
+    driver = drivers.DRIVERS[traffic["driver"]](family, settings, traffic, args.seed, device,
+                                                tiny)
     setup_s = time.perf_counter() - T0
     print(f"setup_s {setup_s!r}: {json.dumps(driver.phases)}", file=sys.stderr)
     window = driver.window(args.seconds)
@@ -91,7 +91,7 @@ def main(argv=None, device="cuda", widths=None, overrides=None) -> int:
     metrics, breakdown, dev = {}, None, {}
     if args.trace:
         readers = [(m, spec.reader(m)) for m in spec.per_layer(cell)]
-        flops, calls = work(settings, traffic)
+        flops, calls = family.work(settings, traffic)
         for _ in range(TRACE_ATTEMPTS):
             tr = trace.capture(driver.traced)
             run = SimpleNamespace(trace=tr, rate=window["rate"], traffic=traffic,
@@ -128,14 +128,6 @@ def main(argv=None, device="cuda", widths=None, overrides=None) -> int:
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
     return 0
-
-
-def work(settings, traffic):
-    """``(operations, kernel calls)`` of one traced item of the mix: an eval
-    forward at its batch, or a train step."""
-    if traffic["driver"] == "train":
-        return counters.train_step_flops(dict(settings, bs=traffic["batch"])), []
-    return counters.count(settings, "online_eval", traffic["batch"])
 
 
 if __name__ == "__main__":

@@ -1,29 +1,45 @@
 """``BENCHMARK.json`` and the files each of its names resolves to.
 
 A cell (an entry of ``workloads``) names a configuration and a traffic mix;
-each lives in a file of its own that the harness finds by that name, so a
-new cell, configuration, mix or per-layer metric is new files and new
+each lives in a file of its own that the harness finds by that name, and a
+configuration names its model family the same way. So a new cell,
+configuration, mix, per-layer metric or model family is new files and new
 entries, never an edit:
 
 - ``benchmark/configs/<config>.json``: the configuration's settings (the
-  argfile's flags, copied), its source, ``reduced`` and ``assumed``;
+  argfile's flags, copied), its source, ``reduced`` and ``assumed``, and
+  ``family``, the model it configures (``cfpnet`` where the file names
+  none);
+- ``benchmark/families/<family>.py``: everything that belongs to the model,
+  behind the interface that ``families/__init__.py`` sets out: its inputs,
+  seeded weights, the port's model and captured forward or train step, the
+  plain reference, the comparison of outputs and the work counts;
+- ``benchmark/reference/<family>.py`` (and files beside it): the family's
+  plain reference, importing nothing of the system under test;
 - ``benchmark/traffic/<traffic>.json``: the parameters of the mix (which
   driver runs it, batch, dtype, pool of distinct inputs, what is checked and
-  traced), read by the one generator of ``inputs.py``;
+  traced), read by the driver that the mix names (``drivers.py``);
 - ``benchmark/metrics/<metric>.py``: the reader of a per-layer metric,
   ``read(run) -> float | None``;
 - ``benchmark/limits/<cell>.json``: the limit of each number the cell's
   output check compares.
+
+A configuration of a new model is thus a family module, its reference, a
+configuration file, a limits file a cell, and new entries in
+``BENCHMARK.json``: the configuration, its cells, and each cell's name in the
+``workloads`` lists of the end-to-end metrics it reports.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
 from typing import Dict, List
 
 HERE = Path(__file__).resolve().parent
+DEFAULT_FAMILY = "cfpnet"
 
 
 class Spec:
@@ -47,6 +63,15 @@ class Spec:
 
     def traffic(self, cell: Dict) -> Dict:
         return self._json("traffic", cell["traffic"])
+
+    def family(self, cell: Dict):
+        """The module of the model family that the cell's configuration
+        names (``families/<family>.py``), imported with the benchmark's
+        package."""
+        name = self.config(cell).get("family", DEFAULT_FAMILY)
+        if not name.isidentifier():
+            raise ValueError(f"family {name!r} of {cell['config']} is not a module name")
+        return importlib.import_module(f"{__package__}.families.{name}")
 
     def limits(self, cell: Dict) -> Dict[str, float]:
         return self._json("limits", cell["name"])

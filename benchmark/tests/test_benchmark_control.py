@@ -34,8 +34,8 @@ def test_control_fails(workload, seed):
     cell = spec.cell(workload)
     traffic, limits = spec.traffic(cell), spec.limits(cell)
     settings = dict(spec.config(cell)["settings"], **SMALL)
-    driver = drivers.DRIVERS[traffic["driver"]](settings, dict(traffic, pool=4, warmup=2),
-                                                seed)
+    driver = drivers.DRIVERS[traffic["driver"]](spec.family(cell), settings,
+                                                dict(traffic, pool=4, warmup=2), seed)
     driver.window(0.5)
     program, control = driver.check(precision.CONTROL[traffic["dtype"]])
     print(json.dumps(dict(workload=workload, seed=seed, program=program, control=control)))

@@ -11,8 +11,8 @@ import json
 import pytest
 import torch
 
-from benchmark import calibrate, drivers, run
-from benchmark.reference import model as ref
+from benchmark import calibrate, run
+from benchmark.families import cfpnet
 
 TINY = dict(n_bins=16, native_height=64, native_width=96, eval_zone_num_cfg=2, eval_patch_px=16,
             input_height=48, input_width=64, train_zone_num=2, train_patch_px=16)
@@ -33,7 +33,7 @@ def eager(alter=None):
 
 def one_run(capsys, workload):
     rc = run.main(["--workload", workload, "--seed", str(SEED), "--seconds", "0.5"],
-                  device="cpu", widths=ref.TINY, overrides=TINY)
+                  device="cpu", tiny=True, overrides=TINY)
     assert rc == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
@@ -46,7 +46,7 @@ def scaled_depth(out):
 
 @pytest.mark.parametrize("fault", [None, "altered answer"])
 def test_frames(monkeypatch, capsys, fault):
-    monkeypatch.setattr(drivers, "capture_forward", eager(scaled_depth if fault else None))
+    monkeypatch.setattr(cfpnet, "capture_forward", eager(scaled_depth if fault else None))
     result = one_run(capsys, "cfpnet.frame_bs1")
     assert result["correct"] is (fault is None), result["checks"]
     assert list(result)[-1] == "checks"
@@ -54,11 +54,11 @@ def test_frames(monkeypatch, capsys, fault):
 
 @pytest.mark.parametrize("fault", [None, "state unchanged", "half batch"])
 def test_train(monkeypatch, capsys, fault):
-    from cfpnet_torch.train import optim, steps
+    from cfpnet_torch.train import optim
 
     if fault == "state unchanged":
         monkeypatch.setattr(optim.AdamW, "step", lambda self: None)
     if fault == "half batch":
-        monkeypatch.setattr(steps, "make_train_step", calibrate.half_batch(steps.make_train_step))
+        monkeypatch.setattr(cfpnet, "train_program", calibrate.half_batch(cfpnet.train_program))
     result = one_run(capsys, "cfpnet.train_bs16")
     assert result["correct"] is (fault is None), result["checks"]

@@ -1,7 +1,10 @@
 """What the benchmark imports: no module of it (the tests aside) names
 ``jax``, ``jaxlib``, ``flax``, ``optax`` or the JAX package ``cfpnet_tpu`` by
 its top-level name, compared whole (``cfpnet_torch`` is not ``cfpnet_tpu``),
-and the reference imports nothing of the system under test either."""
+the reference imports nothing of the system under test either, and the
+harness's model-agnostic modules import no model: neither a family, nor the
+reference beyond its precision contexts (the controls), nor the port beyond
+its kernels' build."""
 
 from __future__ import annotations
 
@@ -26,6 +29,32 @@ def top_level_imports(path: Path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module.split(".", 1)[0])
     return names
+
+
+def dotted_imports(path: Path):
+    """The dotted names that ``path`` imports (``from a import b`` as
+    ``a.b``), relative ones resolved against its package."""
+    package = ["benchmark", *path.relative_to(HERE).parent.parts]
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            names |= {f"{module}.{a.name}" for a in node.names}
+    return names
+
+
+@pytest.mark.parametrize("name", ["calibrate.py", "drivers.py", "run.py", "spec.py", "trace.py",
+                                  "weights.py"])
+def test_model_agnostic_modules_import_no_model(name):
+    for imported in dotted_imports(HERE / name):
+        assert not imported.startswith("benchmark.families"), imported
+        assert (not imported.startswith("benchmark.reference")
+                or imported == "benchmark.reference.precision"), imported
+        assert (not imported.startswith("cfpnet_torch")
+                or imported.startswith("cfpnet_torch.kernels")), imported
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(HERE)))

@@ -16,7 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import cfpnet_torch
 from benchmark import drivers
-from benchmark.reference import model as ref
+from benchmark.families import cfpnet
 from benchmark.spec import Spec
 from cfpnet_torch import tracing
 
@@ -108,7 +108,7 @@ def test_traced_train_steps_on_the_cpu():
     cell = SPEC.cell("cfpnet.train_bs16")
     settings = dict(SPEC.config(cell)["settings"], **TINY)
     traffic = dict(SPEC.traffic(cell), batch=2, pool=2, check_steps=1, warmup=1)
-    driver = drivers.Train(settings, traffic, 2 ** 31 + 7, "cpu", widths=ref.TINY)
+    driver = drivers.Train(cfpnet, settings, traffic, 2 ** 31 + 7, "cpu", tiny=True)
     tracing.reset()
     assert all(READERS[name](_run(1)) is None for name in TRAIN)
     with profile(activities=[ProfilerActivity.CPU]):

@@ -13,7 +13,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark import drivers, inputs, weights
+from benchmark import inputs
+from benchmark.families import cfpnet
 from benchmark.reference import counters, geometry
 from benchmark.reference import model as ref
 from benchmark.reference import train as ref_train
@@ -32,7 +33,7 @@ def settings(name, tiny=True):
 def port_model(s, mode):
     from cfpnet_torch.models.deltar import make_model
 
-    config = drivers.port_config(s, mode=mode, tiny_model=True, bs=2)
+    config = cfpnet.port_config(s, mode=mode, tiny_model=True, bs=2)
     return config, make_model(config, device="cpu").double()
 
 
@@ -41,7 +42,7 @@ def test_state_dict_names_match_the_port(name):
     from cfpnet_torch.models.deltar import make_model
 
     s = settings(name, tiny=False)
-    port = make_model(drivers.port_config(s, mode="online_eval"), device="meta").state_dict()
+    port = make_model(cfpnet.port_config(s, mode="online_eval"), device="meta").state_dict()
     mine = ref.build(s, "meta").state_dict()
     assert {k: tuple(v.shape) for k, v in port.items()} == \
         {k: tuple(v.shape) for k, v in mine.items()}
@@ -52,7 +53,7 @@ def test_eval_forward_matches_the_port(name):
     from cfpnet_torch.models.deltar import model_geometries
 
     s = settings(name)
-    sd = {k: v.double() for k, v in weights.init_state(s, 7, "cpu", ref.TINY).items()}
+    sd = {k: v.double() for k, v in cfpnet.init_state(s, 7, "cpu", tiny=True).items()}
     data = {k: torch.from_numpy(v) for k, v in inputs.make(s, "online_eval", 2, 3).items()}
     image, hist = data["image"].double(), data["hist_data"].double()
     config, port = port_model(s, "online_eval")
@@ -71,7 +72,7 @@ def test_train_loss_and_gradients_match_the_port():
     from cfpnet_torch.train import steps
 
     s = settings("cfpnet_combine1")
-    sd = {k: v.double() for k, v in weights.init_state(s, 5, "cpu", ref.TINY).items()}
+    sd = {k: v.double() for k, v in cfpnet.init_state(s, 5, "cpu", tiny=True).items()}
     data = {k: torch.from_numpy(v) for k, v in inputs.make(s, "train", 4, 9).items()}
     data = {k: v.double() if v.is_floating_point() else v for k, v in data.items()}
     config, port = port_model(s, "train")

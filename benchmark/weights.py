@@ -1,70 +1,41 @@
 """The benchmark's weights: made on the device from the run's seed, in a few
-large calls, under the reference model's parameter names.
+large calls.
 
-Every product and convolution weight is normal with standard deviation
-``gain / sqrt(fan_in)``: LeCun's (gain 1), except the image encoder's
-convolutions that feed a SiLU, whose gain 1.3 slows the vanishing of the
-encoder's activations over its 31 blocks (a SiLU halves a small signal).
-The positional encodings are normal with 0.2 (the published model's ``0.2 *
-randn``), biases zero, normalization scales one, BatchNorm statistics mean 0
-and variance 1.
-
-Why these: the output check compares a bf16 forward with the float32
-reference, and its control is the reference with fp8 products, so the
-network must neither amplify rounding chaotically nor lose its input.
-Measured on the card (the reference in bf16 and in fp8 against float32, two
-frames each of four seeds), the depth map's RMS error over its RMS:
-
-- gain 1.3: bf16 0.81-1.46%, fp8 7.6-17%; swapping the image under the same
-  histograms moves the depth map by 2.5-5.1% (the encoder's output std
-  0.005-0.009);
-- gain 1.0: bf16 0.77-1.19%, fp8 7.0-16.6%, but the image moves it by only
-  0.6-1.3% (encoder std 1.5e-4), under the bf16 noise;
-- gain 1.5 (six seeds through the port): bf16 1%-130%, chaotic on some
-  seeds; BatchNorm statistics calibrated to each layer's input: bf16 1.9-3.5%
-  against fp8 3.5-7.9%, chaotic everywhere.
+A family (``families/<name>.py``) gives the state dict of its reference's
+skeleton on the ``meta`` device and a rule that says, leaf by leaf, whether
+the leaf is a constant (norm scales, biases, running statistics) or is drawn
+normal, and with which standard deviation. ``draw`` makes every drawn leaf
+from one normal draw of a device generator seeded once, in the skeleton's
+order, so the same seed gives the same weights for the same skeleton.
 """
 
 from __future__ import annotations
 
-import re
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
-from torch import nn
 
-from .reference import model as ref
-
-SILU_GAIN = 1.3
-# the stem, and each block's convolutions that a SiLU follows
-SILU_INPUT = re.compile(r"^img_encoder\..*(conv0\.0|\.conv|conv_exp|conv_pw|conv_dw|"
-                        r"se\.conv_reduce)\.weight$")
+# what a rule gives a leaf: ("const", value) or ("normal", standard deviation)
+Leaf = Tuple[str, float]
 
 
-def init_state(settings: Dict, seed: int, device, widths: Dict = ref.B3) -> Dict[str, torch.Tensor]:
-    """The state dict of a fresh model for ``settings`` on ``device``."""
-    skeleton = ref.build(settings, "meta", widths)
-    norms = {name for name, m in skeleton.named_modules()
-             if isinstance(m, (ref.BatchNorm, nn.LayerNorm))}
-    state = skeleton.state_dict()
+def draw(skeleton: Dict[str, torch.Tensor], rule: Callable[[str, torch.Tensor], Leaf], seed: int,
+         device) -> Dict[str, torch.Tensor]:
+    """The state dict of ``skeleton``'s names and shapes on ``device``, each
+    leaf as ``rule(name, leaf)`` says."""
     drawn, stds = [], []
     out: Dict[str, torch.Tensor] = {}
-    for name, t in state.items():
-        owner, leaf = name.rsplit(".", 1)
-        if leaf == "running_var" or (owner in norms and leaf == "weight"):
-            out[name] = torch.ones(t.shape, device=device)
-        elif leaf in ("running_mean", "bias"):
-            out[name] = torch.zeros(t.shape, device=device)
+    for name, t in skeleton.items():
+        kind, value = rule(name, t)
+        if kind == "const":
+            out[name] = torch.full(t.shape, value, device=device)
         else:
             drawn.append(name)
-            gain = SILU_GAIN if SILU_INPUT.match(name) else 1.0
-            stds.append(0.2 if leaf.startswith("positional_encodings")
-                        else gain * t[0].numel() ** -0.5)
-    sizes = torch.tensor([state[n].numel() for n in drawn], device=device)
+            stds.append(value)
+    sizes = torch.tensor([skeleton[n].numel() for n in drawn], device=device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     flat = torch.randn(int(sizes.sum()), generator=gen, device=device)
     flat *= torch.repeat_interleave(torch.tensor(stds, device=device), sizes)
     for name, chunk in zip(drawn, flat.split(sizes.tolist())):
-        out[name] = chunk.view(state[name].shape)
-    return {name: out[name] for name in state}
-
+        out[name] = chunk.view(skeleton[name].shape)
+    return {name: out[name] for name in skeleton}
