@@ -34,7 +34,7 @@ from .config import Config
 from .data import tof_sim
 from .data.datasets import SyntheticDataset, normalize_image, sample_image_f32
 from .data.geometry import geometry_for
-from .models.deltar import make_model, model_geometries
+from .models.deltar import make_model, model_geometries, require_deltar
 from .ops.interp import resize_bilinear_align_corners
 
 
@@ -68,6 +68,7 @@ def predict(config, sample: dict, state_dict=None, tiny: bool = False,
     """Depth [H, W] of ``sample`` at its image's size: the bs=1 eval forward
     on ``device`` with ``state_dict`` (default: the deterministic weights),
     its prediction resized with align-corners bilinear as the JAX demo does."""
+    require_deltar(config, "the demo")
     model = make_model(config, tiny=tiny, device=device)
     if state_dict is None:
         state_dict = weights.deterministic_state_dict(config, tiny)

@@ -46,7 +46,7 @@ from .config import parse_config
 from .data.datasets import collate, make_dataset, sample_image_f32
 from .evaluate_all import METRICS, eval_dataset_config
 from .evaluate_time import eager_latency_ms, graphed_latency_ms
-from .models.deltar import make_model, model_geometries
+from .models.deltar import make_model, model_geometries, require_deltar
 from .train.loop import make_grouped_eval
 from .train.steps import batch_to_device
 
@@ -57,6 +57,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap.add_argument("--time_iters", type=int, default=100)
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     config = eval_dataset_config(parse_config(rest).replace(mode="online_eval"))
+    require_deltar(config, "evaluate")
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -64,7 +64,7 @@ from . import weights
 from .config import parse_config
 from .data.datasets import IMAGENET_MEAN, IMAGENET_STD, make_dataset
 from .data.pipeline import make_loader
-from .models.deltar import make_model, model_geometries
+from .models.deltar import make_model, model_geometries, require_deltar
 from .parallel import mesh, spatial
 from .train.loop import evaluate, evaluate_sharded, make_eval_steps, make_grouped_eval
 from .train.steps import make_metric_step
@@ -259,6 +259,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap.add_argument("--device", default="cuda")
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     config = parse_config(rest).replace(mode="online_eval")
+    require_deltar(config, "the ToF sweep (evaluate_all)")
     device = torch.device(args.device)
     owns_group = config.multihost and not mesh.is_distributed()
     if config.multihost:

@@ -94,7 +94,8 @@ from .evaluate_all import eval_dataset_config
 from .graphs import CapturedCall, CapturedForward
 from .kernels.dtypes import dtype_name
 from .models.convnext import LargeKernelDWConv
-from .models.deltar import cast_to_compute_dtype, make_model, model_geometries
+from .models.deltar import (cast_to_compute_dtype, make_model, model_geometries,
+                             require_deltar)
 from .models.deltar import compute_dtype as dtype_of
 from .train import steps
 
@@ -384,6 +385,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap.add_argument("--train", action="store_true")
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     config = parse_config(rest).replace(mode="online_eval")
+    require_deltar(config, "evaluate_time")
     if not args.train:
         config = eval_dataset_config(config)
     device = torch.device(args.device)

@@ -124,9 +124,12 @@ class CapturedForward(CapturedCall):
     config's native size, captured in one ``torch.cuda.CUDAGraph``
     (``CapturedCall``).
 
-    A call ``captured(image, hist, mask)`` copies the inputs into the graph's
-    static buffers ``image``, ``hist`` and ``mask``, replays it and returns
-    its static outputs ``(bin_edges, pred, prob, None)``. Raises
+    For ``--model_name deltar`` (CFPNet) a call ``captured(image, hist,
+    mask)`` copies the inputs into the graph's static buffers ``image``,
+    ``hist`` and ``mask``, replays it and returns its static outputs
+    ``(bin_edges, pred, prob, None)``. For ``depth_anything_v2``, which
+    reads the image alone, the graph has the one buffer ``image``: a call
+    ``captured(image)`` returns ``(pred,)`` (``geoms`` unused). Raises
     ``ValueError`` on a model that is not on a CUDA device and on inputs of
     other shapes or dtypes (image and histogram in the model's dtype, the
     mask bool).
@@ -140,15 +143,21 @@ class CapturedForward(CapturedCall):
         device, dtype = param.device, param.dtype
         if device.type != "cuda":
             raise ValueError(f"CapturedForward needs a model on a CUDA device, got {device}")
-        zones = config.eval_zone_num ** 2
         self.image = torch.zeros(batch_size, config.native_height, config.native_width, 3,
                                  device=device, dtype=dtype)
-        self.hist = torch.zeros(batch_size, zones, config.zone_sample_num, device=device,
-                                dtype=dtype)
-        self.mask = torch.ones(batch_size, zones, dtype=torch.bool, device=device)
-        super().__init__(lambda image, hist, mask: model(image, hist, mask, geoms),
-                         self.inputs, self.names)
+        if config.model_name == "depth_anything_v2":
+            self.names = ("image",)
+            fn = model
+        else:
+            zones = config.eval_zone_num ** 2
+            self.hist = torch.zeros(batch_size, zones, config.zone_sample_num, device=device,
+                                    dtype=dtype)
+            self.mask = torch.ones(batch_size, zones, dtype=torch.bool, device=device)
+
+            def fn(image, hist, mask):
+                return model(image, hist, mask, geoms)
+        super().__init__(fn, self.inputs, self.names)
 
     @property
     def inputs(self):
-        return (self.image, self.hist, self.mask)
+        return tuple(getattr(self, name) for name in self.names)

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.geometry import ScaleGeometry, geometry_for
 from ..parallel import spatial
+from . import depth_anything
 from .decoder import Decoder, DepthRegression
 from .efficientnetv2 import V2_B3_STAGES, V2_B3_STEM, V2_TINY_STAGES, V2_TINY_STEM
 from .encoder import HistogramEncoder, ImageEncoder
@@ -142,11 +143,22 @@ class Deltar(nn.Module):
                                               frozen_running_stats()))
 
 
-def make_model(config, tiny: bool = False, device="cuda") -> Deltar:
+MODEL_NAMES = ("deltar", "depth_anything_v2")  # the values of --model_name
+
+
+def make_model(config, tiny: bool = False, device="cuda") -> nn.Module:
     """Model factory (reference src/utils/utils.py:7-10), in eval mode on
-    ``device``. Weights are torch's default init; load real ones through
-    ``cfpnet_torch.weights``."""
+    ``device``, by ``config.model_name``: ``"deltar"`` CFPNet's ``Deltar``
+    (and its baselines, by ``attention_layer``), ``"depth_anything_v2"``
+    Depth Anything V2 metric (``models/depth_anything.py``). Weights are
+    torch's default init; load real ones through ``cfpnet_torch.weights``
+    (``Deltar``) or ``load_state_dict``."""
+    name = getattr(config, "model_name", "deltar")
+    if name not in MODEL_NAMES:
+        raise ValueError(f"--model_name {name!r} is not one of {MODEL_NAMES}")
     tiny = tiny or getattr(config, "tiny_model", False)
+    if name == "depth_anything_v2":
+        return depth_anything.build(config, tiny, device)
     kw = dict(
         remat=getattr(config, "remat", False),
         n_bins=config.n_bins,
@@ -170,6 +182,18 @@ def make_model(config, tiny: bool = False, device="cuda") -> Deltar:
     with torch.device(device):
         model = Deltar(**kw)
     return model.eval()
+
+
+def require_deltar(config, what: str) -> None:
+    """Raises for a ``--model_name`` other than ``"deltar"``: ``what`` (the
+    train step and loop, with or without spatial sharding, ``--selfsup``,
+    serving export, the evaluation and ToF sweep drivers) reads the ToF
+    histograms or CFPNet's modules, which no other model has. Nothing builds
+    ``Deltar`` in another model's place."""
+    name = getattr(config, "model_name", "deltar")
+    if name != "deltar":
+        raise ValueError(f"{what} runs CFPNet (--model_name deltar) only, not --model_name "
+                         f"{name!r}")
 
 
 def cast_to_compute_dtype(model: nn.Module, dtype) -> nn.Module:

@@ -78,3 +78,19 @@ def _linear_attention_bf16(queries, keys, values, q_mask, kv_mask, eps):
     Z = 1.0 / (torch.einsum("nlhd,nhd->nlh", Q, _bf16_values(K.sum(dim=1))) + eps)
     out = torch.einsum("nlhd,nhdv->nlhv", Q, KV) * Z[..., None] * v_length
     return out.to(torch.bfloat16)
+
+
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """Multi-head softmax attention, plain: ``softmax(q k^T * scale) v`` as
+    two products and a softmax over the keys. q: [B, H, L, D]; k, v:
+    [B, H, S, D] (the layout of ``F.scaled_dot_product_attention``). Returns
+    [B, H, L, D] in q's dtype; the scores, the softmax and the sum over keys
+    in float32 or wider (a bf16 call rounds once, at the output).
+
+    The CPU path of ``ops/dispatch.py::softmax_attention`` and the twin its
+    card route is held against. The JAX package has no softmax attention;
+    this follows DINOv2's ``Attention.forward`` (``dinov2.py``)."""
+    wide = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.matmul(q.to(wide), k.to(wide).transpose(-2, -1)) * scale
+    return torch.matmul(torch.softmax(scores, dim=-1), v.to(wide)).to(q.dtype)

@@ -1,7 +1,8 @@
 """Op dispatch between the plain PyTorch ops and the CUDA kernels.
 
 Port of ``cfpnet_tpu/ops/dispatch.py`` (``attention``, ``dwconv2d``), plus
-``loftr_layer`` and ``batch_norm``, which the JAX package has no switch for.
+``loftr_layer``, ``batch_norm`` and ``softmax_attention``, which the JAX
+package has no switch for.
 
 - An unmasked call goes by the tensor's device, not a flag: a CPU tensor
   takes the plain version, a CUDA tensor always takes the kernel. Nothing
@@ -28,6 +29,18 @@ Port of ``cfpnet_tpu/ops/dispatch.py`` (``attention``, ``dwconv2d``), plus
   no kernel there (XLA fuses the formula). So does every call off the
   card.
 
+Softmax attention (``softmax_attention``, Depth Anything V2's blocks,
+``models/depth_anything.py``) goes by the device as the unmasked calls do: a
+CPU tensor the plain twin ``ops/attention.py::softmax_attention``, a CUDA
+tensor one fused attention kernel, PyTorch's ``scaled_dot_product_attention``
+with its backend pinned (``SOFTMAX_ATTENTION_BACKEND``) under
+``torch.nn.attention.sdpa_kernel``. Where the pinned backend cannot take a
+call (float32, a head size it lacks) ``scaled_dot_product_attention`` raises;
+it never drops to another backend or to the math one. Each call on the card
+counts one ``kernel.softmax_attention.launches.<dtype>``. The JAX package
+has no softmax attention, so no TPU kernel is ported here; a hand-written
+Hopper kernel is to take the pinned backend's place.
+
 On the card every unmasked ``LoFTREncoderLayer`` (the 18 hist2image, LSA and
 GSA layers of the eval forward) runs as one call of the fused LoFTR kernel,
 and only ``LoFTRNewCross9`` calls the attention kernel. The JAX model never
@@ -41,12 +54,23 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..kernels import bn_act as bn_act_kernel
 from ..kernels import dwconv as dwconv_kernel
 from ..kernels import fused_loftr as loftr_kernel
 from ..kernels import linear_attention as attention_kernel
+from ..kernels.dtypes import count_launch
 from .attention import linear_attention
+from .attention import softmax_attention as softmax_attention_plain
+
+# The fused attention backend of the card route: cuDNN's, whose Hopper kernel
+# (wgmma) took 45.0-46.1 us a call at the Depth Anything V2 cell's shape (q, k,
+# v [1, 16, 1814, 64] bf16, views of one qkv product) against 57.0-58.1 us for
+# the flash backend (FlashAttention-2's sm80 kernel) and 124-127 us for the
+# memory-efficient one, on an H100 at 700 W (PERF.md, PR 25).
+SOFTMAX_ATTENTION_BACKEND = SDPBackend.CUDNN_ATTENTION
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,3 +112,18 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: 
     if x.device.type == "cuda" and not training and not needs_grad:
         return bn_act_kernel.bn_act(*args)
     return bn_act_kernel.bn_act_plain(*args)
+
+
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """[B,H,L,D] softmax attention, ``softmax(q k^T * scale) v``: the plain
+    twin on the CPU, the pinned fused kernel on the card (module
+    docstring); raises on any other device."""
+    if q.device.type == "cpu":
+        return softmax_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"softmax_attention takes CPU or CUDA tensors, got {q.device}")
+    with sdpa_kernel(SOFTMAX_ATTENTION_BACKEND):
+        out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    count_launch("softmax_attention", q.dtype)
+    return out

@@ -54,7 +54,8 @@ from torch import nn
 from .. import kernels  # noqa: F401  (registers the custom ops the programs call)
 from ..graphs import CapturedCall
 from ..kernels.dtypes import dtype_name
-from ..models.deltar import cast_to_compute_dtype, make_model, model_geometries
+from ..models.deltar import (cast_to_compute_dtype, make_model, model_geometries,
+                             require_deltar)
 from ..models.deltar import compute_dtype as dtype_of
 from ..train import steps
 
@@ -141,6 +142,7 @@ def export_serving_artifact(
     geometry is recorded in the manifest for pre-deployment validation
     (``evaluate_all.artifact_eval_steps``).
     """
+    require_deltar(config, "serving export")
     config = config.replace(mode="online_eval")
     device = torch.device(device)
     model = make_model(config, tiny=tiny, device=device)

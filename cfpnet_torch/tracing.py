@@ -52,9 +52,15 @@ The names, by layer:
   epoch's steps) over ``loop.step`` (over ``data.wait``, ``loop.preprocess``
   and ``train.step``) and ``loop.log``; ``loop.validate``,
   ``loop.checkpoint``.
+- Model (``models/depth_anything.py``): spans ``dav2.encoder`` (the input
+  resize, tokens, blocks and taps) and ``dav2.head`` (the DPT head and the
+  resize to the frame) of an eager Depth Anything V2 forward; a graph's
+  replay records neither.
 - Kernels (``kernels/*.py``): counters ``kernel.<name>.launches.<dtype>``,
   graph replays included (``CapturedCall`` adds at each replay the launches
-  its capture recorded).
+  its capture recorded); ``kernel.softmax_attention.launches.<dtype>`` counts
+  the fused attention of ``ops/dispatch.py::softmax_attention`` on the card
+  (24 a Depth Anything V2 forward).
 """
 
 from __future__ import annotations

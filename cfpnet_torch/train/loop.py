@@ -64,7 +64,7 @@ from ..data import native
 from ..data.geometry import geometry_for, zone_offset_for
 from ..data.pipeline import make_loader
 from ..data.tof_sim_device import preprocess_batch
-from ..models.deltar import make_model, model_geometries
+from ..models.deltar import make_model, model_geometries, require_deltar
 from ..parallel import mesh, spatial
 from .checkpoint import load_checkpoint, save_checkpoint, save_weights
 from .losses import RunningAverageDict
@@ -412,6 +412,7 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
     ``--spatial_shards N`` (> 1) steps on a grid of ``devices``
     (``spatial_train_grid``) and validates on the sweep's grid
     (``evaluate``)."""
+    require_deltar(config, "the training loop")
     grid = spatial_train_grid(config, device, devices)
     zone_off = int(getattr(config, "train_zone_random_offset", 0) or 0)
     if zone_off > 0 and config.device_pipeline:

@@ -49,7 +49,7 @@ from torch import nn
 from .. import tracing
 from ..data.geometry import geometry_for
 from ..data.pipeline import make_loader
-from ..models.deltar import make_model, model_geometries
+from ..models.deltar import make_model, model_geometries, require_deltar
 from ..models.posenet import PoseNet
 from ..ops.interp import resize_bilinear_align_corners
 from ..ops.warp import (absolute, clip, photometric_loss, pose_to_transform, smoothness_loss,
@@ -187,6 +187,7 @@ def run_selfsup_training(config, tiny: bool = False, max_steps_per_epoch: Option
     The loop traces in a ``tracing.session()``. Step ``s`` draws
     its crop offsets from ``steps.step_generator(seed + s)``. Returns the
     final state."""
+    require_deltar(config, "--selfsup")
     device = torch.device(device)
     train_loader = make_loader(config, "train", device=device)
     eval_loader = make_loader(config, "online_eval", device=device)

@@ -52,7 +52,7 @@ import torch
 from torch.func import functional_call
 
 from .. import tracing
-from ..models.deltar import compute_dtype
+from ..models.deltar import compute_dtype, require_deltar
 from ..ops.interp import device_constant, resize_bilinear_align_corners
 from ..parallel import spatial
 from ..parallel.mesh import average_gradients, is_distributed
@@ -145,6 +145,7 @@ def make_train_step(model, config, geoms, grid=None):
     ``[i * mb, (i + 1) * mb)``, as JAX's host pre-split) and runs the
     row-sharded forward; autograd sums every shard's gradient into the
     model's own ``.grad`` through the copies, so nothing else changes."""
+    require_deltar(config, "the train step")
     loss_fn = make_loss_fn(model, config, geoms, grid)
     accum = int(getattr(config, "grad_accum", 1) or 1)
 
