@@ -27,7 +27,7 @@ Port of the root ``bench.py``'s keys. Prints ONE JSON line:
   ``--peak_tflops``.
 - The train step (``evaluate_time.timed_train_step`` at
   ``evaluate_time.train_config``: bs 16 at 416x544, ``--train_iters``
-  steps, eager), as the root ``bench.py``'s train keys (``:248-256``):
+  steps; a CUDA graph from the second step), as the root ``bench.py``'s train keys (``:248-256``):
   ``train_ms_bs16``, ``train_img_s``, ``tfps_train`` and ``mfu_train`` of
   the bf16 step, ``train_dtype`` "bfloat16", and the same of the f32 step
   under ``train_ms_bs16_f32``, ``train_img_s_f32``, ``tfps_train_f32``

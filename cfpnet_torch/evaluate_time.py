@@ -37,7 +37,8 @@ CLI) for the eval forward and the train step, each in float32 or bfloat16
   here and ``batch_stats`` in flax, and count in neither).
 - ``timed_train_step``: the production train step (``train_config``: bs 16
   at 416x544, as the root ``bench.py::train_config``) on one synthetic
-  batch, eager: ``warmup`` steps, then K steps between two CUDA events,
+  batch (on a card one CUDA graph from its second step, ``train/steps.py``):
+  ``warmup`` steps, then K steps between two CUDA events,
   ``max(1, niters // K)`` times, the trimmed mean of the sorted repetitions
   ``[1:-1]`` over K (the mean where there are fewer than three). The
   counterpart of the root ``timed_train_step``, which chains K steps inside

@@ -11,7 +11,8 @@ the static per-scale geometry in; ``(bin_edges [B, n_bins+1], pred
 with ``pred = Σ softmax_prob · bin_centers``. Inside, the backbone and decoder
 run NCHW and the fusion path on NHWC tokens. In training mode BatchNorm uses
 and updates batch statistics (``models/layers.py``) and the fusion layers
-crop their positional encodings at offsets drawn from ``generator``
+crop their positional encodings at offsets drawn from ``generator``, or
+held on the device by a ``fusion.DeviceCrops`` passed in its place
 (``models/fusion.py``); ``make_model`` returns the model in eval mode and
 the train step switches it (``train/steps.py``).
 

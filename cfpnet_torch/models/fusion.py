@@ -22,21 +22,22 @@ chosen by the same tests in the same order (``layer_kind``): ``image``,
   pad and reshape has a fixed shape.
 - The ``hist2image`` write-back is a static-rectangle slice assignment.
 - The train-time positional-encoding crop draws from an explicit CPU
-  ``torch.Generator`` (``crop_offsets``); without one (eval) the crop is
-  centered.
+  ``torch.Generator`` (``crop_offsets``) and slices; given ``DeviceCrops``
+  instead (a CUDA graph of the train step), it gathers the crop's rows at
+  offsets held on the device; without either (eval) the crop is centered.
 - Invalid zones are zeroed after cross-attention by a per-zone multiply.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..data.geometry import ScaleGeometry
-from ..ops.interp import resize_bilinear_align_corners
+from ..ops.interp import device_constant, resize_bilinear_align_corners
 from .convnext import Block14
 from .transformer import (Combine1, LoFTREncoderLayer, LoFTRNewCross9, TwinsTransformer,
                           twins_window_size)
@@ -57,6 +58,67 @@ def crop_offsets(H: int, W: int, maxH: int, maxW: int,
     off_y = int(torch.randint(0, maxH - H + 1, (), generator=generator))
     off_x = int(torch.randint(0, maxW - W + 1, (), generator=generator))
     return off_y, off_x
+
+
+CropShape = Tuple[int, int, int, int]  # (H, W, maxH, maxW) of one crop
+
+_CROP_ROWS: Dict[tuple, torch.Tensor] = {}
+
+
+def _crop_rows(H: int, W: int, maxW: int, device) -> torch.Tensor:
+    """The rows ``i * maxW + j`` (i < H, j < W) of the flattened encoding
+    that the crop at offset (0, 0) takes, int64 on ``device``, made once."""
+    return device_constant(
+        _CROP_ROWS, (H, W, maxW, device),
+        lambda: (torch.arange(H)[:, None] * maxW + torch.arange(W)).reshape(-1).to(device))
+
+
+class DeviceCrops:
+    """The positional-encoding crops of one train step at offsets held on
+    the device, for a step whose host does not see them (a CUDA graph's
+    replay, ``graphs.py::CapturedTrainStep``). A fusion given one in place
+    of a generator takes its crops in call order: crop i starts at row
+    ``starts[i] = off_y * maxW + off_x`` of the flattened ``[maxH * maxW, C]``
+    encoding and gathers the rows ``starts[i] + _crop_rows``, the values the
+    slice at (off_y, off_x) takes; the rows of one crop are distinct, so the
+    gather's gradient writes each row once into zeros, the slice's gradient.
+
+    ``starts``: an int64 device tensor of the step's starts, written before
+    the step runs (``crop_starts``). Or ``generator``: a CPU generator that
+    each crop draws from as it comes (``crop_offsets``), the draws of the
+    eager step in the same order. ``shapes`` records each crop taken, which
+    ``crop_starts`` draws for."""
+
+    def __init__(self, starts: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        if (starts is None) == (generator is None):
+            raise ValueError("DeviceCrops takes the starts or a generator")
+        self.starts, self.generator = starts, generator
+        self.shapes: List[CropShape] = []
+
+    def crop(self, pos: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        """The next crop, [H, W, C], of ``pos`` [maxH, maxW, C]."""
+        maxH, maxW, C = pos.shape
+        i = len(self.shapes)
+        self.shapes.append((H, W, maxH, maxW))
+        if self.generator is None:
+            start = self.starts[i]
+        else:
+            start = torch.full((), crop_starts(self.shapes[-1:], self.generator)[0],
+                               dtype=torch.int64, device=pos.device)
+        rows = _crop_rows(H, W, maxW, pos.device) + start
+        return pos.reshape(maxH * maxW, C).index_select(0, rows).reshape(H, W, C)
+
+
+def crop_starts(shapes: Sequence[CropShape], generator: torch.Generator) -> List[int]:
+    """The starts (``DeviceCrops``) of crops of ``shapes``, in order, from
+    the offsets that ``crop_offsets`` draws from ``generator``: the eager
+    step's draws for the same crops."""
+    starts = []
+    for H, W, maxH, maxW in shapes:
+        off_y, off_x = crop_offsets(H, W, maxH, maxW, generator)
+        starts.append(off_y * maxW + off_x)
+    return starts
 
 
 def layer_kind(name: str) -> Tuple[str, Optional[int]]:
@@ -108,9 +170,11 @@ class TransformerFusion(nn.Module):
             for kind, n in kinds)
 
     def forward(self, x: torch.Tensor, feat1: torch.Tensor, hist_mask: torch.Tensor,
-                geom: ScaleGeometry, generator: Optional[torch.Generator] = None):
+                geom: ScaleGeometry,
+                generator: Union[torch.Generator, DeviceCrops, None] = None):
         """x: [B, H, W, C] image features; feat1: [B, Z, n, C] histogram
-        features; hist_mask: [B, Z] zones with signal. Returns [B, H, W, C]."""
+        features; hist_mask: [B, Z] zones with signal; ``generator``: the
+        crop's (module docstring). Returns [B, H, W, C]."""
         B, H, W, C = x.shape
         maxH, maxW = self.max_resolution
         zn, p1, p2 = geom.zone_num, geom.p1, geom.p2
@@ -121,8 +185,11 @@ class TransformerFusion(nn.Module):
         # random crop of the 2D positional encoding (reference :88-96), or a
         # centered one when no generator is given
         if H < maxH or W < maxW:
-            off_y, off_x = crop_offsets(H, W, maxH, maxW, generator)
-            pos = pos[off_y:off_y + H, off_x:off_x + W]
+            if isinstance(generator, DeviceCrops):
+                pos = generator.crop(pos, H, W)
+            else:
+                off_y, off_x = crop_offsets(H, W, maxH, maxW, generator)
+                pos = pos[off_y:off_y + H, off_x:off_x + W]
         embeddings = x + pos[None]
         feat0 = embeddings.reshape(B, H * W, C)
 

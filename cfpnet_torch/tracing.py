@@ -42,7 +42,14 @@ The names, by layer:
 - Train step (``train/steps.py``, ``train/selfsup.py``): span ``train.step``
   over ``train.forward`` (the loss of each microbatch), ``train.backward``,
   ``train.allreduce`` (in a process group) and ``train.optimizer`` (clip and
-  update).
+  update) in an eager step, counter ``train.eager_steps``; in a step
+  replayed from its CUDA graph (``graphs.py::CapturedTrainStep``),
+  ``train.step`` over ``train.copy_in`` (the batch, the crop offsets and
+  the optimizer's scalars into the graph's buffers) and ``train.replay``,
+  counter ``train.graph.replays``; the capture, span ``train.capture``
+  (inside its step's ``train.step``, its recorded ``train.forward``,
+  ``train.backward`` and ``train.optimizer`` inside it), counter
+  ``train.graph.captures``.
 - Parallel (``parallel/mesh.py``): counters ``parallel.all_reduce`` and
   ``parallel.all_reduce_bytes``, inside ``train.allreduce`` or the forward.
 - Data (``data/pipeline.py::DataLoader``): spans ``data.wait`` (the

@@ -64,6 +64,7 @@ from ..data import native
 from ..data.geometry import geometry_for, zone_offset_for
 from ..data.pipeline import make_loader
 from ..data.tof_sim_device import preprocess_batch
+from ..graphs import SharedPool
 from ..models.deltar import make_model, model_geometries, require_deltar
 from ..parallel import mesh, spatial
 from .checkpoint import load_checkpoint, save_checkpoint, save_weights
@@ -441,11 +442,12 @@ def run_training(config, tiny: bool = False, max_steps_per_epoch: Optional[int] 
         print(f"resumed from {config.resume} at epoch {start_epoch}")
 
     step_fns = {}
+    pool = SharedPool()  # the zone offsets' graphs share one memory pool
 
     def train_step_for(o: int):
         if o not in step_fns:
             step = make_train_step(model, config, model_geometries(config, "train", (o, o)),
-                                   grid)
+                                   grid, pool)
             step_fns[o] = debug_nans_step(step) if config.debug_nans else step
         return step_fns[o]
 

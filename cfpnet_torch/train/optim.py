@@ -27,6 +27,14 @@ The state (moments, count) lives on the parameters' device; a step launches
 a few ``torch._foreach_*`` kernels per group and makes no host sync. Each
 update is written as optax writes it, one rounding per operation (no fused
 multiply-adds), so that float64 runs match optax to the last bits but one.
+
+The scalars that change from step to step (each group's -lr, b1, 1 - b1 and
+the two bias corrections, ``step_scalars``) reach the update as 0-d views
+of one device tensor, read through the Tensor-scalar overloads of the
+``_foreach_*`` calls, which compute as the Python-float ones do. ``step()``
+copies them there from the host; a CUDA graph of the train step captures
+``update`` on a static tensor that its host fills before each replay
+(``graphs.py::CapturedTrainStep``). b2, eps and wd stay Python floats.
 """
 
 from __future__ import annotations
@@ -127,6 +135,7 @@ class AdamW:
         self.mu = {id(p): torch.zeros_like(p) for p in self.params}
         self.nu = {id(p): torch.zeros_like(p) for p in self.params}
         self.count = 0  # optimizer steps taken: the schedules' count
+        self._scalars = None  # step()'s device copy of step_scalars
 
     def hyperparams(self, dtype) -> Dict[str, float]:
         """The scalars of this step in the parameters' type, as optax makes
@@ -142,12 +151,39 @@ class AdamW:
                     one_b2=float(one - b2), bc1=float(one - b1 ** t), bc2=float(one - b2 ** t),
                     eps=float(dt(EPS)), wd=float(dt(self.wd)))
 
+    def step_scalars(self, dtype) -> List[float]:
+        """This step's per-step scalars in ``dtype`` (``hyperparams``), in
+        the order ``update`` reads them: -lr of each group (``LR_SCALE``'s
+        order), b1, 1 - b1, 1 - b1**t, 1 - b2**t."""
+        h = self.hyperparams(dtype)
+        return [-h["lr"][g] for g in LR_SCALE] + [h[k] for k in ("b1", "one_b1", "bc1", "bc2")]
+
     @torch.no_grad()
     def step(self) -> None:
+        """One optimizer step: this step's scalars copied to the device,
+        ``update``, and the count."""
+        dtype, device = self.params[0].dtype, self.params[0].device
+        host = torch.tensor(self.step_scalars(dtype), dtype=dtype)
+        if self._scalars is None:
+            self._scalars = torch.empty(host.shape, dtype=dtype, device=device)
+        if device.type == "cuda":
+            host = host.pin_memory()
+        self._scalars.copy_(host, non_blocking=True)
+        self.update(self._scalars)
+        self.count += 1
+
+    @torch.no_grad()
+    def update(self, scalars: torch.Tensor) -> None:
+        """The update of every parameter with a gradient, reading the
+        per-step scalars from ``scalars`` (a 1-D tensor on the parameters'
+        device holding ``step_scalars``' values); no host value of the
+        step enters, and the count is left as it is."""
         grads = {id(p): p.grad for p in self.params if p.grad is not None}
         if self.clip_grad:
             grads = self._clip(grads)
-        h = self.hyperparams(self.params[0].dtype)
+        h = self.hyperparams(self.params[0].dtype)  # b2, 1 - b2, eps, wd: the same every step
+        neg_lr = dict(zip(LR_SCALE, scalars[:len(LR_SCALE)]))
+        b1, one_b1, bc1, bc2 = scalars[len(LR_SCALE):]
         for group, params in self.groups.items():
             params = [p for p in params if id(p) in grads]
             if not params:
@@ -156,18 +192,17 @@ class AdamW:
             mu = [self.mu[id(p)] for p in params]
             nu = [self.nu[id(p)] for p in params]
             # mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g**2 + b2 * nu
-            torch._foreach_mul_(mu, h["b1"])
-            torch._foreach_add_(mu, torch._foreach_mul(g, h["one_b1"]))
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, one_b1))
             torch._foreach_mul_(nu, h["b2"])
             torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), h["one_b2"]))
             # u = (mu / bc1) / (sqrt(nu / bc2) + eps) + wd * p;  p += -lr * u
-            den = torch._foreach_sqrt(torch._foreach_div(nu, h["bc2"]))
+            den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
             torch._foreach_add_(den, h["eps"])
-            u = torch._foreach_div(torch._foreach_div(mu, h["bc1"]), den)
+            u = torch._foreach_div(torch._foreach_div(mu, bc1), den)
             torch._foreach_add_(u, torch._foreach_mul(params, h["wd"]))
-            torch._foreach_mul_(u, -h["lr"][group])
+            torch._foreach_mul_(u, neg_lr[group])
             torch._foreach_add_(params, u)
-        self.count += 1
 
     def state_dict(self) -> Dict[str, dict]:
         """Each group's state as optax keeps it: ``{group: {"count": int,

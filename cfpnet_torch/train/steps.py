@@ -37,21 +37,37 @@ processes (``mesh.average_gradients``), which gives the global batch's
 gradient, and every process takes the same optimizer step. A process group
 of one process reduces too, over itself.
 
-A step is the span ``train.step`` (``tracing.py``) over ``train.forward``
-(each microbatch's loss), ``train.backward``, ``train.allreduce`` (in a
-process group) and ``train.optimizer`` (the clip and the update).
+On a CUDA device, off a grid, outside a process group and without
+``--remat``, the step runs as one CUDA graph (``graph_engages``,
+``graphs.py::CapturedTrainStep``): its first call is eager, its second
+captures forward, loss, backward and the optimizer's update and replays
+them, and every later call replays, the crop offsets and the optimizer's
+per-step scalars drawn and computed on the host as the eager step does and
+copied to the device before the replay. The crops of a graphed step gather
+their rows at those offsets (``models/fusion.py::DeviceCrops``), with the
+slice's values and gradients. Every other step, and any step under
+autograd's anomaly mode, runs eager.
+
+An eager step is the span ``train.step`` (``tracing.py``) over
+``train.forward`` (each microbatch's loss), ``train.backward``,
+``train.allreduce`` (in a process group) and ``train.optimizer`` (the clip
+and the update), and counts ``train.eager_steps``. A replayed one is
+``train.step`` over ``train.copy_in`` (the batch's copy, the draws and the
+scalars' copy) and ``train.replay``, and counts ``train.graph.replays``;
+the capture is the span ``train.capture`` and counts ``train.graph.captures``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from .. import tracing
+from ..graphs import CapturedTrainStep, SharedPool
 from ..models.deltar import compute_dtype, require_deltar
 from ..ops.interp import device_constant, resize_bilinear_align_corners
 from ..parallel import spatial
@@ -132,13 +148,27 @@ def create_train_state(model, config, total_steps: int) -> TrainState:
     return TrainState(model, make_optimizer(model, config, total_steps))
 
 
-def make_train_step(model, config, geoms, grid=None):
+def graph_engages(device: torch.device, config, grid=None) -> bool:
+    """Whether ``make_train_step`` captures the step of a model on
+    ``device`` in a CUDA graph: a CUDA device, no grid, no process group and
+    no ``--remat``."""
+    return (device.type == "cuda" and grid is None and not is_distributed()
+            and not config.remat)
+
+
+def make_train_step(model, config, geoms, grid=None, pool: Optional[SharedPool] = None):
     """Returns ``train_step(state, batch, seed) -> loss``: forward, loss,
     backward and one optimizer step, in place on ``state``; the loss comes
-    back as a 0-d tensor on the device, with no host sync. Under
-    ``--grad_accum N`` the batch runs as N microbatches (module docstring);
-    ``ValueError`` where N does not divide the batch. In a process group
-    the gradients are averaged over its processes before the optimizer.
+    back as a 0-d tensor on the device, with no host sync, a new tensor each
+    call. Under ``--grad_accum N`` the batch runs as N microbatches (module
+    docstring); ``ValueError`` where N does not divide the batch. In a
+    process group the gradients are averaged over its processes before the
+    optimizer.
+
+    Where ``graph_engages``, the step is a ``graphs.CapturedTrainStep``
+    (module docstring), bound to the state of its second call and to that
+    batch's shapes; ``pool``, a ``graphs.SharedPool`` that the steps of one
+    run share, holds its memory.
 
     On ``grid`` (``--spatial_shards``) each microbatch is placed on the grid
     (``shard_batch_spatial_presplit``: microbatch i is the batch's rows
@@ -162,28 +192,46 @@ def make_train_step(model, config, geoms, grid=None):
         mb = bs // accum
         return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(accum)]
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int) -> torch.Tensor:
-        with tracing.span("train.step"):
-            for p in state.tx.params:
-                p.grad = None
-            generator = step_generator(seed)
-            loss = None
-            for part in microbatches(batch):  # the generator draws each microbatch's own offsets
-                with tracing.span("train.forward"):
-                    part_loss = loss_fn(part, generator)
-                with tracing.span("train.backward"):
-                    part_loss.backward()  # .grad sums the microbatches' gradients
-                loss = part_loss.detach() if loss is None else loss + part_loss.detach()
-            grads = [p.grad for p in state.tx.params if p.grad is not None]
-            if is_distributed():
-                with tracing.span("train.allreduce"):
-                    average_gradients(grads)
-            if accum > 1:
-                torch._foreach_div_(grads, float(accum))
-                loss = loss / accum
-            with tracing.span("train.optimizer"):
+    def run(state: TrainState, batch, crops, scalars: Optional[torch.Tensor]) -> torch.Tensor:
+        """The step's work on the device: ``crops`` a generator or
+        ``DeviceCrops``; the optimizer's ``update`` on ``scalars``, or its
+        ``step()`` where None."""
+        for p in state.tx.params:
+            p.grad = None
+        loss = None
+        for part in microbatches(batch):  # the crops draw each microbatch's own offsets
+            with tracing.span("train.forward"):
+                part_loss = loss_fn(part, crops)
+            with tracing.span("train.backward"):
+                part_loss.backward()  # .grad sums the microbatches' gradients
+            loss = part_loss.detach() if loss is None else loss + part_loss.detach()
+        grads = [p.grad for p in state.tx.params if p.grad is not None]
+        if is_distributed():
+            with tracing.span("train.allreduce"):
+                average_gradients(grads)
+        if accum > 1:
+            torch._foreach_div_(grads, float(accum))
+            loss = loss / accum
+        with tracing.span("train.optimizer"):
+            if scalars is None:
                 state.tx.step()
+            else:
+                state.tx.update(scalars)
         return loss
+
+    def eager_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int) -> torch.Tensor:
+        with tracing.span("train.step"):
+            tracing.count("train.eager_steps")
+            return run(state, batch, step_generator(seed), None)
+
+    if not graph_engages(next(model.parameters()).device, config, grid):
+        return eager_step
+    captured = CapturedTrainStep(run, step_generator, pool)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int) -> torch.Tensor:
+        if torch.is_anomaly_enabled():  # its checks read the backward's values on the host
+            return eager_step(state, batch, seed)
+        return captured(state, batch, seed)
 
     return train_step
 

@@ -1494,15 +1494,16 @@ def by_kind(events):
 
 def train_step_phase(config, steps_timed: int = 10):
     """Phase 9: the production train step (``train/steps.py``) at
-    ``config``'s shape (bs 16 at 416x544) and compute dtype, eager, on one
-    synthetic batch and the deterministic weights: 10 steps whose losses
-    must be finite and fall; the launch counts of one step (6 attention,
-    6 + 6 dwconv, 18 fused LoFTR), every one on the compute dtype;
-    ``steps_timed`` steps between CUDA events
+    ``config``'s shape (bs 16 at 416x544) and compute dtype (a CUDA graph
+    from its second step), on one synthetic batch and the deterministic
+    weights: 10 steps whose losses must be finite and fall; the launch
+    counts of one step (6 attention, 6 + 6 dwconv, 18 fused LoFTR), every
+    one on the compute dtype; ``steps_timed`` steps between CUDA events
     (``evaluate_time.train_latency_ms``, K = 5); one profiled step, with its
-    casts (``aten::_to_copy`` calls); the peak of allocated memory; and
-    after the steps every parameter, both AdamW moments and every running
-    statistic still float32."""
+    casts (``aten::_to_copy`` calls: 0 for a replay, which issues none on
+    the host); the peak of allocated memory; and after the steps every
+    parameter, both AdamW moments and every running statistic still
+    float32."""
     from cfpnet_torch import kernels, weights
     from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
     from cfpnet_torch.models.deltar import make_model, model_geometries

@@ -8,6 +8,8 @@ skips without a CUDA card. On the card:
 need not have; this file uses none of its fixtures.)
 """
 
+import gc
+
 import pytest
 import torch
 
@@ -606,26 +608,32 @@ def launches_of(kernel):
                  "fused_loftr": fused_loftr}[kernel].launches_by_dtype)
 
 
-def _small_train(compute_dtype="bfloat16"):
-    """The production-width model at the tiny config's geometry (train
-    48x64 of native 64x96, 2x2 zones), bs 2, the deterministic weights:
-    (model, state, step, batch) of ``train/steps.py`` on the card."""
-    from cfpnet_torch import weights
+def _small_train_config(compute_dtype="bfloat16", **options):
     from cfpnet_torch.bench import smoke_config
+
+    return smoke_config().replace(**{**dict(
+        tiny_model=False, mode="train", bs=2, input_height=48, input_width=64,
+        train_zone_num=2, train_patch_px=16, disable_clip_grad=True, hist_encoder_10x=True,
+        compute_dtype=compute_dtype), **options})
+
+
+def _small_train(compute_dtype="bfloat16", **options):
+    """The production-width model at the tiny config's geometry (train
+    48x64 of native 64x96, 2x2 zones), bs 2 unless ``options`` say
+    otherwise, the deterministic weights: (model, state, step, batch) of
+    ``train/steps.py`` on the card."""
+    from cfpnet_torch import weights
     from cfpnet_torch.evaluate_time import make_train_batch
     from cfpnet_torch.models.deltar import make_model
     from cfpnet_torch.train import steps
 
-    config = smoke_config().replace(tiny_model=False, mode="train", bs=2, input_height=48,
-                                    input_width=64, train_zone_num=2, train_patch_px=16,
-                                    disable_clip_grad=True, hist_encoder_10x=True,
-                                    compute_dtype=compute_dtype)
+    config = _small_train_config(compute_dtype, **options)
     geoms = model_geometries(config, "train")
     model = make_model(config, device="cuda")
     model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
     state = steps.create_train_state(model, config, 100)
     return model, state, steps.make_train_step(model, config, geoms), make_train_batch(
-        config, 2, "cuda")
+        config, config.bs, "cuda")
 
 
 def test_bf16_train_step_launches_only_bf16_kernels(gen):
@@ -661,6 +669,127 @@ def test_bf16_train_steps_repeat_bitwise(gen):
     assert torch.equal(loss_a, loss_b) and step_a == step_b == 1
     assert flat_a.keys() == flat_b.keys()
     assert [k for k in flat_a if not torch.equal(flat_a[k], flat_b[k])] == []
+
+
+GRAPH_STEPS = 5
+
+
+def _train_run(monkeypatch, graphed, compute_dtype, **options):
+    """``GRAPH_STEPS`` production steps (``_small_train``) on as many batches
+    (the synthetic batch's image scaled by 1 + i / 10) with seeds 7, 8, ...:
+    graphed (a CUDA graph from the second step) or eager. Returns the
+    state on the CPU (``chip_smoke.flat_state``) with the losses under
+    ``loss``, the losses as returned, the optimizer's count, the kernel
+    counters' increments of the last step and the ``train.`` counters."""
+    from chip_smoke import flat_state
+    from cfpnet_torch import tracing
+    from cfpnet_torch.train import steps
+
+    with monkeypatch.context() as m:
+        if not graphed:
+            m.setattr(steps, "graph_engages", lambda *args, **kw: False)
+        model, state, step, batch = _small_train(compute_dtype, **options)
+    tracing.reset_counters("train.")
+    losses = []
+    for i in range(GRAPH_STEPS):
+        b = dict(batch, image=batch["image"] * (1 + i / 10))
+        torch.cuda.synchronize()
+        before = tracing.counters("kernel.")
+        losses.append(step(state, b, 7 + i))
+    torch.cuda.synchronize()
+    last = {k: n - before.get(k, 0) for k, n in tracing.counters("kernel.").items()
+            if n != before.get(k, 0)}
+    flat, count = flat_state(state)
+    return (dict(loss=torch.stack(losses).cpu(), **flat), losses, count, last,
+            tracing.counters("train."))
+
+
+def _gaps(a, b):
+    """The entries of two ``_train_run`` states that differ, with their
+    largest gap over the entry's largest magnitude."""
+    return {k: float((a[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+            for k, v in b.items() if not torch.equal(a[k], v)}
+
+
+TRAIN_GRAPH_CASES = [("float32", {}), ("bfloat16", {}), ("float32", {"grad_accum": 2, "bs": 4})]
+
+
+@pytest.mark.parametrize("compute_dtype,options", TRAIN_GRAPH_CASES)
+def test_graphed_train_steps_equal_eager_steps(gen, monkeypatch, compute_dtype, options):
+    """Under deterministic algorithms, where two eager runs are equal, from
+    one state on the same batches and seeds: ``GRAPH_STEPS`` graphed steps
+    equal as many eager ones bit for bit, losses, every parameter, running
+    statistic and moment; the first step eager, one capture, every later
+    step a replay launching an eager step's kernels; each call's loss its
+    own tensor."""
+    from chip_smoke import deterministic_algorithms
+
+    with deterministic_algorithms():
+        eager_a, eager_b, graph = (_train_run(monkeypatch, graphed, compute_dtype, **options)
+                                   for graphed in (False, False, True))
+    assert _gaps(eager_a[0], eager_b[0]) == {}
+    assert _gaps(graph[0], eager_a[0]) == {}
+    assert graph[4] == {"train.eager_steps": 1, "train.graph.captures": 1,
+                        "train.graph.replays": GRAPH_STEPS - 1}
+    assert eager_a[4] == {"train.eager_steps": GRAPH_STEPS}
+    assert graph[3] == eager_a[3] and graph[3]
+    assert graph[2] == eager_a[2] == GRAPH_STEPS
+    assert len({loss.data_ptr() for loss in graph[1]}) == GRAPH_STEPS
+
+
+@pytest.mark.parametrize("compute_dtype,options", TRAIN_GRAPH_CASES)
+def test_graphed_train_steps_within_the_eager_gap(gen, monkeypatch, compute_dtype, options):
+    """PyTorch's default algorithms, under which atomics can make two eager
+    runs differ: where they agree on every entry (bf16 here) the graphed
+    steps equal them bit for bit; where they differ (f32: nearly every
+    entry, Adam turning rounding of small gradients into whole steps), the
+    median over the entries of the graphed steps' relative gap to one eager
+    run is within three times that of the other eager run. The three runs
+    are alike, so the ratio scatters around 1 with how far each run's
+    rounding happens to carry: on an H100 it read 0.53-1.35 in six
+    readings."""
+    import statistics
+
+    eager_a, eager_b, graph = (_train_run(monkeypatch, graphed, compute_dtype, **options)
+                               for graphed in (False, False, True))
+    ee, ge = _gaps(eager_a[0], eager_b[0]), _gaps(graph[0], eager_a[0])
+    if not ee:
+        assert ge == {}
+    else:
+        median = [statistics.median([gaps.get(k, 0.0) for k in eager_a[0]]) for gaps in (ee, ge)]
+        print(f"\n{compute_dtype} {options}: {len(ee)} and {len(ge)} of {len(eager_a[0])} "
+              f"entries differ, median relative gap eager-eager {median[0]:.3g}, "
+              f"graph-eager {median[1]:.3g}")
+        assert median[1] <= 3 * median[0], median
+
+
+def test_zone_offset_graphs_share_one_pool(gen):
+    """Two train steps of one run at two zone offsets (``train/loop.py``
+    builds a step a zone offset) given one ``graphs.SharedPool``, replayed
+    in turns: their two graphs hold the memory of one pool; without it, of
+    two."""
+    from cfpnet_torch.graphs import SharedPool
+    from cfpnet_torch.train import steps
+
+    new_pools = {}
+    for shared in (True, False):
+        model, state, _, batch = _small_train("float32")
+        config = _small_train_config("float32")
+        pool = SharedPool() if shared else None
+        fns = [steps.make_train_step(model, config, model_geometries(config, "train", (o, o)),
+                                     pool=pool) for o in (0, 8)]
+        torch.cuda.synchronize()
+        before = {tuple(seg["segment_pool_id"]) for seg in torch.cuda.memory_snapshot()}
+        for i in range(6):
+            loss = fns[i % 2](state, batch, 7 + i)
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss) and state.step == 6
+        after = {tuple(seg["segment_pool_id"]) for seg in torch.cuda.memory_snapshot()}
+        new_pools[shared] = len(after - before - {(0, 0)})
+        del fns, model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert new_pools == {True: 1, False: 2}
 
 
 def test_kernels_refuse_mixed_dtypes(gen):

@@ -325,7 +325,8 @@ def test_multihost_training_entry_point(entry_run):
 def test_multihost_epoch_line_counts_the_all_reduces(entry_run):
     """Rank 0's epoch line carries the epoch's counters: the all-reduces of
     its two steps and their bytes, at least each step's gradients once (the
-    model, the loss and validation reduce more); no kernel on the CPU."""
+    model, the loss and validation reduce more), and the two steps, eager
+    (a process group steps eager); no kernel on the CPU."""
     from cfpnet_torch.config import parse_config
 
     cwd, _ = entry_run
@@ -336,7 +337,9 @@ def test_multihost_epoch_line_counts_the_all_reduces(entry_run):
     grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters()
                      if p.requires_grad)
     counted = epoch["counters"]
-    assert sorted(counted) == ["parallel.all_reduce", "parallel.all_reduce_bytes"]
+    assert sorted(counted) == ["parallel.all_reduce", "parallel.all_reduce_bytes",
+                               "train.eager_steps"]
+    assert counted["train.eager_steps"] == epoch["steps"] == 2
     assert counted["parallel.all_reduce"] >= 2
     assert counted["parallel.all_reduce_bytes"] >= epoch["steps"] * grad_bytes > 0
 

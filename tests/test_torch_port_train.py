@@ -345,6 +345,67 @@ def test_adamw_matches_optax_f64(clip):
     assert opt.count == 3
 
 
+@torch.no_grad()
+def _adamw_step_with_python_floats(opt):
+    """``AdamW.step`` with every per-step scalar a Python float
+    (``hyperparams``) passed to the Scalar overloads of ``_foreach_*``: the
+    reference of the update on device scalars."""
+    grads = {id(p): p.grad for p in opt.params if p.grad is not None}
+    if opt.clip_grad:
+        grads = opt._clip(grads)
+    h = opt.hyperparams(opt.params[0].dtype)
+    for group, params in opt.groups.items():
+        params = [p for p in params if id(p) in grads]
+        g = [grads[id(p)] for p in params]
+        mu = [opt.mu[id(p)] for p in params]
+        nu = [opt.nu[id(p)] for p in params]
+        torch._foreach_mul_(mu, h["b1"])
+        torch._foreach_add_(mu, torch._foreach_mul(g, h["one_b1"]))
+        torch._foreach_mul_(nu, h["b2"])
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), h["one_b2"]))
+        den = torch._foreach_sqrt(torch._foreach_div(nu, h["bc2"]))
+        torch._foreach_add_(den, h["eps"])
+        u = torch._foreach_div(torch._foreach_div(mu, h["bc1"]), den)
+        torch._foreach_add_(u, torch._foreach_mul(params, h["wd"]))
+        torch._foreach_mul_(u, -h["lr"][group])
+        torch._foreach_add_(params, u)
+    opt.count += 1
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_adamw_device_scalars_equal_python_floats(dtype, clip):
+    """50 steps of ``AdamW.step`` (scalars as 0-d views of one tensor)
+    against the same steps with Python-float scalars, over 60 OneCycle
+    steps, so that the schedules cross from the warm-up phase (17 steps)
+    into the anneal: parameters and both moments equal bit for bit after
+    every step, gradients of norm above and below the clip."""
+    torch.manual_seed(5)
+    shapes = {"img_encoder.conv": (3, 4, 2), "img_encoder.bn": (4,), "hist_encoder.w": (5,),
+              "decoder.w": (2, 3), "decoder.b": (3,)}
+    start = {n: torch.randn(s, dtype=dtype) for n, s in shapes.items()}
+    sides = []
+    for _ in range(2):
+        params = {n: torch.nn.Parameter(v.clone()) for n, v in start.items()}
+        sides.append((params, pt_optim.AdamW(params.items(), 3e-3, 60, clip_grad=clip)))
+    (got, opt), (want, ref) = sides
+    for i in range(50):
+        scale = 1.0 if i % 3 == 0 else 1e-3  # every third step's norm is above the clip
+        for n, s in shapes.items():
+            g = scale * torch.randn(s, dtype=dtype)
+            got[n].grad, want[n].grad = g.clone(), g.clone()
+        opt.step()
+        _adamw_step_with_python_floats(ref)
+        for n in shapes:
+            for a, b in ((got[n], want[n]), (opt.mu[id(got[n])], ref.mu[id(want[n])]),
+                         (opt.nu[id(got[n])], ref.nu[id(want[n])])):
+                assert torch.equal(a, b), (i, n)
+    assert opt.count == ref.count == 50
+    assert opt.step_scalars(dtype) == [
+        -v for v in opt.hyperparams(dtype)["lr"].values()] + [
+        opt.hyperparams(dtype)[k] for k in ("b1", "one_b1", "bc1", "bc2")]
+
+
 # ---- the crop ---------------------------------------------------------------
 
 @pytest.mark.parametrize("off", [(0, 0), (4, 9), (16, 32), (7, 0), (0, 32)])
@@ -383,6 +444,107 @@ def test_crop_offsets_cover_the_range():
     assert (pt_fusion.crop_offsets(3, 5, 6, 7, pt_steps.step_generator(9))
             == pt_fusion.crop_offsets(3, 5, 6, 7, pt_steps.step_generator(9)))
     assert pt_fusion.crop_offsets(3, 5, 6, 7) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gathered_crop_equals_the_slice_bitwise(dtype):
+    """A fusion's crop gathered at offsets held in a tensor
+    (``DeviceCrops``: its starts, and its draws as it goes) against the
+    slice at the same offsets, drawn from 20 steps' generators: the output
+    and the positional encoding's gradient bit for bit."""
+    geom = model_geometries(PtConfig(**TINY), "train")[4]
+    fusion = pt_fusion.TransformerFusion(8, (64, 96), [], zone_sample_num=4).to(dtype)
+    x = torch.randn(1, 48, 64, 8, dtype=dtype)
+    upstream = torch.randn(1, 48, 64, 8, dtype=dtype)
+    feat1 = torch.zeros(1, geom.zone_num ** 2, 4, 8, dtype=dtype)
+    mask = torch.ones(1, geom.zone_num ** 2, dtype=torch.bool)
+
+    def run(crops):
+        fusion.zero_grad(set_to_none=True)
+        out = fusion(x, feat1, mask, geom, crops)
+        out.backward(upstream)
+        return out.detach(), fusion.positional_encodings.grad
+
+    seen = set()
+    for seed in range(20):
+        want = run(pt_steps.step_generator(seed))
+        drawing = pt_fusion.DeviceCrops(generator=pt_steps.step_generator(seed))
+        got = run(drawing)
+        assert drawing.shapes == [(48, 64, 64, 96)]
+        starts = pt_fusion.crop_starts(drawing.shapes, pt_steps.step_generator(seed))
+        off = pt_fusion.crop_offsets(48, 64, 64, 96, pt_steps.step_generator(seed))
+        assert starts == [off[0] * 96 + off[1]]
+        seen.add(off)
+        static = run(pt_fusion.DeviceCrops(starts=torch.tensor(starts)))
+        for a, b, c in zip(got, static, want):
+            assert torch.equal(a, c) and torch.equal(b, c), seed
+    assert len(seen) > 15
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tiny_loss_with_gathered_crops_equals_sliced(tiny, dtype):
+    """The tiny model's loss and every gradient with its three fusions'
+    crops gathered (``DeviceCrops`` of the starts ``crop_starts`` draws)
+    against the eager step's sliced crops, same generator seed: bit for
+    bit; the running statistics too."""
+    b = _pt_batch(_batch(tiny["cfg"], 41), dtype)
+    got, want = [], []
+    for out, crops in ((want, None), (got, "starts")):
+        port = _port(tiny).to(dtype)
+        loss_fn = pt_steps.make_loss_fn(port, tiny["pt_cfg"], tiny["geoms"])
+        generator = pt_steps.step_generator(13)
+        if crops:
+            drawing = pt_fusion.DeviceCrops(generator=pt_steps.step_generator(13))
+            loss_fn(b, drawing)  # records the crops' shapes
+            assert len(drawing.shapes) == 3
+            port = _port(tiny).to(dtype)
+            loss_fn = pt_steps.make_loss_fn(port, tiny["pt_cfg"], tiny["geoms"])
+            generator = pt_fusion.DeviceCrops(
+                starts=torch.tensor(pt_fusion.crop_starts(drawing.shapes, generator)))
+        loss = loss_fn(b, generator)
+        loss.backward()
+        out.append(loss.detach())
+        out.extend(p.grad for p in port.parameters())
+        out.extend(_bn_stats(port.state_dict()).values())
+    assert len(got) == len(want)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_graph_routing_policy(tiny, monkeypatch):
+    """The step is captured in a CUDA graph on a CUDA device with no grid,
+    no process group and no ``--remat``; every other step, and every step
+    on the CPU, runs eager and counts ``train.eager_steps``."""
+    from cfpnet_torch import tracing
+
+    cfg, cuda = tiny["pt_cfg"], torch.device("cuda")
+    assert pt_steps.graph_engages(cuda, cfg)
+    assert not pt_steps.graph_engages(torch.device("cpu"), cfg)
+    assert not pt_steps.graph_engages(cuda, cfg, grid=object())
+    assert not pt_steps.graph_engages(cuda, cfg.replace(remat=True))
+    with monkeypatch.context() as m:
+        m.setattr(pt_steps, "is_distributed", lambda: True)
+        assert not pt_steps.graph_engages(cuda, cfg)
+    b = _pt_batch(_batch(tiny["cfg"], 42))
+    tracing.reset_counters("train.")
+    for options in (dict(), dict(remat=True)):
+        port = _port(tiny, **options)
+        state = pt_steps.create_train_state(port, cfg, total_steps=20)
+        step = pt_steps.make_train_step(port, cfg.replace(**options), tiny["geoms"])
+        step(state, b, seed=1)
+    assert tracing.counters("train.") == {"train.eager_steps": 2}
+
+
+def test_each_step_returns_its_own_loss(tiny):
+    """Two steps' losses are two tensors, each with its own step's value."""
+    port = _port(tiny)
+    state = pt_steps.create_train_state(port, tiny["pt_cfg"], total_steps=20)
+    step = pt_steps.make_train_step(port, tiny["pt_cfg"], tiny["geoms"])
+    b = _pt_batch(_batch(tiny["cfg"], 43))
+    first = step(state, b, seed=1)
+    kept = first.clone()
+    second = step(state, b, seed=2)
+    assert first is not second and first.data_ptr() != second.data_ptr()
+    assert torch.equal(first, kept) and not torch.equal(first, second)
 
 
 # ---- the kernels' gradients ---------------------------------------------------

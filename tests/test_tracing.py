@@ -209,7 +209,8 @@ def test_run_training_epoch_line_carries_spans(tmp_path, monkeypatch):
     """A tiny ``run_training`` epoch: its JSONL ``epoch`` line keeps the old
     timing keys, now read from the spans, and gains ``spans`` and ``counters``,
     the epoch's increments of the counters (here one kernel launch a step,
-    counted by a wrapped train step: the CPU launches no kernel)."""
+    counted by a wrapped train step: the CPU launches no kernel; and the
+    two steps, eager on the CPU)."""
     monkeypatch.chdir(tmp_path)
     make = pt_loop.make_train_step
 
@@ -239,7 +240,7 @@ def test_run_training_epoch_line_carries_spans(tmp_path, monkeypatch):
     assert epoch["val_s"] == pytest.approx(spans["loop.validate"]["total_ms"] / 1e3)
     assert epoch["checkpoint_s"] == pytest.approx(spans["loop.checkpoint"]["total_ms"] / 1e3)
     assert all(set(v) == {"n", "total_ms", "self_ms", "max_ms"} for v in spans.values())
-    assert epoch["counters"] == {"kernel.dwconv.launches.float32": 2}
+    assert epoch["counters"] == {"kernel.dwconv.launches.float32": 2, "train.eager_steps": 2}
     phases = sum(spans[k]["total_ms"] for k in ("train.forward", "train.backward",
                                                 "train.optimizer"))
     assert 0 < phases <= spans["train.step"]["total_ms"] <= spans["loop.train"]["total_ms"]
