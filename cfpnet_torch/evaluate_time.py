@@ -434,7 +434,8 @@ def train_main(config, args, state_dict, device) -> Dict[str, object]:
                               "train_dtype": dtype, "device": where, "niters": args.niters}
     print(f"{ms:.3f} ms a train step")
     print(f"{cfg.bs * 1000.0 / ms:.2f} images/sec")
-    print(f"(bs={cfg.bs} at {cfg.input_height}x{cfg.input_width}, {dtype}, eager; {where})")
+    how = "a CUDA graph from the second step" if steps.graph_engages(device, cfg) else "eager"
+    print(f"(bs={cfg.bs} at {cfg.input_height}x{cfg.input_width}, {dtype}, {how}; {where})")
     if args.profile_flops:
         out["flops_train"] = flops_train(cfg, tiny=cfg.tiny_model)
         print(f"flops/train step: {out['flops_train'] / 1e9:.2f} G")

@@ -44,8 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch, launch_views, traced_output
-from .dtypes import reset_launches as reset_kernel_launches
+from .dtypes import DTYPES, check_dtypes, count_launch, traced_output
 
 ACTS = ("identity", "silu", "leaky_relu", "relu")  # the C entry's act codes, in order
 LEAKY_SLOPE = 0.01  # nn.LeakyReLU(0.01) of models/decoder.py::UpSampleBN
@@ -59,15 +58,6 @@ _ACTIVATIONS = {
     "leaky_relu": lambda y: F.leaky_relu(y, LEAKY_SLOPE),
     "relu": F.relu,
 }
-
-# ``launches`` and ``launches_by_dtype``: the kernel's launches since the last
-# reset_launches(), graph replays included, read from the counters
-# (dtypes.launch_views)
-__getattr__ = launch_views("bn_act")
-
-
-def reset_launches() -> None:
-    reset_kernel_launches("bn_act")
 
 
 def bn_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -1,13 +1,12 @@
-"""What the three wrappers share: the element types the kernels take (the C
-entry suffix of each, the check that a call's tensors share one of them),
-the launch counters (``kernel.<name>.launches.<dtype>`` in
-``cfpnet_torch.tracing``, graph replays included) and each wrapper's views of
-them, the output of an op under a trace, and the operations of an op as
+"""What the wrappers share: the element types the kernels take (the C entry
+suffix of each, the check that a call's tensors share one of them), the
+launch counters (``kernel.<name>.launches.<dtype>`` in
+``cfpnet_torch.tracing``, graph replays included: read them with
+``tracing.counters`` and reset them with ``tracing.reset_counters``), the
+output of an op under a trace, and the operations of an op as
 ``torch.utils.flop_counter`` counts them."""
 
 from __future__ import annotations
-
-from typing import Callable, Dict
 
 import torch
 
@@ -37,26 +36,6 @@ def dtype_name(dtype: torch.dtype) -> str:
 def count_launch(kernel: str, dtype: torch.dtype) -> None:
     """Counts one launch of ``kernel`` on ``dtype`` ("float32", "bfloat16")."""
     tracing.count(f"kernel.{kernel}.launches.{dtype_name(dtype)}")
-
-
-def launch_views(kernel: str) -> Callable[[str], object]:
-    """A wrapper module's ``__getattr__``: ``launches``, the kernel's launches
-    since the last ``reset_launches()``, and ``launches_by_dtype``, the same
-    by element type ("float32", "bfloat16"), both read from the counters."""
-    prefix = f"kernel.{kernel}.launches."
-
-    def __getattr__(name: str):
-        if name not in ("launches", "launches_by_dtype"):
-            raise AttributeError(f"module {__package__}.{kernel} has no attribute {name!r}")
-        by_dtype = {k[len(prefix):]: n for k, n in tracing.counters(prefix).items()}
-        return by_dtype if name == "launches_by_dtype" else sum(by_dtype.values())
-
-    return __getattr__
-
-
-def reset_launches(kernel: str) -> None:
-    """Sets ``kernel``'s launch counters to 0."""
-    tracing.reset_counters(f"kernel.{kernel}.launches.")
 
 
 def traced_output(kernel: str, like: torch.Tensor,

@@ -36,8 +36,7 @@ import torch
 
 from ..ops.dwconv import depthwise_conv2d as depthwise_conv2d_plain
 from . import build
-from .dtypes import DTYPES, check_dtypes, count_launch, launch_views, traced_output
-from .dtypes import reset_launches as reset_kernel_launches
+from .dtypes import DTYPES, check_dtypes, count_launch, traced_output
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use
@@ -72,17 +71,6 @@ class Tiling(NamedTuple):
 TILING = {31: Tiling(8, 2, 10, 8, 2, 640, 16), 15: Tiling(4, 2, 10, 8, 2, 640, 8),
           7: Tiling(4, 1, 6, 8, 1, 512, 8)}
 SUPPORTED_K = tuple(TILING)
-
-# ``launches`` and ``launches_by_dtype``: the kernel's launches since the last
-# reset_launches(), graph replays included, read from the counters
-# (dtypes.launch_views). A forward call launches once, and its backward once
-# more for dx (the flipped taps), so a train step of the production model
-# launches 6 times for the outputs and 6 for dx
-__getattr__ = launch_views("dwconv")
-
-
-def reset_launches() -> None:
-    reset_kernel_launches("dwconv")
 
 
 def _round4(n: int) -> int:
@@ -252,6 +240,8 @@ def _launch(x, weight, bias):
                    p["plane"], p["wplane"], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dwconv kernel launch failed: cudaError {rc}")
+    # a forward call launches once and its backward once more, for dx (the
+    # flipped taps): a train step of the production model counts 6 + 6
     count_launch("dwconv", x.dtype)
     return out
 

@@ -48,9 +48,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from ..ops.loftr import LoFTRParams, loftr_apply
 from . import build
-from .dtypes import (DTYPES, check_dtypes, count_launch, dtype_name, launch_views, meta,
-                     plain_flops, traced_output)
-from .dtypes import reset_launches as reset_kernel_launches
+from .dtypes import check_dtypes, count_launch, dtype_name, meta, plain_flops, traced_output
 from .dwconv import (MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK, SMEM_PER_SM,
                      SMEM_RESERVED, SMS)
 
@@ -80,15 +78,6 @@ SUM_BLOCKS = 4 * SMS
 # Clusters of (cl, blocks an SM) resident at once on the H100's 132 SMs
 # (cudaOccupancyMaxActiveClusters on the card; cfp_fused_loftr_bf16_resident)
 CLUSTERS_RESIDENT = {(2, 1): 66, (4, 1): 30}
-
-# ``launches`` and ``launches_by_dtype``: the wrapper's calls that launched
-# since the last reset_launches(), graph replays included, read from the
-# counters (dtypes.launch_views)
-__getattr__ = launch_views("fused_loftr")
-
-
-def reset_launches() -> None:
-    reset_kernel_launches("fused_loftr")
 
 
 def row_smem(C: int, D: int, tm: int, cl: int, dtype: torch.dtype) -> int:

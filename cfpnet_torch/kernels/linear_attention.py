@@ -37,9 +37,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from ..ops.attention import linear_attention as linear_attention_plain
 from . import build
-from .dtypes import (DTYPES, check_dtypes, count_launch, launch_views, meta, plain_flops,
-                     traced_output)
-from .dtypes import reset_launches as reset_kernel_launches
+from .dtypes import DTYPES, check_dtypes, count_launch, meta, plain_flops, traced_output
 from .dwconv import (MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM, REGISTERS_PER_SM, SMEM_PER_BLOCK,
                      SMEM_PER_SM, SMEM_RESERVED, SMS)
 
@@ -74,15 +72,6 @@ def outputs_per_thread(D: int) -> int:
     """Outputs an apply thread computes (Cfg<D>::EO)."""
     return 4 if D in (4, 32) else 8
 
-
-# ``launches`` and ``launches_by_dtype``: the kernel's launches since the last
-# reset_launches(), graph replays included, read from the counters
-# (dtypes.launch_views)
-__getattr__ = launch_views("linear_attention")
-
-
-def reset_launches() -> None:
-    reset_kernel_launches("linear_attention")
 
 
 def _blocks_per_sm(threads: int, smem: int, max_threads: int, min_blocks: int = 1) -> int:

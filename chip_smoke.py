@@ -1,55 +1,38 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one GPU.
+"""The correctness checks of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the CUDA toolkit (nvcc); exits nonzero without them.
-Imports nothing of JAX or of the JAX package. Phases, each printing one JSON
-line:
+Needs one CUDA card and the CUDA toolkit (nvcc); without a card it exits 2
+and prints no result. Imports nothing of JAX or of the JAX package. It
+times nothing: the benchmark measures speed (``python3 -m benchmark.run``),
+and ``bench_dwconv.py`` times a kernel alone. Each phase prints one JSON
+line, which carries ``at_s``, the seconds since the script started; the
+first check that fails raises. Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: compiles every kernel of ``cfpnet_torch/csrc`` from source and
    reports each kernel's registers, spills and static shared bytes from
    ptxas (``ptxas_report``); fails if a kernel of the bf16 fused layer
    (``fused_loftr_bf16.cu``) spills.
-3. kernels: at every shape the production eval forward gives each kernel,
-   holds the kernel against its plain PyTorch version on the same inputs
-   (f32, TF32 off; max |kernel - plain| <= 1e-4 * max |plain|, the sums run
-   in another order) and times kernel, plain version, the library call
-   where one exists, against the card's bound for the same work. The fused
-   LoFTR layer is checked at its nine shapes on numpy-seeded inputs and
-   weights (std 0.1, as tests/test_pallas_loftr.py) and also timed as the
-   layer ran before it existed (``unfused_ms``: the module path with cuBLAS
-   linears, the attention kernel and torch LayerNorm), split by pass
-   (``summary_ms``, ``rows_ms``: torch.profiler over back-to-back calls, by
-   device kernel name; the row pass starts before the summary pass ends, so
-   the two overlap) and held against a second bound, its operations at the
-   3xTF32 tensor-core rate (``bound_tc_ms``, 495/3 TFLOP/s). Each dwconv
-   line carries its launch plan (``kernels/dwconv.py::launch_plan``: tile,
-   threads, blocks, blocks resident an SM, waves of the grid over the 132
-   SMs, shared bytes a block). Each attention line carries its launch plan
-   (``kernels/linear_attention.py::launch_plan``: cluster size, cluster sums
-   g, key tile, keys and slices a summary block, query tile, blocks and
-   waves of each pass, shared bytes) and the device kernels of one call by
-   name (torch.profiler). Attention is still checked at all twelve shapes;
-   nine of them now run inside the fused layer, so they count no calls per
-   forward. Then again at every shape of the bs=8 forward and of the bs=16
-   train step's forward at 416x544 (``mode`` "train"), where only the
-   kernel is timed (its error within the same bound).
+3. kernels: each kernel against its plain PyTorch version on the same
+   inputs (``check_kernels``; f32, TF32 off; max |kernel - plain| <=
+   ``TOL`` * max |plain|, the sums run in another order) at every shape the
+   production eval forward gives it at bs=1 and at bs=8, and at every shape
+   of the bs=16 train step's forward at 416x544 (``mode`` "train"). The
+   fused LoFTR layer on numpy-seeded inputs and weights (std 0.1, as
+   tests/test_pallas_loftr.py). Attention is checked at all twelve shapes;
+   nine of them run inside the fused layer, so they count no calls per
+   forward.
 4. gradients: at the train step's shapes, each kernel's gradients against
-   autograd of its plain version within the same bound (``check_gradients``:
-   dq, dk, dv; dwconv's dx, dW, db, at one batch row where k = 31; the fused
-   layer's dx, dsource, wq, w1), with the backward's time: dwconv's dx (the
-   forward kernel on the rotated taps), dW (PyTorch's call, from NCHW
-   copies as the port makes it, and on the channels-last views, which
-   PyTorch hands to cuDNN) and db apart; the attention and
-   LoFTR backwards (autograd of the plain version, recomputed). Then the
-   same in bf16 for the bf16 train step: each bf16 variant at every shape
-   of the bs=16 train step's forward against its bf16 plain version within
+   autograd of its plain version within the same bound
+   (``check_gradients``: dq, dk, dv; dwconv's dx, dW, db, at one batch row
+   where k = 31; the fused layer's dx, dsource, wq, w1). Then the same in
+   bf16 for the bf16 train step: each bf16 variant at every shape of the
+   bs=16 train step's forward against its bf16 plain version within
    ``BF16_TOL`` (``check_kernels_bf16``, mode "train", with the share of
-   elements that differ, ms and bound), and its bf16 gradients against
-   autograd of the bf16 plain version within ``BF16_TOL`` x max |plain|,
-   with dx, dW and db timed apart.
+   elements that differ), and its bf16 gradients against autograd of the
+   bf16 plain version within ``BF16_TOL`` x max |plain|.
 5. slice: the production model (configs/train_cfpnet_combine1.txt
    topology) at 480x640, bs=1, with the golden tests' deterministic
    weights, against ``tests/golden/full_forward.npz`` at that test's
@@ -57,8 +40,7 @@ line:
    be 6 attention, 6 depthwise-conv, 18 fused-LoFTR and 122 bn_act launches
    (``EVAL_LAUNCHES``; one a BatchNorm, none in a training step). Then
    (``bn_act_phase``) the BatchNorm kernel at each of that forward's 122
-   calls in f32 and bf16 against its plain twin, its device ms a forward
-   beside the plain twin's and its bound by bytes.
+   calls in f32 and bf16 against its plain twin.
 6. graph: the forward captured in a CUDA graph (``cfpnet_torch.graphs``).
    At bs=1 the replay equals the eager forward bit for bit and matches the
    golden, and 20 replays on changed inputs each equal their eager forward;
@@ -66,57 +48,49 @@ line:
    replay equals the eager forward bit for bit and each row matches the
    bs=1 forward of its sample (rtol 5e-4, atol 5e-5).
 7. entry: ``cfpnet_torch.evaluate --test_dataset synthetic`` on 4
-   synthetic images at bs=1 and bs=2; metrics must be finite; prints the
-   bs=1 latency in a CUDA graph and eager.
-8. profile: device time of one bs=1 forward by kernel (torch.profiler),
-   eager and replayed, its kernel launches and the device's busy share of
-   each latency; the host-to-device copies and ``cudaStreamSynchronize``
-   calls of one warmed eager forward, which must be 0 and 0.
+   synthetic images at bs=1 and bs=2; metrics must be finite; the bs=1
+   latencies it prints, as it prints them.
+8. host_waits: the host-to-device copies and ``cudaStreamSynchronize``
+   calls of one warmed eager bs=1 forward, which must be 0 and 0 (a copy of
+   a host array to the card is the positive control).
 9. train: one production train step at bs 2 (416x544, the deterministic
    weights, ``golden_train_batch``) against the JAX package's step in
    ``tests/golden/torch_port_train_step.npz`` (``train_golden_errors``,
    within ``TRAIN_GOLDEN_TOL``), launching 6 attention, 6 + 6 dwconv and 18
    fused-LoFTR kernels; then the production step at bs 16
-   (``train_step_phase``): falling losses over 10 steps on one batch, the
-   launch counts of a step, ms a step and images/s, peak memory, and one
-   profiled step by kernel and by kind with the device's busy share. Then
+   (``train_step_phase``): falling losses over 10 steps on one batch (a
+   CUDA graph from the second step) and the launch counts of a step. Then
    the bf16 step (``--compute_dtype bfloat16``): one step at bs 2 against
    the same float64 golden within ``TRAIN_GOLDEN_TOL_BF16``, its 6 / 6 + 6
-   / 18 launches all on bf16 tensors; the bs-16 bf16 step as above beside
-   the f32 one (its casts counted), after which every parameter, both
-   AdamW moments and every running statistic are still float32.
+   / 18 launches all on bf16 tensors; the bs-16 bf16 step as above, after
+   which every parameter, both AdamW moments and every running statistic
+   are still float32.
 10. loop: the training loop (``train/loop.py::run_training``) at the bs
     16 train configuration on 48 synthetic samples, 2 epochs of 3 steps,
     validation (48 eval images) and checkpoints every epoch, in a temporary
     working directory (``loop_phase``): finite losses, the checkpoint and
     weights files, the nine metrics in the JSONL; each step's launches
-    (6 / 12 / 18) and the run's; one profiled loop step with no copy to the
-    host and no stream sync, its batch copied from pinned memory; the last
+    (6 / 12 / 18) and the run's; one loop step with no copy to the host
+    and no stream sync, its batch copied from pinned memory; the last
     checkpoint loaded back bit for bit; a resume from the epoch-0
-    checkpoint against the uninterrupted run (same batches, offsets and
-    rates; losses and parameters within 4x the spread of two uninterrupted
-    runs). Prints loop ms a step and images/s beside phase 9's bare step,
-    the wait on the loader's queue, validation and checkpoint seconds and
-    bytes, and the ToF path. Then one epoch of ``run_training`` in bf16
-    (``loop_bf16_phase``): finite losses, the steps' launches on bf16 and
-    the validation's on float32, finite metrics, float32 weights and
-    moments in the files.
+    checkpoint bit for bit the uninterrupted run under deterministic
+    algorithms, and a resume with zeroed moments that must differ from it.
+    The line carries the loop's epoch lines as the loop logged them. Then
+    one epoch of ``run_training`` in bf16 (``loop_bf16_phase``): finite
+    losses, the steps' launches on bf16 and the validation's on float32,
+    finite metrics, float32 weights and moments in the files.
 11. bf16 (``bf16_phase``): ``--compute_dtype bfloat16`` through the eval
     forward. Each kernel's bf16 variant against its bf16 plain version at
     every bs=1 and bs=8 main-path shape (max |kernel - plain| <=
     ``BF16_TOL`` = 2^-7 * max |plain|, one bf16 ulp at the top of the
-    range), with the share of elements that differ and the ms a call
-    against its bound (``kernel_shape_bf16`` lines; the fused layer's also
-    split by pass, ``summary_ms`` and ``rows_ms``, with its launch plan
-    from ``kernels/fused_loftr.py::launch_plan``); the production model
-    cast to bf16 on the golden's inputs: one eager forward launches
-    6 / 6 / 18 kernels, all on bf16 tensors (the wrappers count by dtype),
-    and its prediction stays within tests/test_bf16.py's drift budget of
-    the f32 golden (median rel < 0.06, median abs < 0.08); its graph at
-    bs=1 and bs=8 replays bit for bit equal to the eager bf16 forward;
-    ``cfpnet_torch.evaluate_time --compute_dtype bfloat16`` graphed and
-    eager (``BF16_ITERS`` forwards); one replay of the f32 and of the bf16
-    graph profiled by kind (``by_kind``) with the busy share.
+    range; ``kernel_shape_bf16`` lines, with the share of elements that
+    differ); the production model cast to bf16 on the golden's inputs: one
+    eager forward launches 6 / 6 / 18 kernels, all on bf16 tensors (the
+    counters count by dtype), and its prediction stays within
+    tests/test_bf16.py's drift budget of the f32 golden (median rel < 0.06,
+    median abs < 0.08); its graph at bs=1 and bs=8 replays bit for bit equal
+    to the eager bf16 forward; ``cfpnet_torch.evaluate_time
+    --compute_dtype bfloat16`` graphed and eager.
 12. sweep (``sweep_phase``): ``cfpnet_torch.evaluate_all --test_dataset
     synthetic`` over the two epochs' weights phase 10's loop wrote, on 8
     images: a CSV of two finite rows, the .xlsx, the launches of 16 f32
@@ -125,23 +99,19 @@ line:
     ``BENCH_TRAIN_ITERS`` train iterations prints its line (bf16 headline
     keys and f32 ones; the train keys of the bf16 step, ``train_dtype``
     "bfloat16", and of the f32 step under ``_f32``).
-14. train options (``train_options_phase``, run after phase 10, beside
-    whose loop it reports): ``--device_pipeline``'s transform
-    (``data/tof_sim_device.py``) on one raw bs-16 batch at 416x544 on the
-    production train geometry: its device ms (CUDA events), its device
-    kernels, no copy to the host and no sync, the host producer's ms a
-    batch with and without the option, ``get_hist`` on the card against
-    the host's ``tof_sim.get_hist`` and the transform on the card against
-    itself on the CPU with the same draws; one bf16 ``--device_pipeline``
-    epoch of ``run_training`` (launch counters set to 0 before it and read
-    after: 6 / 12 / 18 a step on bf16, the validation's on f32; loop ms
-    a step, loader waits and producer ms beside phase 10's) and its resume
-    from the epoch-0 checkpoint, bit for bit under deterministic
-    algorithms; the
-    bs-16 step with ``--grad_accum 2`` and ``4`` and with ``--remat`` in
-    f32 and bf16 beside the plain step (ms, peak memory, launches), and
-    the remat step bit for bit the plain one under deterministic
-    algorithms; a planted NaN under ``--debug_nans`` raising
+14. train options (``train_options_phase``, run after phase 10):
+    ``--device_pipeline``'s transform (``data/tof_sim_device.py``) on one
+    raw bs-16 batch at 416x544 on the production train geometry: its
+    outputs' shapes, no copy to the host and no sync, ``get_hist`` on the
+    card against the host's ``tof_sim.get_hist`` and the transform on the
+    card against itself on the CPU with the same draws; one bf16
+    ``--device_pipeline`` epoch of ``run_training`` (6 / 12 / 18 launches a
+    step on bf16, the validation's on f32) and its resume from the epoch-0
+    checkpoint, bit for bit under deterministic algorithms; the bs-16 step
+    with ``--grad_accum 2`` and ``4`` and with ``--remat`` in f32 and bf16
+    beside the plain step (three steps with finite losses, the first
+    step's launches), and the remat step bit for bit the plain one under
+    deterministic algorithms; a planted NaN under ``--debug_nans`` raising
     ``FloatingPointError``.
 15. serving (``serving_phase``, run after phase 12): the production model on
     the deterministic weights exported (``cfpnet_torch/serve``) in bf16 at
@@ -155,10 +125,8 @@ line:
     step bit for bit at bs=1 and bs=8; the bs=1 program holds the golden
     (``serving_golden``: f32 at its tolerance, bf16 within ``BF16_DRIFT``);
     3 rows padded into the bs=8 program equal the live padded step and, in
-    tolerance, their own bs=1 predictions. Prints export seconds and bytes,
-    the serving replay's ms against the live graph's in each dtype, bs=8
-    images/s, and one HTTP run (8 clients x 16 bs=1 requests, 2 ms window:
-    requests/s, p50/p99 ms, batches and rows).
+    tolerance, their own bs=1 predictions; one HTTP run (8 clients x 16
+    bs=1 requests, 2 ms window) answers every request with a finite depth.
 16. selfsup (``selfsup_phase``, run after phase 15): the self-supervised
     variant (``--selfsup``, ``cfpnet_torch/train/selfsup.py``) on the
     production model. One step at bs 2 (``golden_selfsup_batch``, the
@@ -168,12 +136,10 @@ line:
     ``SELFSUP_GOLDEN_TOL``), launching 6 attention, 6 + 6 dwconv and 18
     fused-LoFTR kernels; the bs-16 step on synthetic pairs
     (``selfsup_step_check``): finite terms, the launch counts of one step
-    (6 / 12 / 18, all float32), ms a step and images/s, peak memory, one
-    profiled step by kind and beside it the objective alone (PoseNet, warp,
-    SSIM, smoothness and zone terms, forward and backward); and one epoch
-    of ``run_selfsup_training`` (``selfsup_loop_check``: 2 steps, 16
-    validation images, the ``selfsup_val`` line, the ``best`` depth weights
-    loaded back bit for bit, the run's launches).
+    (6 / 12 / 18, all float32); and one epoch of ``run_selfsup_training``
+    (``selfsup_loop_check``: 2 steps, 16 validation images, the
+    ``selfsup_val`` line, the ``best`` depth weights loaded back bit for
+    bit, the run's launches).
 17. multi_process (``multi_process_phase``, run after phase 16): data
     parallelism (``cfpnet_torch/parallel``). A process group of one over
     NCCL: the golden step bit for bit the same step with no group, and
@@ -181,9 +147,8 @@ line:
     card over gloo (``dp_rank``, spawned by ``parallel/launch.py``; NCCL
     refuses two processes on one card): the golden step as 1 + 1 rows
     within ``TRAIN_GOLDEN_TOL``, both processes' weights and buffers equal
-    bit for bit after it, 6 / 12 / 18 launches a step in each; the f32
-    step at global bs 16 (8 + 8): ms a step, its all-reduces (calls,
-    bytes, ms), peak memory of each process; ``evaluate_sharded`` over 8
+    bit for bit after it, 6 / 12 / 18 launches a step in each, also in the
+    f32 step at global bs 16 (8 + 8); ``evaluate_sharded`` over 8
     synthetic images equal on both and within ``DP_EVAL_RTOL`` of one
     process's ``evaluate``. ``predict_sharded`` on the one card equals
     ``predict`` bit for bit on phase 15's bf16 artifact. A process that
@@ -194,58 +159,28 @@ line:
     ``TOL`` of the one-device forward, its first row against the golden;
     the bf16 forward within ``BF16_DRIFT``; 6 / 6 / 18 launches a forward;
     the golden train step on the grid within ``TRAIN_GOLDEN_TOL`` (6 / 12 /
-    18 launches); the bs-16 step at 416x544 on the grid: ms a step beside
-    phase 9's, launches, peak memory; the card beside the numbers.
+    18 launches); the bs-16 step at 416x544 on the grid: finite losses and
+    its launches.
 19. configs (``configs_phase``, run after phase 18): the DELTAR baseline
     (``configs/train_deltar_baseline.txt``, ``--attention_layer hist2image
     image hist2image image``) at 480x640 on the deterministic weights: the
     f32 bs=1 forward eager and replayed from its CUDA graph against
     ``tests/golden/torch_port_baseline_forward.npz`` (rtol 5e-4, atol
     5e-5), 0 / 0 / 18 launches; the bf16 forward within ``BF16_DRIFT`` of
-    that golden, 0 / 0 / 18 on bf16; ``evaluate_time``'s replay ms in f32
-    and bf16; ``evaluate`` on 2 synthetic images; one bs-16 step at 416x544
-    (losses, 0 / 0 / 18 launches, ms, peak memory). The production
-    configuration with ``--attention_layer hist2image new_cross combine_2
-    image cvxt_2`` (``FUSION_NAMES``): the f32 forward eager and replayed
-    against ``tests/golden/torch_port_fusion_names_forward.npz``, 9 / 12 / 9
-    launches, replay ms. Masked attention and a masked LoFTR layer at the
-    1/4 scale's hist2image shape in f32 and bf16 against the CPU in float64
-    (``MASKED_TOL``), launching nothing, the same calls unmasked launching
-    their kernels (``masked_calls``). ``cfpnet_torch.demo.predict`` on the
-    synthetic frame against the phase's own eager forward, resized
-    (``demo_check``).
+    that golden, 0 / 0 / 18 on bf16; ``evaluate_time`` in f32 and bf16;
+    ``evaluate`` on 2 synthetic images; one bs-16 step at 416x544 (finite
+    losses, 0 / 0 / 18 launches). The production configuration with
+    ``--attention_layer hist2image new_cross combine_2 image cvxt_2``
+    (``FUSION_NAMES``): the f32 forward eager and replayed against
+    ``tests/golden/torch_port_fusion_names_forward.npz``, 9 / 12 / 9
+    launches, ``evaluate_time`` in f32. Masked attention and a masked LoFTR
+    layer at the 1/4 scale's hist2image shape in f32 and bf16 against the
+    CPU in float64 (``MASKED_TOL``), launching nothing, the same calls
+    unmasked launching their kernels (``masked_calls``).
+    ``cfpnet_torch.demo.predict`` on the synthetic frame against the
+    phase's own eager forward, resized (``demo_check``).
 
-Then the kernel table as one JSON line (each row also carries its
-kernel's per-forward ms and bound, and its worst error over max |plain|,
-at bs=8: ``ms_bs8``, ``bound_ms_bs8``, ``max_rel_err_bs8``; in the train
-step's forward: ``ms_train``, ``bound_ms_train``, ``max_rel_err_train``; its
-backward: ``backward_ms_train``, ``grad_max_rel_err_train``, for dwconv
-``dx_ms_train``, ``dw_library_ms_train``; and its launches in one train
-step, ``launches_train_step``; and in the loop phase's uninterrupted run,
-``launches_loop``; in phase 14's bf16 ``--device_pipeline`` run,
-``launches_device_pipeline_loop``; in phase 15's eager call of each bs=1
-serving program, ``launches_serving`` by dtype; in phase 16's bs-16
-self-supervised step, ``launches_selfsup_step``; in phase 17's bs-16
-step of each of the two processes (8 rows each), ``launches_two_rank_step``;
-in phase 18's forward and bs-16 step on the grid, ``launches_spatial_forward``
-and ``launches_spatial_step``; in phase 19's baseline forward and step and
-fusion-names forward, ``launches_configs``;
-from the bf16 phase, per
-bs=1 forward, ``card_ms_bf16``,
-``bound_ms_bf16`` (bytes at 2 a value; operations at the f32 rate, or the
-dense bf16 tensor-core rate for the fused layer's bf16 products),
-``library_ms_bf16`` (dwconv: cuDNN in bf16; else null), ``bound_by_bf16``,
-``max_rel_err_bf16`` and ``differ_share_bf16`` over the bs=1 and bs=8
-shapes, ``card_ms_bs8_bf16``, ``bound_ms_bs8_bf16`` and the bf16 forward's
-``launches_bf16``; for the fused layer also its bf16 source,
-``source_bf16``, and its passes, ``summary_ms_bf16``, ``rows_ms_bf16``,
-``summary_ms_bs8_bf16``, ``rows_ms_bs8_bf16``); in the bf16 train step
-(``bf16_train_fields``) ``ms_train_bf16``, ``bound_ms_train_bf16``,
-``max_rel_err_train_bf16``, ``differ_share_train_bf16``,
-``backward_ms_train_bf16``, ``grad_max_rel_err_train_bf16``, for dwconv
-``dx_ms_train_bf16``, ``dw_library_ms_train_bf16``, ``db_ms_train_bf16``,
-and ``launches_train_step_bf16``), and last the ``ok`` line. Each phase's
-line carries ``at_s``, the seconds since the script started.
+Then the ``done`` line (``seconds_total``) and last the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -261,7 +196,6 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_FULL = os.path.join(ROOT, "tests", "golden", "full_forward.npz")
@@ -334,21 +268,13 @@ CONFIG_LAUNCHES = {
     "fusion_names": {"linear_attention": 9, "dwconv": 12, "fused_loftr": 9, "bn_act": 134},
 }
 TOL = 1e-4  # max |kernel - plain| / max |plain|
-# published H100 SXM peaks: HBM bytes/s, f32 flop/s outside the tensor cores,
-# the TF32 tensor-core rate over three (a 3xTF32 product is three TF32 ones),
-# and the dense bf16 tensor-core rate (bf16 x bf16 products, f32 sums)
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-PEAK_TF32 = 495e12
-PEAK_TF32_3X = PEAK_TF32 / 3
-PEAK_BF16 = 989.4e12
 BF16_TOL = 2.0 ** -7  # bf16 phase: max |kernel - plain| / max |plain|, one bf16 ulp at the top
 # the bf16 forward's drift from the f32 golden: tests/test_bf16.py's budget
 BF16_DRIFT = dict(median_rel=0.06, median_abs=0.08)
 SEED = 117010053
-BENCH_ITERS = 40  # cfpnet_torch.bench --iters in phase 10 (its default is 500)
+BENCH_ITERS = 40  # cfpnet_torch.bench --iters in phase 13 (its default is 500)
 BENCH_TRAIN_ITERS = 10  # and its --train_iters (its default is 40)
-BF16_ITERS = 50  # cfpnet_torch.evaluate_time --niters in the bf16 phase (its default is 500)
+EVALUATE_TIME_ITERS = 50  # cfpnet_torch.evaluate_time --niters (its default is 500)
 
 
 T0 = time.perf_counter()
@@ -362,74 +288,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
-    """Median device milliseconds of one ``fn()``: CUDA events around
-    ``reps`` back-to-back calls, queued behind a spin kernel so the host's
-    enqueue time is not measured, after a warmup."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(trials):
-        torch.cuda._sleep(50_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / reps)
-    return float(np.median(out))
 
 
-def bound_fields(nbytes: float, flops: float, peak_flops: float = PEAK_F32):
-    """The least time for the work: bytes over the memory rate and operations
-    over ``peak_flops`` (the f32 rate outside the tensor cores unless
-    given), in ms, and the larger of the two."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_split(fn, calls: int = 10, attempts: int = 5, expect=()):
-    """The device kernels of one ``fn()`` call by name: ``{name: {"launches":
-    per call, "ms": device ms per call}}``, from torch.profiler (CUPTI) over
-    ``calls`` back-to-back calls of ``fn``. A profiler session now and then
-    records no device event at all, or none of one of ``fn``'s kernels; such
-    a session (one without a kernel whose name holds each string of
-    ``expect``) is run again, up to ``attempts`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        split = {e.key: dict(launches=e.count / calls, ms=e.self_device_time_total / 1e3 / calls)
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
-        if split and all(any(e in name for name in split) for e in expect):
-            return split
-    raise AssertionError(f"the profiler saw no device kernel, or none of one of {list(expect)}, "
-                         f"in {attempts} sessions: {sorted(split)}")
 
 
-def pass_split(fn):
-    """Device ms per call of the fused LoFTR layer's two device kernels
-    (``summary_kernel``, ``rows_kernel``; ``bf16_...`` in bf16), by kernel
-    name: the mean over the launches the profiler recorded, each call
-    launching each pass once (a session now and then records only some of
-    its calls, or none of one pass: ``kernel_split`` runs it again)."""
-    split = dict(summary_ms=0.0, rows_ms=0.0)
-    for name, k in kernel_split(fn, expect=("summary_kernel", "rows_kernel")).items():
-        for key in split:
-            if key.replace("_ms", "_kernel") in name:
-                split[key] += k["ms"] / k["launches"]
-    if not all(split.values()):
-        raise AssertionError(f"the profiler saw no summary or row kernel: {split}")
-    return split
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -535,109 +399,77 @@ def main_path_shapes(config, geoms, batch: int = 1, mode: str = "online_eval"):
     return att, dw, loftr
 
 
-def check_kernels(config, geoms, batch: int = 1, full: bool = True, mode: str = "online_eval"):
-    """Phase 3: every kernel at every main-path shape of a forward in
-    ``mode`` at ``batch`` against its plain version; returns one line a
-    shape. With ``full`` each line also times the plain version and the
-    library call and splits the call by device kernel (torch.profiler);
-    without it, only the kernel is timed."""
+def check_kernels(config, geoms, batch: int = 1, mode: str = "online_eval",
+                  dtype=torch.float32):
+    """Phases 3, 4 and 11: every kernel at every main-path shape of a
+    forward in ``mode`` at ``batch`` (the eval forward, or the train step's
+    forward at "train") against its plain version on the same inputs in
+    ``dtype``: max |kernel - plain| <= ``TOL`` * max |plain| in float32;
+    in bfloat16 both round at the Pallas kernel's points and their f32 sums
+    run in another order, so a value may land one bf16 ulp apart:
+    ``BF16_TOL``. Each shape's line, emitted, has the share of elements
+    that differ at all."""
     from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
+    from cfpnet_torch.kernels.dtypes import dtype_name
     from cfpnet_torch.models.transformer import LoFTREncoderLayer
     from cfpnet_torch.ops.attention import linear_attention as att_plain
     from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
     from cfpnet_torch.ops.loftr import loftr_apply
 
     att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch, mode)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + batch - 1)
+    seed = SEED + batch - 1 if dtype == torch.float32 else SEED + 200 + batch
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen)
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
     def checked(name, shape, got, ref):
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        if not (err <= TOL * scale):
-            raise AssertionError(f"{name} {shape} at bs={batch}: max err {err} > {TOL} * {scale}")
-        return dict(max_abs_err=err, max_abs_plain=scale)
+        if got.dtype != dtype or ref.dtype != dtype:
+            raise AssertionError(f"{name} {shape}: got {got.dtype}, plain {ref.dtype}")
+        g, r = got.float(), ref.float()
+        err, top = float((g - r).abs().max()), float(r.abs().max())
+        if not (err <= tol * top):
+            raise AssertionError(f"{dtype_name(dtype)} {name} {shape} at bs={batch}: max err "
+                                 f"{err} > {tol} * {top}")
+        return dict(max_abs_err=err, max_abs_plain=top, differ_share=float((g != r).float().mean()))
 
-    per_shape = []
+    lines = []
     for (N, L, S, H, D), calls in sorted(att_shapes.items()):
         q, k, v = randn(N, L, H, D), randn(N, S, H, D), randn(N, S, H, D)
         line = checked("linear_attention", (N, L, S, H, D),
                        linear_attention.linear_attention(q, k, v), att_plain(q, k, v))
-        C = H * D
-        nbytes = 4 * (2 * N * L * C + 2 * N * S * C)
-        flops = N * H * (2 * S * D * D + S * D + 2 * L * D * D + 2 * L * D)
-        plan = linear_attention.launch_plan(N, L, S, H, D)
-        line.update(
-            plan={key: plan[key] for key in (
-                "cl", "g", "tk", "chunk", "slices", "sum_threads", "sum_blocks", "sum_smem",
-                "tl", "apply_threads", "apply_blocks", "apply_blocks_per_sm", "apply_waves",
-                "apply_smem")},
-            ms=device_ms(lambda: linear_attention.linear_attention(q, k, v)),
-            **bound_fields(nbytes, flops))
-        if full:
-            split = kernel_split(lambda: linear_attention.linear_attention(q, k, v),
-                                 expect=("attention_sum_kernel", "attention_apply_kernel"))
-            line.update(
-                device_kernels_a_call=sum(s["launches"] for s in split.values()),
-                device_kernels={name.replace("(anonymous namespace)::", "").split("(")[0]: s
-                                for name, s in split.items()},
-                plain_ms=device_ms(lambda: att_plain(q, k, v)), library_ms=None)
-        per_shape.append(dict(kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D),
-                              calls=calls, **line))
+        lines.append(dict(kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D),
+                          calls=calls, **line))
     for (B, H, W, C, kk), calls in sorted(dw_shapes.items()):
-        x, w, bias = randn(B, H, W, C), 0.05 * randn(C, 1, kk, kk), randn(C)
+        x = randn(B, H, W, C)
+        w = (0.05 * torch.randn(C, 1, kk, kk, device="cuda", generator=gen)).to(dtype)
+        bias = randn(C)
         line = checked("dwconv", (B, H, W, C, kk), dwconv.depthwise_conv2d(x, w, bias),
                        dw_plain(x, w, bias))
-        nbytes = 4 * (2 * B * H * W * C + C * kk * kk + C)
-        flops = 2 * kk * kk * B * H * W * C
-        plan = dwconv.launch_plan(B, H, W, C, kk)
-        line.update(
-            plan={key: plan[key] for key in ("tile", "threads", "blocks", "blocks_per_sm",
-                                             "waves", "smem_bytes")},
-            ms=device_ms(lambda: dwconv.depthwise_conv2d(x, w, bias)),
-            **bound_fields(nbytes, flops))
-        if full:
-            x_nchw = x.permute(0, 3, 1, 2)  # the same memory, as cuDNN's channels-last input
-            line.update(
-                plain_ms=device_ms(lambda: dw_plain(x, w, bias), reps=2, trials=3),
-                library_ms=device_ms(lambda: F.conv2d(x_nchw, w, bias, padding=kk // 2,
-                                                      groups=C)))
-        per_shape.append(dict(kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=kk),
-                              calls=calls, **line))
-    rng = np.random.default_rng(SEED + batch - 1)
+        lines.append(dict(kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=kk), calls=calls,
+                          **line))
+    rng = np.random.default_rng(seed)
     for (N, L, S, C, H), calls in sorted(loftr_shapes.items()):
         def normal(*shape, mean=0.0, std=1.0):
             a = (mean + std * rng.standard_normal(shape)).astype(np.float32)
             return torch.from_numpy(a).cuda()
 
-        x, src = normal(N, L, C), normal(N, S, C)
+        x, src = normal(N, L, C).to(dtype), normal(N, S, C).to(dtype)
         layer = LoFTREncoderLayer(C, H).cuda()
         for name, w in layer.named_parameters():
-            w.data.copy_(normal(*w.shape, mean=1.0 if name.endswith("norm1.weight")
-                                or name.endswith("norm2.weight") else 0.0, std=0.1))
-        p = layer.loftr_params()
+            w.data.copy_(normal(*w.shape, mean=1.0 if name.endswith(("norm1.weight",
+                                                                     "norm2.weight")) else 0.0,
+                                std=0.1))
+        p = layer.to(dtype).loftr_params()
         with torch.no_grad():
             line = checked("fused_loftr", (N, L, S, C, H), fused_loftr.fused_loftr(x, src, p, H),
                            loftr_apply(x, src, p, H))
-            D = C // H
-            nbytes = 4 * (2 * N * L * C + N * S * C + 10 * C * C + 4 * C)
-            flops = 2 * (N * L * 8 * C * C + N * S * 2 * C * C + N * H * (S + L) * D * D)
-            line.update(ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
-                        **bound_fields(nbytes, flops),
-                        bound_tc_ms=max(nbytes / PEAK_BYTES, flops / PEAK_TF32_3X) * 1e3)
-            if full:
-                line.update(**pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H)),
-                            plain_ms=device_ms(lambda: loftr_apply(x, src, p, H)),
-                            unfused_ms=device_ms(lambda: layer.modules_forward(x, src)),
-                            library_ms=None)
-        per_shape.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
-                              calls=calls, **line))
-    for r in per_shape:
-        emit(dict(phase="kernel_shape", batch=batch, mode=mode, **r))
-    return per_shape
+        lines.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
+                          calls=calls, **line))
+    for r in lines:
+        emit(dict(phase="kernel_shape", batch=batch, mode=mode, dtype=dtype_name(dtype), **r))
 
 
 def check_gradients(config, geoms, batch: int, dtype=torch.float32):
@@ -649,11 +481,7 @@ def check_gradients(config, geoms, batch: int, dtype=torch.float32):
     inputs); dx, dW, db of dwconv (dx: the forward kernel on the rotated
     taps; dW: PyTorch's depthwise weight gradient), against the plain twin
     at one batch row where k = 31 (its autograd is 961 full-size passes);
-    dx, dsource, wq and w1 of the fused LoFTR layer. Each line also times
-    the backward at the full batch: for dwconv dx, dW (from NCHW copies, as
-    the port calls it, copies included, and also on the channels-last
-    views, which PyTorch hands to cuDNN) and db apart, against the bounds
-    of their work, and cuDNN's forward on the same inputs."""
+    dx, dsource, wq and w1 of the fused LoFTR layer."""
     from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
     from cfpnet_torch.kernels.dtypes import dtype_name
     from cfpnet_torch.models.transformer import LoFTREncoderLayer
@@ -661,7 +489,7 @@ def check_gradients(config, geoms, batch: int, dtype=torch.float32):
     from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
     from cfpnet_torch.ops.loftr import loftr_apply
 
-    tol, esize = (TOL, 4) if dtype == torch.float32 else (BF16_TOL, 2)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
     att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch, "train")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
 
@@ -692,9 +520,7 @@ def check_gradients(config, geoms, batch: int, dtype=torch.float32):
         got = torch.autograd.grad(linear_attention.linear_attention(*ins), ins, g)
         ref = torch.autograd.grad(att_plain(*ins), ins, g)
         lines.append(dict(kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D),
-                          calls=calls, max_rel_err=held("dq,dk,dv", (N, L, S, H, D), got, ref),
-                          backward_ms=device_ms(lambda: torch.autograd.grad(
-                              att_plain(*ins), ins, g), reps=5, trials=3)))
+                          calls=calls, max_rel_err=held("dq,dk,dv", (N, L, S, H, D), got, ref)))
     for (B, H, W, C, k), calls in sorted(dw_shapes.items()):
         x, w, b = randn(B, H, W, C), randn(C, 1, k, k, scale=0.05), randn(C)
         g = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
@@ -702,26 +528,9 @@ def check_gradients(config, geoms, batch: int, dtype=torch.float32):
         ins = [x[:rows].detach().requires_grad_(), w, b]
         got = torch.autograd.grad(dwconv.depthwise_conv2d(*ins), ins, g[:rows])
         ref = torch.autograd.grad(dw_plain(*ins), ins, g[:rows])
-        errs = held("dx,dW,db", (rows, H, W, C, k), got, ref)
-        wflip = w.detach().flip(-1, -2)
-        xd = x.detach()
-        x_nchw, g_nchw = xd.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        nbytes = esize * (2 * B * H * W * C + C * k * k)
-        flops = 2 * k * k * B * H * W * C
-        line = dict(
-            kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=k), calls=calls,
-            checked_rows=rows, max_rel_err=errs,
-            dx_ms=device_ms(lambda: dwconv.depthwise_conv2d(g, wflip)),
-            dw_ms=device_ms(lambda: torch.nn.grad.conv2d_weight(
-                x_nchw.contiguous(), w.shape, g_nchw.contiguous(), padding=k // 2, groups=C),
-                reps=5, trials=3),
-            db_ms=device_ms(lambda: g.sum((0, 1, 2))),
-            dw_channels_last_ms=device_ms(lambda: torch.nn.grad.conv2d_weight(
-                x_nchw, w.shape, g_nchw, padding=k // 2, groups=C), reps=2, trials=3),
-            library_conv_ms=device_ms(lambda: F.conv2d(x_nchw, w.detach(), b.detach(),
-                                                       padding=k // 2, groups=C)),
-            dx_bound=bound_fields(nbytes, flops), dw_bound=bound_fields(nbytes, flops))
-        lines.append(line)
+        lines.append(dict(kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=k), calls=calls,
+                          checked_rows=rows,
+                          max_rel_err=held("dx,dW,db", (rows, H, W, C, k), got, ref)))
     rng = np.random.default_rng(SEED + 100)
     for (N, L, S, C, H), calls in sorted(loftr_shapes.items()):
         def normal(*shape, mean=0.0, std=1.0):
@@ -740,108 +549,15 @@ def check_gradients(config, geoms, batch: int, dtype=torch.float32):
         ins = [x, src, p.wq, p.w1]
         got = torch.autograd.grad(fused_loftr.fused_loftr(x, src, p, H), ins, g)
         ref = torch.autograd.grad(loftr_apply(x, src, p, H), ins, g)
-        everything = [x, src, *p]
         lines.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
                           calls=calls,
-                          max_rel_err=held("dx,dsource,dwq,dw1", (N, L, S, C, H), got, ref),
-                          backward_ms=device_ms(lambda: torch.autograd.grad(
-                              loftr_apply(x, src, p, H), everything, g), reps=5, trials=3)))
+                          max_rel_err=held("dx,dsource,dwq,dw1", (N, L, S, C, H), got, ref)))
     for r in lines:
         emit(dict(phase="kernel_gradient", batch=batch, dtype=dtype_name(dtype), **r))
-    return lines
 
 
-KERNEL_META = {
-    "linear_attention": ("cfpnet_torch/csrc/linear_attention.cu",
-                         "cfpnet_tpu/ops/pallas_attention.py:109"),
-    "dwconv": ("cfpnet_torch/csrc/dwconv.cu", "cfpnet_tpu/ops/pallas_dwconv.py:41"),
-    "fused_loftr": ("cfpnet_torch/csrc/fused_loftr.cu", "cfpnet_tpu/ops/pallas_loftr.py:156"),
-}
 
 
-def kernel_rows(per_shape, per_shape_bs8, per_shape_train, gradients):
-    """The kernel table: per kernel, the sums over a bs=1 forward of the
-    phase-3 lines (calls x per-call value), and beside them the kernel's ms,
-    bound and error at bs=8 (``*_bs8``) and in a bs=16 train step's forward
-    (``*_train``), and the train step's backward from the phase-4 lines:
-    its ms (``backward_ms_train``; for dwconv dx, dW and db,
-    ``dx_ms_train``, ``dw_library_ms_train``) and its worst gradient error
-    over max |plain| (``grad_max_rel_err_train``)."""
-    rows = []
-    for name, (source, replaces) in KERNEL_META.items():
-        def per_forward(lines, key):
-            mine = [r for r in lines if r["kernel"] == name]
-            if any(r[key] is None for r in mine):
-                return None
-            return sum(r["calls"] * r[key] for r in mine)
-
-        def worst(lines):
-            return max(r["max_abs_err"] / r["max_abs_plain"] for r in lines
-                       if r["kernel"] == name)
-
-        extra = {}
-        if name == "fused_loftr":
-            extra = {key: per_forward(per_shape, key)
-                     for key in ("summary_ms", "rows_ms", "unfused_ms", "bound_tc_ms")}
-        mine = [r for r in gradients if r["kernel"] == name]
-        if name == "dwconv":
-            extra.update(dx_ms_train=per_forward(gradients, "dx_ms"),
-                         dw_library_ms_train=per_forward(gradients, "dw_ms"),
-                         dw_library_channels_last_ms_train=per_forward(gradients,
-                                                                       "dw_channels_last_ms"),
-                         db_ms_train=per_forward(gradients, "db_ms"))
-            extra["backward_ms_train"] = (extra["dx_ms_train"] + extra["dw_library_ms_train"]
-                                          + extra["db_ms_train"])
-        else:
-            extra["backward_ms_train"] = per_forward(gradients, "backward_ms")
-        extra["grad_max_rel_err_train"] = max(max(r["max_rel_err"].values()) for r in mine)
-        rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces, launches=None,
-            max_abs_err=max(r["max_abs_err"] for r in per_shape if r["kernel"] == name),
-            ms=per_forward(per_shape, "ms"), plain_ms=per_forward(per_shape, "plain_ms"),
-            bound_ms=per_forward(per_shape, "bound_ms"),
-            bound_by=("bytes" if per_forward(per_shape, "bytes_ms")
-                      >= per_forward(per_shape, "ops_ms") else "operations"),
-            library_ms=per_forward(per_shape, "library_ms"),
-            calls_per_forward=sum(r["calls"] for r in per_shape if r["kernel"] == name),
-            **extra,
-            ms_bs8=per_forward(per_shape_bs8, "ms"),
-            bound_ms_bs8=per_forward(per_shape_bs8, "bound_ms"),
-            max_rel_err_bs8=worst(per_shape_bs8),
-            ms_train=per_forward(per_shape_train, "ms"),
-            bound_ms_train=per_forward(per_shape_train, "bound_ms"),
-            max_rel_err_train=worst(per_shape_train)))
-    return rows
-
-
-def bf16_train_fields(name, lines, gradients):
-    """A kernel row's bf16 train columns: in a bs=16 bf16 train step's
-    forward (``check_kernels_bf16`` at mode "train"; calls x per-call
-    value) the kernel's ms, bound, worst error over max |plain| and share
-    of elements that differ; its backward from the bf16 phase-4 lines
-    (``backward_ms_train_bf16``; for dwconv dx, dW and db,
-    ``dx_ms_train_bf16``, ``dw_library_ms_train_bf16``,
-    ``db_ms_train_bf16``) and its worst gradient error over max |plain|."""
-    def per_step(ls, key):
-        return sum(r["calls"] * r[key] for r in ls if r["kernel"] == name)
-
-    mine = [r for r in lines if r["kernel"] == name]
-    out = dict(ms_train_bf16=per_step(lines, "ms"),
-               bound_ms_train_bf16=per_step(lines, "bound_ms"),
-               bound_by_train_bf16=("bytes" if per_step(lines, "bytes_ms")
-                                    >= per_step(lines, "ops_ms") else "operations"),
-               max_rel_err_train_bf16=max(r["max_abs_err"] / r["max_abs_plain"] for r in mine),
-               differ_share_train_bf16=max(r["differ_share"] for r in mine))
-    if name == "dwconv":
-        parts = dict(dx_ms_train_bf16="dx_ms", dw_library_ms_train_bf16="dw_ms",
-                     db_ms_train_bf16="db_ms")
-        out.update({key: per_step(gradients, part) for key, part in parts.items()})
-        out["backward_ms_train_bf16"] = sum(out[key] for key in parts)
-    else:
-        out["backward_ms_train_bf16"] = per_step(gradients, "backward_ms")
-    out["grad_max_rel_err_train_bf16"] = max(max(r["max_rel_err"].values()) for r in gradients
-                                             if r["kernel"] == name)
-    return out
 
 
 def golden_train_config():
@@ -1001,7 +717,7 @@ def golden_train_step(device="cuda", compute_dtype="float32", rows=lambda batch:
     launch counts of the step). ``rows`` takes the golden batch to the rows
     the step runs on (a data-parallel process's: ``mesh.shard_batch``);
     ``grid`` is a spatial grid the step runs on (``parallel/spatial.py``)."""
-    from cfpnet_torch import kernels, weights
+    from cfpnet_torch import tracing, weights
     from cfpnet_torch.models import fusion
     from cfpnet_torch.models.deltar import make_model, model_geometries
     from cfpnet_torch.train import steps
@@ -1023,11 +739,11 @@ def golden_train_step(device="cuda", compute_dtype="float32", rows=lambda batch:
     real = fusion.crop_offsets
     fusion.crop_offsets = lambda *args: next(pinned)
     try:
-        kernels.reset_launches()
+        tracing.reset_counters("kernel.")
         loss = train_step(state, batch, GOLDEN_TRAIN_SEED)
         if device != "cpu":
             torch.cuda.synchronize()
-        launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+        launches = launch_counts()
     finally:
         fusion.crop_offsets = real
     if next(pinned, None) is not None:
@@ -1098,7 +814,7 @@ def selfsup_golden_errors(device="cuda"):
     against ``GOLDEN_SELFSUP`` (``golden_errors`` with the four loss
     terms). Returns (the errors, the launch counts of the step, the
     terms)."""
-    from cfpnet_torch import kernels, weights
+    from cfpnet_torch import tracing, weights
     from cfpnet_torch.data.geometry import geometry_for
     from cfpnet_torch.models import fusion
     from cfpnet_torch.models.deltar import make_model, model_geometries
@@ -1122,11 +838,11 @@ def selfsup_golden_errors(device="cuda"):
     real = fusion.crop_offsets
     fusion.crop_offsets = lambda *args: next(pinned)
     try:
-        kernels.reset_launches()
+        tracing.reset_counters("kernel.")
         terms = step(state, batch, GOLDEN_TRAIN_SEED)
         if device != "cpu":
             torch.cuda.synchronize()
-        launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+        launches = launch_counts()
     finally:
         fusion.crop_offsets = real
     if next(pinned, None) is not None:
@@ -1155,9 +871,9 @@ def golden_diffs(bin_edges, pred, golden: str = GOLDEN_FULL):
 def eager_launches(model, args, geoms):
     """The kernels' launch counts of one eager forward (all 0 on the CPU,
     where the wrappers run their plain versions)."""
-    from cfpnet_torch import kernels
+    from cfpnet_torch import tracing
 
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     with torch.no_grad():
         out = model(*args, geoms)
     if out[1].is_cuda:
@@ -1194,12 +910,7 @@ def bn_act_phase(model, geoms, args):
     bf16, on random inputs and statistics of each call's shape, layout,
     activation and shortcut: the kernel against its plain twin (f32 within
     1e-6 of its largest value; bf16 no farther from the f32 formula than the
-    plain bf16 twin), and the device ms of the kernel and of the plain twin
-    summed over the forward's calls (``device_ms`` a distinct call, times
-    its count; back-to-back calls, so the maps sit in L2) beside the
-    least time of the same calls by bytes (``bytes_moved`` at
-    ``PEAK_BYTES``), with the launch plan's modes and each distinct call's
-    µs against its bound."""
+    plain bf16 twin), with the launch plan's modes the calls took."""
     from collections import Counter
 
     from cfpnet_torch.kernels import bn_act
@@ -1210,8 +921,7 @@ def bn_act_phase(model, geoms, args):
     gen = torch.Generator().manual_seed(SEED)
     out = dict(phase="bn_act", calls=sum(calls.values()), distinct_calls=len(calls))
     for dtype in (torch.float32, torch.bfloat16):
-        ms = plain_ms = bound_ms = 0.0
-        modes, worst_f32, worst_ratio, per_call = Counter(), 0.0, 0.0, []
+        modes, worst_f32, worst_ratio = Counter(), 0.0, 0.0
         for (shape, stride, cd, act, residual), n in calls.items():
             def tensor():
                 t = torch.empty_strided(shape, stride, device="cuda", dtype=dtype)
@@ -1236,23 +946,12 @@ def bn_act_phase(model, geoms, args):
                     raise AssertionError(f"bn_act bf16 at {shape} {act}: error {err} against "
                                          f"the plain twin's {plain_err}")
                 worst_ratio = max(worst_ratio, err / plain_err if plain_err else 0.0)
-            one = device_ms(lambda: bn_act.bn_act(*call))
-            one_bound = 1e3 * bn_act.bytes_moved(x.numel(), C, x.element_size(),
-                                                 residual) / PEAK_BYTES
-            ms += n * one
-            plain_ms += n * device_ms(lambda: bn_act.bn_act_plain(*call))
-            bound_ms += n * one_bound
-            mode = bn_act.launch_plan(x.numel(), *bn_act.memory_layout(x, cd),
-                                      16 // x.element_size(), True)["mode"]
-            modes[mode] += n
-            per_call.append(dict(shape=shape, mode=mode, act=act, residual=residual, n=n,
-                                 us=1e3 * one, bound_us=1e3 * one_bound))
+            modes[bn_act.launch_plan(x.numel(), *bn_act.memory_layout(x, cd),
+                                     16 // x.element_size(), True)["mode"]] += n
         if worst_f32 > 1e-6:
             raise AssertionError(f"bn_act f32 against its plain twin: {worst_f32}")
-        out[dtype_name(dtype)] = dict(
-            ms_a_forward=ms, plain_ms_a_forward=plain_ms, bound_ms=bound_ms,
-            roofline_pct=100.0 * bound_ms / ms, modes=dict(modes), max_rel_err_f32=worst_f32,
-            max_err_over_plain_bf16=worst_ratio, per_call=per_call)
+        out[dtype_name(dtype)] = dict(modes=dict(modes), max_rel_err_f32=worst_f32,
+                                      max_err_over_plain_bf16=worst_ratio)
     return out
 
 
@@ -1325,15 +1024,6 @@ def graph_phase(model, config, geoms, args):
                 bs8_replay_equals_eager=True, bs8_rows_max_abs_diff_vs_bs1=rows)
 
 
-def device_events(fn):
-    """torch.profiler over one ``fn()`` and a synchronize: the events of the
-    run, summed by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return prof.key_averages()
 
 
 class HostWaits:
@@ -1393,7 +1083,6 @@ class HostWaits:
             profiler_d2h=sum(e.count for e in events if "DtoH" in e.key),
             syncs=n("cudaStreamSynchronize") + n("cudaEventSynchronize"),
             device_syncs=n("cudaDeviceSynchronize"))
-        self.events = events
         return False
 
 
@@ -1407,54 +1096,27 @@ def host_waits(fn):
     return dict(aten=w.counts["h2d"], profiler=w.counts["profiler_h2d"]), w.counts["syncs"]
 
 
-def busy(events, latency_ms: float):
-    """Device time, launches and busy share of a profiled forward."""
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in device)
-    if total_us <= 0:
-        return dict(device_ms="not measured (the profiler saw no device time)")
-    top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-    return dict(device_ms=total_us / 1e3, kernel_launches=sum(e.count for e in device),
-                latency_ms=latency_ms, busy_share=total_us / 1e3 / latency_ms,
-                top=[dict(name=e.key[:80], calls=e.count, ms=e.self_device_time_total / 1e3)
-                     for e in top])
 
 
-def profile_phase(model, config, geoms, args, entry):
-    """Phase 7: where the time of the bs=1 forward goes on the device,
-    eager and replayed, against the entry point's latencies; the host's
-    copies and stream syncs in one warmed eager forward, which must be none
-    (a copy of a host array to the card is the positive control: the
-    counter sees its copy and its sync)."""
-    from cfpnet_torch.graphs import CapturedForward
-
+def host_waits_phase(model, geoms, args):
+    """Phase 8: the host's copies and stream syncs in one warmed eager bs=1
+    forward, which must be none; a copy of a host array to the card is the
+    positive control, whose copy and sync the counters must see."""
     with torch.no_grad():
         for _ in range(3):
             model(*args, geoms)
         torch.cuda.synchronize()
-        eager = device_events(lambda: model(*args, geoms))
         copies, syncs = host_waits(lambda: model(*args, geoms))
     control = host_waits(lambda: torch.as_tensor(np.ones(4), device="cuda"))
-    captured = CapturedForward(model, geoms, 1, config)
-    captured(*args)
-    replay = device_events(captured.replay)
-    del captured
-    return dict(phase="profile", host_to_device_copies=copies, stream_syncs=syncs,
-                control_copies_syncs=control,
-                eager=busy(eager, entry["latency_ms_bs1_eager"]),
-                replay=busy(replay, entry["latency_ms_bs1"]))
+    if control[0]["aten"] < 1 or control[1] < 1:
+        raise AssertionError(f"the counters did not see a host copy and its sync: {control}")
+    if any(copies.values()) or syncs:
+        raise AssertionError(f"a warmed eager forward made {copies} host-to-device copies and "
+                             f"{syncs} stream syncs")
+    return dict(phase="host_waits", host_to_device_copies=copies, stream_syncs=syncs,
+                control_copies_syncs=control)
 
 
-def check_host_waits(profile):
-    """Raises unless the counters saw the control's copy and sync and the
-    warmed eager forward made neither."""
-    copies, syncs = profile["control_copies_syncs"]
-    if copies["aten"] < 1 or syncs < 1:
-        raise AssertionError(f"the counters did not see a host copy and its sync: {copies}, "
-                             f"{syncs}")
-    if any(profile["host_to_device_copies"].values()) or profile["stream_syncs"]:
-        raise AssertionError(f"a warmed eager forward made {profile['host_to_device_copies']} "
-                             f"host-to-device copies and {profile['stream_syncs']} stream syncs")
 
 
 # a training step's BatchNorms take the plain route (ops/dispatch.py); an eval
@@ -1465,47 +1127,18 @@ EVAL_LAUNCHES = {"linear_attention": 6, "dwconv": 6, "fused_loftr": 18, "bn_act"
 # launches once a shard (tests/test_torch_port_bn_act.py counts them)
 GRID_EVAL_LAUNCHES = dict(EVAL_LAUNCHES, bn_act=217)
 EVAL_METRICS = ("a1", "a2", "a3", "abs_rel", "rmse", "log_10", "rmse_log", "silog", "sq_rel")
-# the kernels of a profiled train step, by kind (device kernel names)
-KINDS = (("ported kernels", ("attention_sum_kernel", "attention_apply_kernel", "dwconv_kernel",
-                             "summary_kernel", "rows_kernel")),
-         ("optimizer (foreach)", ("multi_tensor_apply",)),
-         ("large-kernel dW (torch's depthwise weight gradient)",
-          ("conv_depthwise2d_grad_weight",)),
-         ("cuDNN weight gradients", ("wgrad",)),
-         ("cuDNN data gradients", ("dgrad",)),
-         ("cuDNN forward convolutions", ("fprop", "conv", "implicit_gemm", "winograd")),
-         ("matrix products", ("gemm", "gemv", "cutlass")),
-         ("elementwise and reductions", ("elementwise", "reduce", "Reduce", "softmax",
-                                         "cat", "index", "fill", "copy")))
 
 
-def by_kind(events):
-    """Device ms and launches of a profiled run, summed by ``KINDS``."""
-    out = {}
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = next((k for k, keys in KINDS if any(key in e.key for key in keys)), "other")
-        d = out.setdefault(kind, dict(ms=0.0, launches=0))
-        d["ms"] += e.self_device_time_total / 1e3
-        d["launches"] += e.count
-    return out
-
-
-def train_step_phase(config, steps_timed: int = 10):
+def train_step_phase(config):
     """Phase 9: the production train step (``train/steps.py``) at
     ``config``'s shape (bs 16 at 416x544) and compute dtype (a CUDA graph
     from its second step), on one synthetic batch and the deterministic
     weights: 10 steps whose losses must be finite and fall; the launch
-    counts of one step (6 attention, 6 + 6 dwconv, 18 fused LoFTR), every
-    one on the compute dtype; ``steps_timed`` steps between CUDA events
-    (``evaluate_time.train_latency_ms``, K = 5); one profiled step, with its
-    casts (``aten::_to_copy`` calls: 0 for a replay, which issues none on
-    the host); the peak of allocated memory; and after the steps every
-    parameter, both AdamW moments and every running statistic still
-    float32."""
-    from cfpnet_torch import kernels, weights
-    from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
+    counts of one more step (6 attention, 6 + 6 dwconv, 18 fused LoFTR),
+    every one on the compute dtype; and after the steps every parameter,
+    both AdamW moments and every running statistic still float32."""
+    from cfpnet_torch import tracing, weights
+    from cfpnet_torch.evaluate_time import make_train_batch
     from cfpnet_torch.models.deltar import make_model, model_geometries
     from cfpnet_torch.train import steps
 
@@ -1516,37 +1149,30 @@ def train_step_phase(config, steps_timed: int = 10):
     train_step = steps.make_train_step(model, config, geoms)
     batch = make_train_batch(config, config.bs)
     seeds = iter(range(config.seed, config.seed + 10 ** 6))
-    torch.cuda.reset_peak_memory_stats()
     losses = [float(train_step(state, batch, next(seeds))) for _ in range(10)]
     if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"train losses on one repeated batch: {losses}")
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     train_step(state, batch, next(seeds))
     torch.cuda.synchronize()
-    launches, by_dtype = launch_counts(), launches_by_dtype()
+    launches, by_dtype = launch_counts(), dtype_launches()
     if launches != TRAIN_LAUNCHES or any(d != {config.compute_dtype: launches[k]}
                                          for k, d in by_dtype.items()):
         raise AssertionError(f"a {config.compute_dtype} train step launched {by_dtype}, "
                              f"expected {TRAIN_LAUNCHES} on {config.compute_dtype}")
-    ms = train_latency_ms(lambda: train_step(state, batch, next(seeds)), steps_timed, 5)
-    events = device_events(lambda: train_step(state, batch, next(seeds)))
     held = [t.dtype for t in (*model.parameters(), *model.buffers(), *state.tx.mu.values(),
                               *state.tx.nu.values())]
     if set(held) != {torch.float32}:
         raise AssertionError(f"after {config.compute_dtype} steps the state holds {set(held)}")
     return dict(phase="train_step", batch=config.bs, dtype=config.compute_dtype,
-                size=[config.input_height, config.input_width], ms_a_step=ms,
-                images_a_s=config.bs * 1000.0 / ms, steps_timed=steps_timed,
-                losses_first_10=losses, launches_a_step=launches, launches_by_dtype=by_dtype,
-                casts_a_step=sum(e.count for e in events if e.key == "aten::_to_copy"),
-                state_float32_entries=len(held),
-                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                profiled_step=busy(events, ms), profiled_step_by_kind=by_kind(events))
+                size=[config.input_height, config.input_width], losses_first_10=losses,
+                launches_a_step=launches, dtype_launches=by_dtype,
+                state_float32_entries=len(held))
 
 
 LOOP_EPOCHS = 2
 LOOP_SAMPLES = 48  # synthetic train samples: 3 steps an epoch at bs 16; 48 eval images
-LOOP_PROFILED_STEP = 1  # the profiled loop step: epoch 0's second (no log point)
+LOOP_PROFILED_STEP = 1  # the loop step whose host waits are counted: epoch 0's second
 
 
 def loop_config(config):
@@ -1559,10 +1185,24 @@ def loop_config(config):
                           no_logging=False, resume="", eval_bs=1)
 
 
-def launch_counts():
-    from cfpnet_torch import kernels
+def dtype_launches():
+    """Each kernel's launches by element type since the launch counters
+    were last reset (``tracing.counters``), kernels that launched nothing
+    left out."""
+    from cfpnet_torch import tracing
 
-    return {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS}
+    out = {}
+    for key, n in tracing.counters("kernel.").items():
+        kernel, dtype = key[len("kernel."):].split(".launches.")
+        out.setdefault(kernel, {})[dtype] = n
+    return launched(out)
+
+
+def launch_counts():
+    """The launches of each kernel of ``EVAL_LAUNCHES`` since the launch
+    counters were last reset, over every element type."""
+    by_dtype = dtype_launches()
+    return {k: sum(by_dtype.get(k, {}).values()) for k in EVAL_LAUNCHES}
 
 
 class LoopProbe:
@@ -1579,7 +1219,7 @@ class LoopProbe:
         if step == LOOP_PROFILED_STEP and self.cuda:
             with HostWaits() as w:
                 yield
-            self.waits = w
+            self.waits = w.counts
         else:
             yield
         after = launch_counts()
@@ -1588,17 +1228,15 @@ class LoopProbe:
 
 def loop_run(cfg, init, trace, probe=None, device="cuda"):
     """One ``run_training`` from the deterministic weights; returns (state,
-    the JSONL lines, seconds)."""
+    the JSONL lines)."""
     from cfpnet_torch.train.loop import run_training
 
-    t0 = time.perf_counter()
     state = run_training(cfg, device=device, init_state_dict=init, trace=trace,
                          step_context=probe or (lambda step: contextlib.nullcontext()))
-    seconds = time.perf_counter() - t0
     with open(os.path.join(cfg.save_dir, "train_log.jsonl")) as f:
         log = [json.loads(line) for line in f]
     os.remove(os.path.join(cfg.save_dir, "train_log.jsonl"))
-    return state, log, seconds
+    return state, log
 
 
 @contextlib.contextmanager
@@ -1666,7 +1304,7 @@ def state_differs(a, b):
     return out + (["step"] if sa != sb else []) + sorted(set(fb) - set(fa))
 
 
-def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None):
+def loop_phase(config, device="cuda", keep_weights=None):
     """Phase 10: ``train/loop.py::run_training`` on the card, at the
     production train step's configuration (``loop_config``) with the
     deterministic weights, in a temporary working directory removed after.
@@ -1688,17 +1326,15 @@ def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None)
       fault, resumed from that checkpoint with its moments zeroed, which
       must differ from D.
 
-    Prints loop ms a step and images/s (epoch 1, no profiler) beside the
-    bare step's images/s from phase 9, the consumer's wait for each step's
-    batch and the producer's time for each batch, validation seconds,
-    checkpoint bytes and seconds to save and load, and the ToF path.
-    ``device="cpu"`` runs the same checks but the host's waits, which need
-    the card (a dry run at a tiny size). ``keep_weights``: a directory
-    that gets a copy of run A's ``weights/{name}`` (for the sweep phase)."""
+    The line carries the epoch lines each run logged, as logged, and the
+    ToF path. ``device="cpu"`` runs the same checks but the host's waits,
+    which need the card (a dry run at a tiny size). ``keep_weights``: a
+    directory that gets a copy of run A's ``weights/{name}`` (for the sweep
+    phase)."""
     import shutil
     import tempfile
 
-    from cfpnet_torch import kernels, weights
+    from cfpnet_torch import tracing, weights
     from cfpnet_torch.data import native
     from cfpnet_torch.models.deltar import make_model
     from cfpnet_torch.train import checkpoint, steps
@@ -1719,8 +1355,8 @@ def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None)
                                      f"{control_waits.counts}")
 
         probe, trace_a = LoopProbe(cuda), []
-        kernels.reset_launches()
-        state_a, log_a, seconds_a = loop_run(cfg, init, trace_a, probe, device)
+        tracing.reset_counters("kernel.")
+        state_a, log_a = loop_run(cfg, init, trace_a, probe, device)
         total = launch_counts()
         losses_a = [float(t["loss"]) for t in trace_a]
         if len(trace_a) != LOOP_EPOCHS * LOOP_SAMPLES // cfg.bs or not all(
@@ -1746,7 +1382,7 @@ def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None)
         for d in (f"checkpoints/{cfg.name}", f"weights/{cfg.name}"):
             if set(os.listdir(d)) != names:
                 raise AssertionError(f"{d} holds {sorted(os.listdir(d))}, expected {names}")
-        waits = probe.waits.counts if cuda else {}
+        waits = probe.waits if cuda else {}
         if cuda and (waits["d2h"] or waits["profiler_d2h"] or waits["syncs"]
                      or waits["h2d_pageable"]):
             raise AssertionError(f"loop step {LOOP_PROFILED_STEP} waited on the host: {waits}")
@@ -1754,12 +1390,7 @@ def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None)
         # the last checkpoint loads back bit for bit
         last = f"checkpoints/{cfg.name}/{vals[-1]['epoch']}_{vals[-1]['rmse']:.3f}"
         fresh = steps.create_train_state(make_model(cfg, device=device), cfg, len(trace_a))
-        sync = torch.cuda.synchronize if cuda else (lambda: None)
-        sync()
-        t0 = time.perf_counter()
         _, next_epoch, best = checkpoint.load_checkpoint(last, fresh)
-        sync()
-        load_s = time.perf_counter() - t0
         differ = state_differs(fresh, state_a)
         if (differ or next_epoch != LOOP_EPOCHS
                 or best != float(np.float32(min(v["rmse"] for v in vals[:-1])))):
@@ -1773,17 +1404,17 @@ def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None)
         with deterministic_algorithms() as caught:
             trace_d = []
             cfg_d = cfg.replace(name=cfg.name + "_d", save_dir=cfg.save_dir + "_d")
-            state_d, log_d, seconds_d = loop_run(cfg_d, init, trace_d, device=device)
+            state_d, log_d = loop_run(cfg_d, init, trace_d, device=device)
             val_d = next(line for line in log_d if line["kind"] == "val")
             ckpt0 = f"checkpoints/{cfg_d.name}/0_{val_d['rmse']:.3f}"
             trace_r = []
-            state_r, log_r, seconds_r = loop_run(
+            state_r, log_r = loop_run(
                 cfg.replace(name=cfg.name + "_r", save_dir=cfg.save_dir + "_r", resume=ckpt0),
                 init, trace_r, device=device)
             control = os.path.join(work, "zeroed_moments")
             zeroed_moments(ckpt0, control)
             trace_c = []
-            state_c, log_c, seconds_c = loop_run(
+            state_c, log_c = loop_run(
                 cfg.replace(name=cfg.name + "_c", save_dir=cfg.save_dir + "_c", resume=control),
                 init, trace_c, device=device)
         tail = [t for t in trace_d if t["epoch"] == LOOP_EPOCHS - 1]
@@ -1805,29 +1436,15 @@ def loop_phase(config, bare_images_a_s: float, device="cuda", keep_weights=None)
         if not control_differs:
             raise AssertionError("a resume with zeroed moments equals the uninterrupted run: "
                                  "the resume check cannot see a lost optimizer state")
-        sizes = {d: {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
-                 for d in (f"checkpoints/{cfg.name}", f"weights/{cfg.name}")}
-        last_epoch = epochs[-1]
-        ms = last_epoch["train_s"] * 1e3 / last_epoch["steps"]
         more = {name: [line for line in log if line["kind"] == "epoch"]
                 for name, log in (("d", log_d), ("resumed", log_r), ("control", log_c))}
         return dict(
             phase="loop", batch=cfg.bs, size=[cfg.input_height, cfg.input_width],
             samples=LOOP_SAMPLES, epochs=LOOP_EPOCHS,
-            eval_images_a_validation=min(LOOP_SAMPLES, 64),
-            tof_path=native.active(), loop_ms_a_step=ms, loop_images_a_s=cfg.bs * 1e3 / ms,
-            bare_step_images_a_s=bare_images_a_s,
-            loader_wait_ms_a_step=sum(last_epoch["loader_wait_ms"]) / last_epoch["steps"],
-            loader_wait_ms_each_step=[e["loader_wait_ms"] for e in epochs],
-            producer_ms_each_batch=[e["producer_ms"] for e in epochs],
-            epochs_logged=dict(a=epochs, **more), validation_s=[e["val_s"] for e in epochs],
-            checkpoint_save_s=[e["checkpoint_s"] for e in epochs], checkpoint_load_s=load_s,
-            checkpoint_bytes=sizes,
-            run_s=dict(a=seconds_a, d=seconds_d, resumed=seconds_r, control=seconds_c),
-            losses=losses_a, launches_run=total,
+            eval_images_a_validation=min(LOOP_SAMPLES, 64), tof_path=native.active(),
+            epochs_logged=dict(a=epochs, **more), losses=losses_a, launches_run=total,
             launches_a_step={t["step"]: probe.launches[t["step"]] for t in trace_a},
-            profiled_step_waits=waits, control_item_waits=control_waits and control_waits.counts,
-            profiled_step=busy(probe.waits.events, ms) if cuda else None,
+            step_waits=waits, control_item_waits=control_waits and control_waits.counts,
             resume=dict(checkpoint=os.path.basename(ckpt0), equal_batches_offsets_rates=True,
                         loaded_state_bit_equal=True, resumed_bit_equal_deterministic=True,
                         deterministic_warnings=sorted({str(w.message)[:200] for w in caught}),
@@ -1852,7 +1469,7 @@ def loop_bf16_phase(config):
     import shutil
     import tempfile
 
-    from cfpnet_torch import kernels, weights
+    from cfpnet_torch import tracing, weights
 
     cfg = loop_config(config).replace(epochs=1, compute_dtype="bfloat16",
                                       name="chip_smoke_loop_bf16",
@@ -1863,9 +1480,9 @@ def loop_bf16_phase(config):
     os.chdir(work)
     try:
         trace = []
-        kernels.reset_launches()
-        state, log, seconds = loop_run(cfg, init, trace)
-        by_dtype = launches_by_dtype()
+        tracing.reset_counters("kernel.")
+        state, log = loop_run(cfg, init, trace)
+        by_dtype = dtype_launches()
         losses = [float(t["loss"]) for t in trace]
         if len(losses) != LOOP_SAMPLES // cfg.bs or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"bf16 loop losses {losses}")
@@ -1875,7 +1492,6 @@ def loop_bf16_phase(config):
         if by_dtype != want:
             raise AssertionError(f"the bf16 loop launched {by_dtype}, expected {want}")
         (val,) = [line for line in log if line["kind"] == "val"]
-        (epoch,) = [line for line in log if line["kind"] == "epoch"]
         if not all(math.isfinite(val[k]) for k in EVAL_METRICS):
             raise AssertionError(f"bf16 loop validation {val}")
         name = f"0_{val['rmse']:.3f}"
@@ -1894,60 +1510,42 @@ def loop_bf16_phase(config):
                      for v in g[key].values()}
         if held != {torch.float32}:
             raise AssertionError(f"the bf16 loop's files hold {held}")
-        ms = epoch["train_s"] * 1e3 / epoch["steps"]
         return dict(phase="loop_bf16", batch=cfg.bs, samples=LOOP_SAMPLES, epochs=1,
-                    losses=losses, launches_by_dtype=by_dtype, val=val,
-                    files_dtypes=sorted(str(d) for d in held), loop_ms_a_step=ms,
-                    loop_images_a_s=cfg.bs * 1e3 / ms,
-                    loader_wait_ms_each_step=epoch["loader_wait_ms"],
-                    validation_s=epoch["val_s"], run_s=seconds)
+                    losses=losses, dtype_launches=by_dtype, val=val,
+                    files_dtypes=sorted(str(d) for d in held))
     finally:
         os.chdir(here)
         shutil.rmtree(work, ignore_errors=True)
 
 
 # phase 14: the train options of the one-card driver
-PIPELINE_REPS = 20  # device_preprocess calls timed between CUDA events, after 3 warm ones
-OPTION_STEPS_TIMED = 2  # bs-16 steps timed for each train option, after one warm step
+OPTION_STEPS = 3  # bs-16 steps of each train option, the first counted (later ones graphed)
 
 
-def producer_ms(cfg, device_pipeline: bool):
-    """The loader's seconds to make each bs-16 batch of the loop phase's
-    synthetic train set (decode, ToF simulation where the host does it,
-    collate, pin), with or without ``--device_pipeline``, as ms; and the
-    first batch, on the card."""
-    from cfpnet_torch import tracing
-    from cfpnet_torch.data.datasets import SyntheticDataset
-    from cfpnet_torch.data.pipeline import DataLoader
-
-    c = cfg.replace(device_pipeline=device_pipeline)
-    loader = DataLoader(SyntheticDataset(c, "train", LOOP_SAMPLES), c.bs, shuffle=True,
-                        drop_last=True, seed=c.seed, device="cuda")
-    with tracing.session() as spans:
-        batches = [b for b in loader]
-    torch.cuda.synchronize()
-    return [s.ms for s in spans.drain().spans if s.name == "data.produce"], batches[0]
 
 
 def device_preprocess_check(tconfig):
-    """``data/tof_sim_device.py`` on one raw bs-16 batch at 416x544 on the
-    production train geometry: its device ms (CUDA events), its device
-    kernels (torch.profiler), no copy to the host and no sync; the
-    producer's ms a batch with and without ``--device_pipeline``; on the
-    batch's depth maps, ``get_hist`` on the card against the host's
-    ``tof_sim.get_hist`` (mask equal, (mu, sigma) within 1e-5 relative),
-    and the whole transform on the card against itself on the CPU with the
-    same draws (depth and mask equal, points and image within 1e-5 of their
-    largest value: the card sums the moments in another order)."""
+    """``data/tof_sim_device.py`` on the first raw bs-16 batch at 416x544 that
+    the loader gives under ``--device_pipeline`` (image and depth only) on
+    the production train geometry: its outputs' shapes, finite, with no
+    copy to the host and no sync; on the batch's depth maps, ``get_hist``
+    on the card against the host's ``tof_sim.get_hist`` (mask equal, (mu,
+    sigma) within 1e-5 relative), and the whole transform on the card
+    against itself on the CPU with the same draws (depth and mask equal,
+    points and image within 1e-5 of their largest value: the card sums the
+    moments in another order)."""
     from cfpnet_torch.data import tof_sim
+    from cfpnet_torch.data.datasets import SyntheticDataset
     from cfpnet_torch.data.geometry import geometry_for
+    from cfpnet_torch.data.pipeline import DataLoader
     from cfpnet_torch.data.tof_sim_device import (device_preprocess, draw_augmentations,
                                                   get_hist, preprocess_batch)
     from cfpnet_torch.train.loop import prep_generator
 
-    cfg = loop_config(tconfig)
-    host_ms, _ = producer_ms(cfg, False)
-    raw_ms, raw = producer_ms(cfg, True)
+    cfg = loop_config(tconfig).replace(device_pipeline=True)
+    loader = DataLoader(SyntheticDataset(cfg, "train", LOOP_SAMPLES), cfg.bs, shuffle=True,
+                        drop_last=True, seed=cfg.seed, device="cuda")
+    raw = [b for b in loader][0]
     if set(raw) != {"image_raw", "depth"}:
         raise AssertionError(f"a --device_pipeline batch holds {sorted(raw)}")
     geom = geometry_for(cfg, "train")
@@ -1959,14 +1557,6 @@ def device_preprocess_check(tconfig):
     for _ in range(3):
         out = prep()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(PIPELINE_REPS):
-        out = prep()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / PIPELINE_REPS
-    events = device_events(prep)
     with HostWaits() as waits:
         prep()
     if waits.counts["d2h"] or waits.counts["syncs"] or waits.counts["h2d_pageable"]:
@@ -2007,32 +1597,26 @@ def device_preprocess_check(tconfig):
     if not all(same.values()) or max(rel.values()) > 1e-5:
         raise AssertionError(f"device_preprocess on the card against the CPU: equal {same}, "
                              f"max rel {rel}")
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     return dict(batch=B, size=[H, W], zones=Z, image_raw_dtype=str(raw["image_raw"].dtype),
-                ms=ms, reps=PIPELINE_REPS, device_kernels=sum(e.count for e in device),
-                profiled_device_ms=sum(e.self_device_time_total for e in device) / 1e3,
-                host_waits=waits.counts, producer_ms_host_pipeline=host_ms,
-                producer_ms_device_pipeline=raw_ms,
+                host_waits=waits.counts,
                 get_hist_vs_host=dict(masks_equal=True, max_abs=float(np.max(np.abs(fh - hfh))),
                                       valid_zones=int(mask.sum()), zones=int(mask.size)),
                 card_vs_cpu=dict(equal=same, max_rel=rel))
 
 
-def loop_device_pipeline_check(tconfig, loop):
+def loop_device_pipeline_check(tconfig):
     """``run_training`` with ``--compute_dtype bfloat16 --device_pipeline``
     at the loop phase's configuration: run A (one epoch, no profiler; the
     launch counters set to 0 before it and read after: each step 6 / 12 /
     18 on bf16 tensors, the validation's on float32), then under
     ``deterministic_algorithms`` run D (two epochs) and run R resumed from
     D's epoch-0 checkpoint, equal to D bit for bit in its losses and final
-    state. Loop ms a step, the producer's ms and the loader's waits beside
-    phase 10's (its run A's, epochs 0 and 1; each epoch's first step waits
-    for the loader in both). The transform's own host waits are
-    ``device_preprocess_check``'s, phase 10's a loop step's."""
+    state. The transform's own host waits are ``device_preprocess_check``'s,
+    phase 10's a loop step's."""
     import shutil
     import tempfile
 
-    from cfpnet_torch import kernels, weights
+    from cfpnet_torch import tracing, weights
 
     cfg = loop_config(tconfig).replace(compute_dtype="bfloat16", device_pipeline=True,
                                        name="chip_smoke_dp", save_dir="results/chip_smoke_dp")
@@ -2042,9 +1626,9 @@ def loop_device_pipeline_check(tconfig, loop):
     os.chdir(work)
     try:
         probe, trace_a = LoopProbe(cuda=False), []
-        kernels.reset_launches()
-        state_a, log_a, seconds_a = loop_run(cfg.replace(epochs=1), init, trace_a, probe)
-        total, by_dtype = launch_counts(), launches_by_dtype()
+        tracing.reset_counters("kernel.")
+        state_a, _ = loop_run(cfg.replace(epochs=1), init, trace_a, probe)
+        total, by_dtype = launch_counts(), dtype_launches()
         losses = [float(t["loss"]) for t in trace_a]
         if len(losses) != LOOP_SAMPLES // cfg.bs or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"device-pipeline loop losses {losses}")
@@ -2060,10 +1644,10 @@ def loop_device_pipeline_check(tconfig, loop):
         with deterministic_algorithms() as caught:
             trace_d, trace_r = [], []
             cfg_d = cfg.replace(name=cfg.name + "_d", save_dir=cfg.save_dir + "_d")
-            state_d, log_d, seconds_d = loop_run(cfg_d, init, trace_d)
+            state_d, log_d = loop_run(cfg_d, init, trace_d)
             val_d = next(line for line in log_d if line["kind"] == "val")
             ckpt0 = f"checkpoints/{cfg_d.name}/0_{val_d['rmse']:.3f}"
-            state_r, log_r, seconds_r = loop_run(
+            state_r, _ = loop_run(
                 cfg.replace(name=cfg.name + "_r", save_dir=cfg.save_dir + "_r", resume=ckpt0),
                 init, trace_r)
         tail = [t for t in trace_d if t["epoch"] == LOOP_EPOCHS - 1]
@@ -2074,17 +1658,9 @@ def loop_device_pipeline_check(tconfig, loop):
             raise AssertionError(f"the resumed device-pipeline run is not the uninterrupted one "
                                  f"bit for bit: steps {loss_differs}, state {differs[:5]} "
                                  f"({len(differs)} entries); warnings {caught[:3]}")
-        (epoch,) = [line for line in log_a if line["kind"] == "epoch"]
-        ms = epoch["train_s"] * 1e3 / epoch["steps"]
         return dict(batch=cfg.bs, samples=LOOP_SAMPLES, dtype=cfg.compute_dtype, losses=losses,
-                    launches_run=total, launches_by_dtype=by_dtype,
+                    launches_run=total, dtype_launches=by_dtype,
                     launches_a_step={t["step"]: probe.launches[t["step"]] for t in trace_a},
-                    loop_ms_a_step=ms, loop_ms_a_step_phase10_f32=loop["loop_ms_a_step"],
-                    loader_wait_ms_each_step=epoch["loader_wait_ms"],
-                    loader_wait_ms_each_step_phase10=loop["loader_wait_ms_each_step"],
-                    producer_ms_each_batch=epoch["producer_ms"],
-                    producer_ms_each_batch_phase10=loop["producer_ms_each_batch"],
-                    run_s=dict(a=seconds_a, d=seconds_d, resumed=seconds_r),
                     resume=dict(checkpoint=os.path.basename(ckpt0), steps=len(trace_r),
                                 resumed_bit_equal_deterministic=True,
                                 deterministic_warnings=sorted({str(w.message)[:200]
@@ -2097,14 +1673,13 @@ def loop_device_pipeline_check(tconfig, loop):
 def step_options_check(tconfig):
     """The bs-16 step (416x544, deterministic weights, one synthetic batch)
     plain, with ``--grad_accum 2`` and ``4`` and with ``--remat``, in f32
-    and bf16: ms a step (``OPTION_STEPS_TIMED`` steps between CUDA events
-    after one warm step; a loss that is not finite raises), the peak of
-    allocated memory, the launches of the warm step. Then, under
-    ``deterministic_algorithms``, one remat step against one plain step
-    from the same weights in each dtype: loss, every gradient and every
-    running statistic bit for bit."""
-    from cfpnet_torch import kernels, weights
-    from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
+    and bf16: ``OPTION_STEPS`` steps with finite losses (from the second a
+    CUDA graph where ``steps.graph_engages``), the first step's launches.
+    Then, under ``deterministic_algorithms``, one remat step against one
+    plain step from the same weights in each dtype: loss, every gradient
+    and every running statistic bit for bit."""
+    from cfpnet_torch import tracing, weights
+    from cfpnet_torch.evaluate_time import make_train_batch
     from cfpnet_torch.models.deltar import make_model, model_geometries
     from cfpnet_torch.train import steps
 
@@ -2122,22 +1697,16 @@ def step_options_check(tconfig):
             model.remat = cfg.remat
             state = steps.create_train_state(model, cfg, GOLDEN_TRAIN_TOTAL_STEPS)
             step = steps.make_train_step(model, cfg, geoms)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            kernels.reset_launches()
-            first = float(step(state, batch, next(seeds)))
+            tracing.reset_counters("kernel.")
+            losses = [float(step(state, batch, next(seeds)))]
             launches = launch_counts()
-            ms = train_latency_ms(lambda: step(state, batch, next(seeds)), OPTION_STEPS_TIMED,
-                                  OPTION_STEPS_TIMED)
+            losses += [float(step(state, batch, next(seeds))) for _ in range(OPTION_STEPS - 1)]
             accum = cfg.grad_accum
-            if not math.isfinite(first) or launches != {k: accum * v
-                                                        for k, v in TRAIN_LAUNCHES.items()}:
-                raise AssertionError(f"{dtype} {name}: first loss {first}, launches {launches}")
-            out[f"{name}_{dtype}"] = dict(
-                ms_a_step=ms, first_loss=first, launches_a_step=launches,
-                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                allocated_before_gib=base / 2 ** 30)
+            if not all(map(math.isfinite, losses)) or launches != {
+                    k: accum * v for k, v in TRAIN_LAUNCHES.items()}:
+                raise AssertionError(f"{dtype} {name}: losses {losses}, first step's launches "
+                                     f"{launches}")
+            out[f"{name}_{dtype}"] = dict(losses=losses, launches_a_step=launches)
             del state, step
     model.remat = False
 
@@ -2200,145 +1769,18 @@ def debug_nans_check(tconfig):
     return dict(clean_loss=clean, raised="FloatingPointError", message=message[:160])
 
 
-def train_options_phase(tconfig, loop):
+def train_options_phase(tconfig):
     """Phase 14: ``--device_pipeline``, ``--grad_accum``, ``--remat`` and
     ``--debug_nans`` on the card (``device_preprocess_check``,
     ``loop_device_pipeline_check``, ``step_options_check``,
     ``debug_nans_check``)."""
-    t0 = time.perf_counter()
-    out = dict(phase="train_options", device_preprocess=device_preprocess_check(tconfig))
-    out["loop_device_pipeline"] = loop_device_pipeline_check(tconfig, loop)
-    out["step_options"] = step_options_check(tconfig)
-    out["debug_nans"] = debug_nans_check(tconfig)
-    out["seconds"] = time.perf_counter() - t0
-    return out
+    return dict(phase="train_options", device_preprocess=device_preprocess_check(tconfig),
+                loop_device_pipeline=loop_device_pipeline_check(tconfig),
+                step_options=step_options_check(tconfig), debug_nans=debug_nans_check(tconfig))
 
 
-def check_kernels_bf16(config, geoms, batch: int, mode: str = "online_eval"):
-    """The bf16 phase's kernels: each bf16 variant at every main-path shape
-    of the forward in ``mode`` at ``batch`` (the eval forward, or the bf16
-    train step's forward at "train") against its plain version in bf16 on the
-    same bf16 inputs (both round at the Pallas kernel's points; their f32
-    sums run in another order, so a value may land one bf16 ulp apart:
-    max |kernel - plain| <= ``BF16_TOL`` * max |plain|), with the share of
-    elements that differ at all, and the kernel's ms a call against its
-    bound: the bytes at 2 a value over the memory rate, the operations over
-    the f32 rate (attention, dwconv: f32 arithmetic on the CUDA cores) or
-    the dense bf16 tensor-core rate (the fused layer: its products are
-    bf16 x bf16 with f32 sums, whatever instruction the kernel issues);
-    for dwconv also one cuDNN call on the same bf16 inputs (``F.conv2d``
-    with groups=C: f32 sums, the output rounded once), timed only. At the
-    train shapes the cuDNN call and the fused layer's split by pass are
-    left out (``library_ms`` None): phase 4 times cuDNN there."""
-    from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
-    from cfpnet_torch.models.transformer import LoFTREncoderLayer
-    from cfpnet_torch.ops.attention import linear_attention as att_plain
-    from cfpnet_torch.ops.dwconv import depthwise_conv2d as dw_plain
-    from cfpnet_torch.ops.loftr import loftr_apply
-
-    att_shapes, dw_shapes, loftr_shapes = main_path_shapes(config, geoms, batch, mode)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 200 + batch)
-    bf16 = torch.bfloat16
-    full = mode != "train"
-
-    def randn(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, device="cuda", generator=gen)).to(bf16)
-
-    def held(name, shape, got, ref):
-        torch.cuda.synchronize()
-        if got.dtype != bf16 or ref.dtype != bf16:
-            raise AssertionError(f"{name} {shape}: got {got.dtype}, plain {ref.dtype}")
-        g, r = got.float(), ref.float()
-        err, top = float((g - r).abs().max()), float(r.abs().max())
-        if not (err <= BF16_TOL * top):
-            raise AssertionError(f"bf16 {name} {shape} at bs={batch}: max err {err} > "
-                                 f"{BF16_TOL} * {top}")
-        return dict(max_abs_err=err, max_abs_plain=top, differ_share=float((g != r).float().mean()))
-
-    lines = []
-    for (N, L, S, H, D), calls in sorted(att_shapes.items()):
-        q, k, v = randn(N, L, H, D), randn(N, S, H, D), randn(N, S, H, D)
-        line = held("linear_attention", (N, L, S, H, D),
-                    linear_attention.linear_attention(q, k, v), att_plain(q, k, v))
-        C = H * D
-        line.update(ms=device_ms(lambda: linear_attention.linear_attention(q, k, v)),
-                    **bound_fields(2 * (2 * N * L * C + 2 * N * S * C),
-                                   N * H * (2 * S * D * D + S * D + 2 * L * D * D + 2 * L * D)),
-                    library_ms=None)
-        lines.append(dict(kernel="linear_attention", shape=dict(N=N, L=L, S=S, H=H, D=D),
-                          calls=calls, **line))
-    for (B, H, W, C, kk), calls in sorted(dw_shapes.items()):
-        x, w, b = randn(B, H, W, C), randn(C, 1, kk, kk, scale=0.05), randn(C)
-        line = held("dwconv", (B, H, W, C, kk), dwconv.depthwise_conv2d(x, w, b), dw_plain(x, w, b))
-        x_nchw = x.permute(0, 3, 1, 2)  # the same memory, as cuDNN's channels-last input
-        line.update(ms=device_ms(lambda: dwconv.depthwise_conv2d(x, w, b)),
-                    **bound_fields(2 * (2 * B * H * W * C + C * kk * kk + C),
-                                   2 * kk * kk * B * H * W * C),
-                    library_ms=device_ms(lambda: F.conv2d(x_nchw, w, b, padding=kk // 2,
-                                                          groups=C)) if full else None)
-        lines.append(dict(kernel="dwconv", shape=dict(B=B, H=H, W=W, C=C, k=kk), calls=calls,
-                          **line))
-    rng = np.random.default_rng(SEED + 200 + batch)
-    for (N, L, S, C, H), calls in sorted(loftr_shapes.items()):
-        def normal(*shape, mean=0.0, std=1.0):
-            a = (mean + std * rng.standard_normal(shape)).astype(np.float32)
-            return torch.from_numpy(a).cuda()
-
-        x, src = normal(N, L, C).to(bf16), normal(N, S, C).to(bf16)
-        layer = LoFTREncoderLayer(C, H).cuda()
-        for name, w in layer.named_parameters():
-            w.data.copy_(normal(*w.shape, mean=1.0 if name.endswith(("norm1.weight",
-                                                                     "norm2.weight")) else 0.0,
-                                std=0.1))
-        p = layer.to(bf16).loftr_params()
-        D = C // H
-        with torch.no_grad():
-            line = held("fused_loftr", (N, L, S, C, H), fused_loftr.fused_loftr(x, src, p, H),
-                        loftr_apply(x, src, p, H))
-            plan = fused_loftr.launch_plan(N, L, S, C, H, bf16)
-            line.update(ms=device_ms(lambda: fused_loftr.fused_loftr(x, src, p, H)),
-                        **(pass_split(lambda: fused_loftr.fused_loftr(x, src, p, H))
-                           if full else {}),
-                        plan={key: plan[key] for key in (
-                            "tm", "cl", "units", "rounds", "blocks_per_sm", "smem", "sum_split",
-                            "sum_groups", "sum_blocks", "sum_smem")},
-                        **bound_fields(2 * (2 * N * L * C + N * S * C + 10 * C * C + 4 * C),
-                                       2 * (N * L * 8 * C * C + N * S * 2 * C * C
-                                            + N * H * (S + L) * D * D), PEAK_BF16),
-                        library_ms=None)
-        lines.append(dict(kernel="fused_loftr", shape=dict(N=N, L=L, S=S, C=C, H=H),
-                          calls=calls, **line))
-    for r in lines:
-        emit(dict(phase="kernel_shape_bf16", batch=batch, mode=mode, **r))
-    return lines
 
 
-def bf16_row_fields(name, lines, lines_bs8):
-    """A kernel row's bf16 columns: per bs=1 forward (calls x per-call value)
-    the card's ms, the bound and the library call's ms (None where there is
-    none), and the worst error and differing share over the bs=1 and bs=8
-    shapes; at bs=8 the ms and the bound."""
-    def per_forward(ls, key):
-        return sum(r["calls"] * r[key] for r in ls if r["kernel"] == name)
-
-    mine = [r for r in lines + lines_bs8 if r["kernel"] == name]
-    library = [r["library_ms"] for r in lines if r["kernel"] == name]
-    extra = {}
-    if name == "fused_loftr":  # its own bf16 source, and the two passes per forward
-        extra = dict(source_bf16="cfpnet_torch/csrc/fused_loftr_bf16.cu",
-                     **{f"{key}_bf16": per_forward(lines, key)
-                        for key in ("summary_ms", "rows_ms")},
-                     **{f"{key}_bs8_bf16": per_forward(lines_bs8, key)
-                        for key in ("summary_ms", "rows_ms")})
-    return dict(card_ms_bf16=per_forward(lines, "ms"), bound_ms_bf16=per_forward(lines, "bound_ms"),
-                library_ms_bf16=(per_forward(lines, "library_ms")
-                                 if None not in library else None),
-                bound_by_bf16=("bytes" if per_forward(lines, "bytes_ms")
-                               >= per_forward(lines, "ops_ms") else "operations"),
-                max_rel_err_bf16=max(r["max_abs_err"] / r["max_abs_plain"] for r in mine),
-                differ_share_bf16=max(r["differ_share"] for r in mine),
-                card_ms_bs8_bf16=per_forward(lines_bs8, "ms"),
-                bound_ms_bs8_bf16=per_forward(lines_bs8, "bound_ms"), **extra)
 
 
 def bf16_drift(pred, golden: str = GOLDEN_FULL):
@@ -2357,13 +1799,6 @@ def bf16_drift(pred, golden: str = GOLDEN_FULL):
     return out
 
 
-def launches_by_dtype():
-    """Each kernel's launches by element type, kernels that launched nothing
-    left out."""
-    from cfpnet_torch import kernels
-
-    return launched({k.__name__.rsplit(".", 1)[-1]: dict(k.launches_by_dtype)
-                     for k in kernels.KERNELS})
 
 
 def launched(by_dtype):
@@ -2373,11 +1808,11 @@ def launched(by_dtype):
     return {k: d for k, d in out.items() if d}
 
 
-def bf16_phase(config, geoms, args, f32_replay_ms):
+def bf16_phase(config, geoms, args):
     """Phase 11: ``--compute_dtype bfloat16`` through the eval forward.
 
     - The bf16 kernels against their bf16 plain versions at every bs=1 and
-      bs=8 main-path shape (``check_kernels_bf16``).
+      bs=8 main-path shape (``check_kernels``).
     - The production model cast to bf16 (``cast_to_compute_dtype``) on the
       golden's inputs cast to bf16: one eager forward with the launch
       counters set to 0 just before it launches 6 attention, 6 dwconv and
@@ -2387,27 +1822,23 @@ def bf16_phase(config, geoms, args, f32_replay_ms):
       and bs=8 (8 synthetic samples): each replay equals the eager bf16
       forward bit for bit.
     - ``cfpnet_torch.evaluate_time --compute_dtype bfloat16``, graphed and
-      eager.
-    - One replay of the f32 and of the bf16 graph at bs=1 profiled, device
-      ms by kind (``by_kind``) and busy share against the replay's ms."""
-    from cfpnet_torch import evaluate_time, kernels, weights
+      eager."""
+    from cfpnet_torch import weights
     from cfpnet_torch.data.datasets import SyntheticDataset, collate
     from cfpnet_torch.graphs import CapturedForward
     from cfpnet_torch.models.deltar import cast_to_compute_dtype, make_model
 
     bf16 = torch.bfloat16
-    lines = check_kernels_bf16(config, geoms, 1)
-    lines_bs8 = check_kernels_bf16(config, geoms, 8)
+    check_kernels(config, geoms, 1, dtype=bf16)
+    check_kernels(config, geoms, 8, dtype=bf16)
 
-    sd = weights.deterministic_state_dict(config)
     model = make_model(config, device="cuda")
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(weights.deterministic_state_dict(config), strict=True)
     cast_to_compute_dtype(model, bf16)
     img, hist, mask = args
     args16 = (img.to(bf16), hist.to(bf16), mask)
-    kernels.reset_launches()
     (bin_edges, pred, prob, _), launches = eager_launches(model, args16, geoms)
-    by_dtype = launches_by_dtype()
+    by_dtype = dtype_launches()
     check_launches(launches, 1)
     if any(set(d) != {"bfloat16"} for d in by_dtype.values()):
         raise AssertionError(f"the bf16 forward launched kernels on other dtypes: {by_dtype}")
@@ -2416,7 +1847,6 @@ def bf16_phase(config, geoms, args, f32_replay_ms):
     captured = CapturedForward(model, geoms, 1, config)
     got = [t.clone() for t in captured(*args16)[:3]]
     same_outputs(got, (bin_edges, pred, prob), "bf16 bs=1 replay")
-    replay16 = device_events(captured.replay)
     del captured
     dataset = SyntheticDataset(config, "online_eval", 8)
     batch = collate([dataset[i] for i in range(8)])
@@ -2429,30 +1859,12 @@ def bf16_phase(config, geoms, args, f32_replay_ms):
     same_outputs(captured(*args8), eager8, "bf16 bs=8 replay")
     del captured, model
 
-    model32 = make_model(config, device="cuda")
-    model32.load_state_dict(sd, strict=True)
-    captured = CapturedForward(model32, geoms, 1, config)
-    captured(*args)
-    replay32 = device_events(captured.replay)
-    del captured, model32
-
-    entry = {}
-    for mode in ("graphed", "eager"):
-        out = evaluate_time.main([f"@{PROD_CONFIG}", "--compute_dtype", "bfloat16",
-                                  "--test_dataset", "synthetic", "--niters", str(BF16_ITERS)]
-                                 + (["--eager"] if mode == "eager" else []))
-        if out["dtype"] != "bfloat16" or not (out["latency_ms_bs1"] > 0):
-            raise AssertionError(f"evaluate_time --compute_dtype bfloat16 ({mode}): {out}")
-        entry[mode] = out["latency_ms_bs1"]
-    return dict(phase="bf16", kernels_bs1=len(lines), kernels_bs8=len(lines_bs8),
-                launches=launches, launches_by_dtype=by_dtype, launches_bs8=launches8,
-                drift_vs_f32_golden=drift, budget=BF16_DRIFT, bs1_replay_equals_eager=True,
-                bs8_replay_equals_eager=True,
-                evaluate_time_ms_bs1=entry, evaluate_time_niters=BF16_ITERS,
-                replay_bf16=busy(replay16, entry["graphed"]),
-                replay_f32=busy(replay32, f32_replay_ms),
-                replay_by_kind=dict(bfloat16=by_kind(replay16), float32=by_kind(replay32))
-                ), lines, lines_bs8
+    entry = {mode: evaluate_time_run([f"@{PROD_CONFIG}"] + flags, "bfloat16")
+             for mode, flags in (("graphed", []), ("eager", ["--eager"]))}
+    return dict(phase="bf16", launches=launches, dtype_launches=by_dtype,
+                launches_bs8=launches8, drift_vs_f32_golden=drift, budget=BF16_DRIFT,
+                bs1_replay_equals_eager=True, bs8_replay_equals_eager=True,
+                evaluate_time_ms_bs1=entry)
 
 
 def sweep_phase(work: str):
@@ -2465,17 +1877,15 @@ def sweep_phase(work: str):
     import csv
     import shutil
 
-    from cfpnet_torch import evaluate_all, kernels, weights
+    from cfpnet_torch import evaluate_all, tracing, weights
 
     here = os.getcwd()
     os.chdir(work)
     try:
-        kernels.reset_launches()
-        t0 = time.perf_counter()
+        tracing.reset_counters("kernel.")
         out = evaluate_all.main([f"@{PROD_CONFIG}", "--test_dataset", "synthetic",
                                  "--synthetic_length", "8", "--epochs", str(LOOP_EPOCHS),
                                  "--name", "chip_smoke_loop", "--save_dir", "results"])
-        seconds = time.perf_counter() - t0
         launches = launch_counts()
         with open(out["reports"][0]) as f:
             table = list(csv.reader(f))
@@ -2493,8 +1903,7 @@ def sweep_phase(work: str):
         if out["metrics"][0] == out["metrics"][1]:
             raise AssertionError(f"both epochs' unrounded metrics are {out['metrics'][0]}")
         return dict(phase="sweep", rows=table[1:], metrics=out["metrics"],
-                    weights=out["weights"], tensors_changed=changed, seconds=seconds,
-                    launches=launches)
+                    weights=out["weights"], tensors_changed=changed, launches=launches)
     finally:
         os.chdir(here)
         shutil.rmtree(work, ignore_errors=True)
@@ -2507,7 +1916,6 @@ SERVING_OPS = {"cfpnet::linear_attention": 6, "cfpnet::dwconv2d": 6, "cfpnet::fu
 # device kernels of one replay of the bs=1 serving graph, by name
 SERVING_DEVICE_KERNELS = {"attention_sum_kernel": 6, "attention_apply_kernel": 6,
                           "dwconv_kernel": 6, "summary_kernel": 18, "rows_kernel": 18}
-SERVING_ITERS = 200  # replays timed for each graph (K = 50 a repetition)
 HTTP_CLIENTS = 8
 HTTP_REQUESTS = 16  # bs=1 requests a client
 
@@ -2583,8 +1991,8 @@ def replay_device_kernels(replay, attempts: int = 5):
     """The ported kernels' device launches in one ``replay()`` by name
     (``SERVING_DEVICE_KERNELS``' keys, matched as substrings), from
     torch.profiler; a session that records another count is run again, up
-    to ``attempts`` times (a session now and then records no device event,
-    ``kernel_split``)."""
+    to ``attempts`` times (a session now and then records no device
+    event)."""
     from torch.profiler import ProfilerActivity, profile
 
     replay()
@@ -2617,8 +2025,8 @@ def http_run(dst: str, image: np.ndarray, hist: np.ndarray, mask: np.ndarray):
     artifact ``dst`` with a 2 ms micro-batching window: ``HTTP_CLIENTS``
     concurrent clients, each sending ``HTTP_REQUESTS`` bs=1 requests one
     after the other. Every request must be answered with a finite [1, H, W]
-    depth. Returns requests/s over the run, the p50 and p99 of the
-    requests' ms, and the micro-batcher's batches and rows."""
+    depth. Returns the requests and the micro-batcher's batches and
+    rows."""
     import io
     import threading
     import urllib.request
@@ -2628,7 +2036,7 @@ def http_run(dst: str, image: np.ndarray, hist: np.ndarray, mask: np.ndarray):
     server = http.make_server(dst, port=0, batch_wait_ms=2.0, device="cuda", host="127.0.0.1")
     threading.Thread(target=server.serve_forever, daemon=True).start()
     url = f"http://127.0.0.1:{server.server_address[1]}/predict"
-    latencies, failures = [], []
+    answered, failures = [], []
     try:
         def client(c):
             buf = io.BytesIO()
@@ -2636,7 +2044,6 @@ def http_run(dst: str, image: np.ndarray, hist: np.ndarray, mask: np.ndarray):
                      mask=mask[c % len(mask)][None])
             body = buf.getvalue()
             for _ in range(HTTP_REQUESTS):
-                t = time.perf_counter()
                 try:
                     req = urllib.request.Request(url, data=body, method="POST")
                     with np.load(io.BytesIO(urllib.request.urlopen(req, timeout=120).read())) as z:
@@ -2645,15 +2052,13 @@ def http_run(dst: str, image: np.ndarray, hist: np.ndarray, mask: np.ndarray):
                         failures.append(f"client {c}: depth {depth.shape}")
                 except Exception as e:  # every failure is reported below
                     failures.append(f"client {c}: {e!r}")
-                latencies.append((time.perf_counter() - t) * 1e3)
+                answered.append(c)
 
-        t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=300)
-        seconds = time.perf_counter() - t0
         if any(t.is_alive() for t in threads):
             raise AssertionError("HTTP: a client did not finish in 300 s")
     finally:
@@ -2661,13 +2066,10 @@ def http_run(dst: str, image: np.ndarray, hist: np.ndarray, mask: np.ndarray):
         server.server_close()
         server.batcher.close()
     n = HTTP_CLIENTS * HTTP_REQUESTS
-    if failures or len(latencies) != n:
-        raise AssertionError(f"HTTP: {len(latencies)} of {n} requests, failures {failures[:5]}")
-    return dict(clients=HTTP_CLIENTS, requests=n, seconds=seconds, requests_a_s=n / seconds,
-                p50_ms=float(np.percentile(latencies, 50)),
-                p99_ms=float(np.percentile(latencies, 99)),
-                batches_run=server.batcher.batches_run, rows_run=server.batcher.rows_run,
-                batch_wait_ms=2.0)
+    if failures or len(answered) != n:
+        raise AssertionError(f"HTTP: {len(answered)} of {n} requests, failures {failures[:5]}")
+    return dict(clients=HTTP_CLIENTS, requests=n, batches_run=server.batcher.batches_run,
+                rows_run=server.batcher.rows_run, batch_wait_ms=2.0)
 
 
 def serving_phase(config, geoms, args, keep=None):
@@ -2692,23 +2094,17 @@ def serving_phase(config, geoms, args, keep=None):
       program, equals the live bs=8 step on that padded batch bit for bit,
       and each row's own bs=1 ``predict`` within the golden's tolerance in
       f32 or ``BF16_DRIFT`` in bf16 (batch sizes change the sums);
-    - times: export seconds and artifact bytes for each (bs, dtype); the
-      bs=1 serving replay against the live ``CapturedForward`` replay in
-      each dtype (``replay_latency_ms``, ``SERVING_ITERS``); bs=8 images/s;
-      and one HTTP run (``http_run``) over the bf16 artifact."""
+    - one HTTP run (``http_run``) over the bf16 artifact."""
     import copy
     import shutil
     import tempfile
 
-    from cfpnet_torch import kernels, weights
+    from cfpnet_torch import tracing, weights
     from cfpnet_torch.data.datasets import SyntheticDataset, collate
-    from cfpnet_torch.evaluate_time import replay_latency_ms
-    from cfpnet_torch.graphs import CapturedForward
     from cfpnet_torch.models.deltar import cast_to_compute_dtype, make_model
     from cfpnet_torch.serve.export import ServingModel, custom_op_calls, export_serving_artifact
     from cfpnet_torch.train.steps import make_eval_step
 
-    t_phase = time.perf_counter()
     sd = weights.deterministic_state_dict(config)
     img, hist, mask = args
     one = (quantize(img.cpu().numpy()), hist.cpu().numpy(), mask.cpu().numpy())
@@ -2736,28 +2132,24 @@ def serving_phase(config, geoms, args, keep=None):
         for dtype_name_, sizes in SERVING_ARTIFACTS:
             dtype = getattr(torch, dtype_name_)
             dst = os.path.join(work, dtype_name_)
-            t0 = time.perf_counter()
             export_serving_artifact(config, sd, dst, batch_sizes=sizes, compute_dtype=dtype_name_,
                                     device="cuda")
-            export_s = time.perf_counter() - t0
             if keep and dtype == torch.bfloat16:
                 shutil.copytree(dst, keep)
             m = ServingModel(dst, "cuda")
             model, step = live_step(dtype)
-            rec = dict(export_s=export_s, bytes={
-                str(bs): os.path.getsize(os.path.join(dst, m.manifest["files"][str(bs)]))
-                for bs in sizes}, per_batch_size={})
+            rec = {}
             for bs in sizes:
                 inputs = one if bs == 1 else eight
                 calls = custom_op_calls(m.exported(bs))
                 if calls != SERVING_OPS:
                     raise AssertionError(f"{dtype_name_} bs={bs} program calls {calls}")
                 tensors = tuple(torch.from_numpy(a).cuda() for a in inputs)
-                kernels.reset_launches()
+                tracing.reset_counters("kernel.")
                 with torch.no_grad():
                     m.module(bs)(*tensors)
                 torch.cuda.synchronize()
-                by_dtype = launches_by_dtype()
+                by_dtype = dtype_launches()
                 want = {k: {dtype_name_: v} for k, v in EVAL_LAUNCHES.items()}
                 if by_dtype != want:
                     raise AssertionError(f"{dtype_name_} bs={bs} module launched {by_dtype}")
@@ -2772,15 +2164,7 @@ def serving_phase(config, geoms, args, keep=None):
                         raise AssertionError(f"{dtype_name_} serving replay ran "
                                              f"{entry['replay_device_kernels']}")
                     entry["golden"] = serving_golden(m.module(1), args, dtype_name_)
-                    entry["serving_replay_ms"] = replay_latency_ms(m.captured(1), SERVING_ITERS, 50)
-                    live = CapturedForward(model, geoms, 1, config)
-                    live(img.to(dtype), hist.to(dtype), mask)
-                    entry["live_replay_ms"] = replay_latency_ms(live, SERVING_ITERS, 50)
-                    del live
                 else:
-                    entry["serving_replay_ms"] = replay_latency_ms(m.captured(bs), SERVING_ITERS,
-                                                                   50)
-                    entry["images_a_s"] = bs * 1000.0 / entry["serving_replay_ms"]
                     got3 = m.predict(*three)
                     same_prediction(got3, step(as_batch(padded))[0][..., 0].cpu().numpy()[:3],
                                     f"{dtype_name_} 3 rows padded to bs=8 against the live step")
@@ -2797,13 +2181,12 @@ def serving_phase(config, geoms, args, keep=None):
                               and np.median(gap) < BF16_DRIFT["median_abs"]):
                         raise AssertionError(f"bf16 padded rows against bs=1: {entry['padding']}")
                     entry["http"] = http_run(dst, *eight)
-                rec["per_batch_size"][str(bs)] = entry
+                rec[str(bs)] = entry
             out["artifacts"][dtype_name_] = rec
             del m, model, step
-        kernels.reset_launches()
+        tracing.reset_counters("kernel.")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2827,8 +2210,7 @@ SELFSUP_GOLDEN_TOL = dict(
     pose_param_at_median=1.1e-4, trunk_grad_norm=0.67, trunk_grad_norm_median=0.054,
     trunk_grad_sum=0.13, trunk_grad_sum_median=0.0032, trunk_grad_at=2.8,
     trunk_grad_at_median=0.18, trunk_param_at=0.36, trunk_param_at_median=0.005)
-SELFSUP_WARM_STEPS = 3  # bs-16 steps before the launch count and the timing
-SELFSUP_STEPS_TIMED = 10  # bs-16 steps between CUDA events, K = 5
+SELFSUP_WARM_STEPS = 3  # bs-16 steps before the launch count
 SELFSUP_LOOP_STEPS = 2  # run_selfsup_training's steps in its one epoch
 SELFSUP_EVAL_IMAGES = 16  # synthetic images of its validation
 
@@ -2848,74 +2230,41 @@ def selfsup_step_check(cfg, device="cuda"):
     weights: ``SELFSUP_WARM_STEPS`` steps with finite terms; one step's
     launches (counters set to 0 just before, read just after), which must
     be 6 attention, 6 + 6 dwconv and 18 fused-LoFTR launches, all on
-    float32; ms a step (``SELFSUP_STEPS_TIMED`` steps between CUDA events)
-    and images/s; the peak of allocated memory; one profiled step by kind,
-    and beside it the objective on its own (``selfsup_terms``: PoseNet, the
-    warp, SSIM, the smoothness and zone terms, forward and backward, on a
-    fixed depth map), timed and profiled. ``device="cpu"`` runs the steps
-    alone (a dry run at a tiny size)."""
-    from cfpnet_torch import kernels, weights
+    float32. ``device="cpu"`` runs the steps alone (a dry run at a tiny
+    size)."""
+    from cfpnet_torch import tracing, weights
     from cfpnet_torch.data.datasets import SyntheticPairDataset, collate
     from cfpnet_torch.data.geometry import geometry_for
-    from cfpnet_torch.evaluate_time import train_latency_ms
     from cfpnet_torch.models.deltar import make_model, model_geometries
     from cfpnet_torch.models.posenet import PoseNet
     from cfpnet_torch.train import selfsup
 
-    cuda = torch.device(device).type == "cuda"
     model = make_model(cfg, device=device)
     state = selfsup.create_selfsup_state(model, cfg, GOLDEN_TRAIN_TOTAL_STEPS,
                                          PoseNet().to(device))
     state.model.load_state_dict(weights.deterministic_selfsup_state_dict(cfg), strict=True)
-    pixel_geom = geometry_for(cfg, "train")
     step = selfsup.make_selfsup_train_step(state, cfg, model_geometries(cfg, "train"),
-                                           pixel_geom)
+                                           geometry_for(cfg, "train"))
     pairs = SyntheticPairDataset(cfg, "train")
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in collate([pairs[i] for i in range(cfg.bs)]).items()}
     seeds = iter(range(cfg.seed, cfg.seed + 10 ** 6))
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
     warm = [{k: float(v) for k, v in step(state, batch, next(seeds)).items()}
             for _ in range(SELFSUP_WARM_STEPS)]
     if not all(math.isfinite(v) for terms in warm for v in terms.values()):
         raise AssertionError(f"selfsup terms of the warm steps: {warm}")
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     step(state, batch, next(seeds))
-    if not cuda:
+    if torch.device(device).type != "cuda":
         return dict(batch=cfg.bs, warm_terms=warm)
     torch.cuda.synchronize()
-    launches, by_dtype = launch_counts(), launches_by_dtype()
+    launches, by_dtype = launch_counts(), dtype_launches()
     if launches != TRAIN_LAUNCHES or any(d != {"float32": launches[k]}
                                          for k, d in by_dtype.items()):
         raise AssertionError(f"a selfsup step launched {by_dtype}, expected {TRAIN_LAUNCHES} "
                              "on float32")
-    ms = train_latency_ms(lambda: step(state, batch, next(seeds))["loss"],
-                          SELFSUP_STEPS_TIMED, 5)
-    events = device_events(lambda: step(state, batch, next(seeds)))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
-    depth_full = (1.0 + 3.0 * batch["image_raw"][..., :1]).requires_grad_()
-
-    def objective():
-        loss = selfsup.selfsup_terms(state.model.pose, cfg, pixel_geom, batch, depth_full)["loss"]
-        loss.backward()
-        return loss.detach()
-
-    objective_ms = train_latency_ms(objective, SELFSUP_STEPS_TIMED, 5)
-    objective_events = device_events(objective)
-    device_share = busy(objective_events, objective_ms)
     return dict(batch=cfg.bs, size=[cfg.input_height, cfg.input_width], warm_terms=warm,
-                launches_a_step=launches, launches_by_dtype=by_dtype, ms_a_step=ms,
-                images_a_s=cfg.bs * 1000.0 / ms, steps_timed=SELFSUP_STEPS_TIMED,
-                max_memory_allocated_gib=peak, profiled_step=busy(events, ms),
-                profiled_step_by_kind=by_kind(events),
-                pose_warp_photometric=dict(
-                    what="selfsup_terms forward and backward on a fixed depth map: PoseNet, "
-                         "the warp, SSIM, smoothness and zone terms (inside the step above)",
-                    ms=objective_ms, device_ms=device_share.get("device_ms"),
-                    kernel_launches=device_share.get("kernel_launches"),
-                    by_kind=by_kind(objective_events)))
+                launches_a_step=launches, dtype_launches=by_dtype)
 
 
 def selfsup_loop_check(cfg, device="cuda"):
@@ -2929,7 +2278,7 @@ def selfsup_loop_check(cfg, device="cuda"):
     import shutil
     import tempfile
 
-    from cfpnet_torch import kernels
+    from cfpnet_torch import tracing
     from cfpnet_torch.models.deltar import make_model
     from cfpnet_torch.train import checkpoint, selfsup
 
@@ -2938,13 +2287,11 @@ def selfsup_loop_check(cfg, device="cuda"):
     work = tempfile.mkdtemp(prefix="chip_smoke_selfsup_", dir=ROOT)
     os.chdir(work)
     try:
-        kernels.reset_launches()
-        t0 = time.perf_counter()
+        tracing.reset_counters("kernel.")
         state = selfsup.run_selfsup_training(cfg, max_steps_per_epoch=SELFSUP_LOOP_STEPS,
                                              device=device)
         if cuda:
             torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         launches = launch_counts()
         with open(os.path.join(cfg.save_dir, "selfsup_log.jsonl")) as f:
             log = [json.loads(line) for line in f]
@@ -2967,7 +2314,7 @@ def selfsup_loop_check(cfg, device="cuda"):
             if launches != want:
                 raise AssertionError(f"run_selfsup_training launched {launches}, expected {want}")
         return dict(steps=SELFSUP_LOOP_STEPS, eval_images=min(SELFSUP_EVAL_IMAGES, 64),
-                    run_s=seconds, launches_run=launches, weights_files=saved,
+                    launches_run=launches, weights_files=saved,
                     best_loaded_bit_equal=True,
                     selfsup_val={k: log[0][k] for k in ("loss", "rmse", "a1", "abs_rel")})
     finally:
@@ -2982,7 +2329,6 @@ def selfsup_phase(tconfig):
     18 launches); (b) the bs-16 step on synthetic pairs
     (``selfsup_step_check``); (c) a short ``run_selfsup_training``
     (``selfsup_loop_check``)."""
-    t0 = time.perf_counter()
     errs, golden_launches, terms = selfsup_golden_errors()
     if golden_launches != TRAIN_LAUNCHES:
         raise AssertionError(f"the selfsup golden step launched {golden_launches}")
@@ -2995,13 +2341,11 @@ def selfsup_phase(tconfig):
     cfg = selfsup_config(tconfig)
     step = selfsup_step_check(cfg)
     loop = selfsup_loop_check(cfg)
-    return dict(phase="selfsup", golden_step=golden, step=step, loop=loop,
-                seconds=time.perf_counter() - t0)
+    return dict(phase="selfsup", golden_step=golden, step=step, loop=loop)
 
 
 # phase 17: data parallelism (cfpnet_torch/parallel)
 DP_TIMEOUT = 600.0  # seconds for the two processes, and for any join or collective of theirs
-DP_STEPS_TIMED = 3  # bs-16 steps timed in each process, after one warm and one counted step
 DP_EVAL_IMAGES = 8  # synthetic images of the sharded evaluation
 DP_EVAL_RTOL = 1e-6  # its merged metrics against one process's evaluate
 
@@ -3019,13 +2363,11 @@ def state_digest(model) -> str:
 
 
 class CountedAllReduce:
-    """``torch.distributed.all_reduce`` counted while inside (calls, bytes);
-    with ``sync``, each call also timed between two device synchronizations
-    (``ms``), so that the time is the collective's own (gloo copies a CUDA
-    tensor to the host after the kernels before it)."""
+    """``torch.distributed.all_reduce`` counted while inside (calls,
+    bytes)."""
 
-    def __init__(self, sync: bool = False):
-        self.sync, self.calls, self.bytes, self.ms = sync, 0, 0, 0.0
+    def __init__(self):
+        self.calls, self.bytes = 0, 0
 
     def __enter__(self):
         import torch.distributed as dist
@@ -3035,14 +2377,7 @@ class CountedAllReduce:
         def counted(t, *args, **kw):
             self.calls += 1
             self.bytes += t.numel() * t.element_size()
-            if self.sync:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            out = self.real(t, *args, **kw)
-            if self.sync:
-                torch.cuda.synchronize()
-                self.ms += 1e3 * (time.perf_counter() - t0)
-            return out
+            return self.real(t, *args, **kw)
 
         dist.all_reduce = counted
         return self
@@ -3066,12 +2401,8 @@ def dp_rank(rank: int, init_method: str, out_dir: str) -> None:
       images at 480x640 on the stepped weights, and this process's own
       ``evaluate`` of all of them;
     - ``step16``: the production f32 step at global bs 16 (8 + 8 rows): the
-      launches of one step, ms a step over ``DP_STEPS_TIMED`` steps (host
-      clock, synchronized), the all-reduces of one step (calls, bytes, ms
-      between synchronizations, and that step's ms), one profiled step
-      (its ``c10d::allreduce_`` host time and the device's busy share),
-      and the peak of allocated memory."""
-    from cfpnet_torch import kernels, weights
+      launches of its second step (the first warms up) and its loss."""
+    from cfpnet_torch import tracing, weights
     from cfpnet_torch.data.datasets import SyntheticDataset
     from cfpnet_torch.data.pipeline import make_loader
     from cfpnet_torch.evaluate_time import make_train_batch, train_config
@@ -3106,36 +2437,12 @@ def dp_rank(rank: int, init_method: str, out_dir: str) -> None:
     train_step = steps.make_train_step(model, tconfig, model_geometries(tconfig, "train"))
     batch = mesh.shard_batch(make_train_batch(tconfig, tconfig.bs, device))
     seeds = iter(range(tconfig.seed, tconfig.seed + 10 ** 6))
-    torch.cuda.reset_peak_memory_stats(device)
     train_step(state, batch, next(seeds))
-    kernels.reset_launches()
-    train_step(state, batch, next(seeds))
+    tracing.reset_counters("kernel.")
+    loss = train_step(state, batch, next(seeds))
     torch.cuda.synchronize()
-    step_launches = launch_counts()
-    mesh.barrier()
-    t0 = time.perf_counter()
-    for _ in range(DP_STEPS_TIMED):
-        loss = train_step(state, batch, next(seeds))
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / DP_STEPS_TIMED
-    mesh.barrier()
-    with CountedAllReduce(sync=True) as reduced:
-        t0 = time.perf_counter()
-        train_step(state, batch, next(seeds))
-        torch.cuda.synchronize()
-        synced_ms = 1e3 * (time.perf_counter() - t0)
-    events = device_events(lambda: train_step(state, batch, next(seeds)))
-    c10d = [e for e in events if e.key == "c10d::allreduce_"]
-    out["step16"] = dict(
-        rows=int(batch["image"].shape[0]), global_batch=tconfig.bs, launches_a_step=step_launches,
-        ms_a_step=ms, images_a_s=tconfig.bs * 1000.0 / ms, steps_timed=DP_STEPS_TIMED,
-        loss=float(loss), allreduce_calls_a_step=reduced.calls,
-        allreduce_bytes_a_step=reduced.bytes, allreduce_ms_synced=reduced.ms,
-        step_ms_synced=synced_ms, allreduce_share_synced=reduced.ms / synced_ms,
-        profiled_c10d_allreduce=dict(calls=sum(e.count for e in c10d),
-                                     host_ms=sum(e.cpu_time_total for e in c10d) / 1e3),
-        profiled_step=busy(events, ms),
-        max_memory_allocated_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    out["step16"] = dict(rows=int(batch["image"].shape[0]), global_batch=tconfig.bs,
+                         launches_a_step=launch_counts(), loss=float(loss))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -3152,8 +2459,7 @@ def multi_process_phase(artifact: str):
         ``parallel/launch.py``, ``DP_TIMEOUT``): the golden step as 1 + 1
         rows within ``TRAIN_GOLDEN_TOL`` of the golden, both processes'
         parameters and buffers after it equal bit for bit, 6 / 12 / 18
-        launches a step in each (the golden step and the bs-16 step);
-        the bs-16 step's times, all-reduces and memory for the record; and
+        launches a step in each (the golden step and the bs-16 step); and
         ``evaluate_sharded``'s metrics equal on both, within
         ``DP_EVAL_RTOL`` of one process's ``evaluate``.
     (c) ``ServingModel.predict_sharded`` over the one card equals
@@ -3171,7 +2477,6 @@ def multi_process_phase(artifact: str):
     from cfpnet_torch.parallel import launch, mesh
     from cfpnet_torch.serve.export import ServingModel
 
-    t_phase = time.perf_counter()
     ref = np.load(GOLDEN_TRAIN)
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
@@ -3205,9 +2510,7 @@ def multi_process_phase(artifact: str):
         gc.collect()
         torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
         launch.spawn("chip_smoke:dp_rank", 2, (work,), timeout=DP_TIMEOUT)
-        two_s = time.perf_counter() - t0
         ranks = []
         for r in (0, 1):
             with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -3248,34 +2551,31 @@ def multi_process_phase(artifact: str):
                                  f"{np.abs(got.astype(np.float64) - want).max()}")
     replicas = sorted(m._replicas)
     return dict(phase="multi_process", group_of_one=one, two_processes=dict(
-        seconds=two_s, golden_loss=ranks[0]["golden"]["loss"],
+        golden_loss=ranks[0]["golden"]["loss"],
         golden_errors=[r["golden"]["errors"] for r in ranks],
         golden_launches=ranks[0]["golden"]["launches"], state_bit_identical=True,
         evaluate_sharded=ranks[0]["evaluate"]["sharded"], step16=[r["step16"] for r in ranks]),
         predict_sharded=dict(rows=8, equals_predict=True, replicas=replicas,
-                             cards=torch.cuda.device_count()),
-        seconds=time.perf_counter() - t_phase)
+                             cards=torch.cuda.device_count()))
 
 
 # phase 18: spatial partitioning (--spatial_shards, cfpnet_torch/parallel/spatial.py)
 SPATIAL_GRID = (1, 2)  # (dp, sp) over ["cuda:0"] * 2: the one card, repeated
-SPATIAL_STEPS_TIMED = 6  # bs-16 grid steps between CUDA events (K = 3), after 2 warm ones
 
 
-def spatial_phase(tconfig, plain_step_ms: float, card: str):
+def spatial_phase(tconfig):
     """Phase 18: the production model with each image's rows split over a
     1 x 2 grid of the one card (``SPATIAL_GRID``), the library's repeated
     device list. The f32 eval forward at bs 2 (the golden image and its
     mirror) against the one-device forward (max |diff| <= ``TOL`` x max
     |one-device|) and its first row against the golden; the bf16 forward
     within ``BF16_DRIFT`` of the golden; each forward launching 6 / 6 / 18
-    and 217 bn_act (``GRID_EVAL_LAUNCHES``);
-    the golden train step on the grid within ``TRAIN_GOLDEN_TOL``, 6 / 12 /
-    18 launches; the bs-16 step at 416x544 on the grid, ms a step beside
-    phase 9's one-device step, launches and peak memory. ``card`` (the
-    nvidia-smi line) goes beside every number."""
-    from cfpnet_torch import kernels, weights
-    from cfpnet_torch.evaluate_time import make_train_batch, train_latency_ms
+    and 217 bn_act (``GRID_EVAL_LAUNCHES``); the golden train step on the
+    grid within ``TRAIN_GOLDEN_TOL``, 6 / 12 / 18 launches; the bs-16 step
+    at 416x544 on the grid: two steps with finite losses, then a third's
+    launches."""
+    from cfpnet_torch import tracing, weights
+    from cfpnet_torch.evaluate_time import make_train_batch
     from cfpnet_torch.models.deltar import cast_to_compute_dtype, make_model, model_geometries
     from cfpnet_torch.parallel import spatial
     from cfpnet_torch.train import steps
@@ -3300,7 +2600,7 @@ def spatial_phase(tconfig, plain_step_ms: float, card: str):
         return edges, spatial.gather(pred, grid.root, 1), spatial.gather(prob, grid.root, 1)
 
     def counted(fn):
-        kernels.reset_launches()
+        tracing.reset_counters("kernel.")
         out = fn()
         torch.cuda.synchronize()
         return out, launch_counts()
@@ -3316,9 +2616,6 @@ def spatial_phase(tconfig, plain_step_ms: float, card: str):
     if not all(math.isfinite(v) and v <= TOL for v in rel.values()):
         raise AssertionError(f"the grid forward against the one-device forward: {rel}")
     golden = golden_diffs(got[0][:1], got[1][:1])
-    forward_ms = device_ms(lambda: on_grid(model), reps=5, trials=3)
-    with torch.no_grad():
-        one_ms = device_ms(lambda: model(img, hist, mask, geoms), reps=5, trials=3)
     cast_to_compute_dtype(model, torch.bfloat16)
     got16, launches16 = counted(lambda: on_grid(model, torch.bfloat16))
     check_launches(launches16, 2, GRID_EVAL_LAUNCHES)
@@ -3341,31 +2638,23 @@ def spatial_phase(tconfig, plain_step_ms: float, card: str):
     step = steps.make_train_step(model, tconfig, model_geometries(tconfig, "train"), grid)
     batch = make_train_batch(tconfig, tconfig.bs)
     seeds = iter(range(tconfig.seed, tconfig.seed + 10 ** 6))
-    torch.cuda.reset_peak_memory_stats()
     losses = [float(step(state, batch, next(seeds))) for _ in range(2)]
     _, step_launches = counted(lambda: step(state, batch, next(seeds)))
     if step_launches != TRAIN_LAUNCHES:
         raise AssertionError(f"a bs-{tconfig.bs} step on the grid launched {step_launches}")
-    ms = train_latency_ms(lambda: step(state, batch, next(seeds)), SPATIAL_STEPS_TIMED, 3)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"grid step losses {losses}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del model, state
-    return dict(phase="spatial", card=card, grid=[dp, sp],
-                devices=[str(d) for d in grid.devices],
+    return dict(phase="spatial", grid=[dp, sp], devices=[str(d) for d in grid.devices],
                 forward=dict(batch=2, size=[480, 640], max_rel_err_vs_one_device=rel,
-                             golden_max_abs_diff=golden, ms=forward_ms, one_device_ms=one_ms),
+                             golden_max_abs_diff=golden),
                 launches_forward=launches, launches_forward_bf16=launches16, bf16_drift=drift,
                 train_golden=dict(loss=float(gloss), launches=glaunches, errors=errs),
                 step16=dict(batch=tconfig.bs, size=[tconfig.input_height, tconfig.input_width],
-                            ms_a_step=ms, one_device_ms_a_step=plain_step_ms,
-                            steps_timed=SPATIAL_STEPS_TIMED, losses_warm=losses,
-                            launches_a_step=step_launches, max_memory_allocated_gib=peak))
+                            losses_warm=losses, launches_a_step=step_launches))
 
 
 # phase 19: the DELTAR baseline, the fusion layer names, masked calls, the demo
-CONFIG_ITERS = 50  # evaluate_time --niters of the phase's replays
-CONFIG_STEPS_TIMED = 4  # bs-16 baseline steps between CUDA events (K = 2), after 2 warm ones
 # max |card - CPU float64| / max |CPU float64| of a masked call, by dtype
 MASKED_TOL = {torch.float32: 1e-5, torch.bfloat16: BF16_TOL}
 
@@ -3412,13 +2701,14 @@ def config_forward(name: str, device="cuda"):
     return out, model, config, args
 
 
-def replay_ms(argv, dtype: str) -> float:
+def evaluate_time_run(argv, dtype: str) -> float:
     """``python -m cfpnet_torch.evaluate_time`` on ``argv`` (the synthetic
-    sample, the deterministic weights) in ``dtype``: ms of a bs=1 replay."""
+    sample, the deterministic weights) in ``dtype``, which it must report;
+    returns the bs=1 latency it prints."""
     from cfpnet_torch import evaluate_time
 
     out = evaluate_time.main(argv + ["--compute_dtype", dtype, "--test_dataset", "synthetic",
-                                     "--niters", str(CONFIG_ITERS)])
+                                     "--niters", str(EVALUATE_TIME_ITERS)])
     if out["dtype"] != dtype or not out["latency_ms_bs1"] > 0:
         raise AssertionError(f"evaluate_time {argv} --compute_dtype {dtype}: {out}")
     return out["latency_ms_bs1"]
@@ -3426,10 +2716,10 @@ def replay_ms(argv, dtype: str) -> float:
 
 def baseline_step(config):
     """The baseline's bs-16 train step at 416x544 in f32 from the
-    deterministic weights: finite losses, the launches of one step, ms a
-    step, peak memory."""
-    from cfpnet_torch import kernels, weights
-    from cfpnet_torch.evaluate_time import make_train_batch, train_config, train_latency_ms
+    deterministic weights: finite losses of three steps, the launches of
+    the third."""
+    from cfpnet_torch import tracing, weights
+    from cfpnet_torch.evaluate_time import make_train_batch, train_config
     from cfpnet_torch.models.deltar import make_model, model_geometries
     from cfpnet_torch.train import steps
 
@@ -3440,9 +2730,8 @@ def baseline_step(config):
     step = steps.make_train_step(model, tconfig, model_geometries(tconfig, "train"))
     batch = make_train_batch(tconfig, tconfig.bs)
     seeds = iter(range(tconfig.seed, tconfig.seed + 10 ** 6))
-    torch.cuda.reset_peak_memory_stats()
     losses = [float(step(state, batch, next(seeds))) for _ in range(2)]
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     losses.append(float(step(state, batch, next(seeds))))
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -3450,11 +2739,8 @@ def baseline_step(config):
         raise AssertionError(f"a baseline bs-{tconfig.bs} step launched {launches}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"baseline step losses {losses}")
-    ms = train_latency_ms(lambda: step(state, batch, next(seeds)), CONFIG_STEPS_TIMED, 2)
     return dict(batch=tconfig.bs, size=[tconfig.input_height, tconfig.input_width],
-                dtype="float32", losses=losses, launches_a_step=launches, ms_a_step=ms,
-                steps_timed=CONFIG_STEPS_TIMED,
-                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                dtype="float32", losses=losses, launches_a_step=launches)
 
 
 def masked_calls(device="cuda", scale: int = 4):
@@ -3466,7 +2752,7 @@ def masked_calls(device="cuda", scale: int = 4):
     values, within ``MASKED_TOL`` x max |float64|, with no kernel launched
     (the plain route); the same calls unmasked launch their kernels on the
     card."""
-    from cfpnet_torch import kernels
+    from cfpnet_torch import tracing
     from cfpnet_torch.models.deltar import model_geometries
     from cfpnet_torch.models.transformer import LoFTREncoderLayer
     from cfpnet_torch.ops import dispatch
@@ -3505,7 +2791,7 @@ def masked_calls(device="cuda", scale: int = 4):
             ts = [torch.from_numpy(a).to(dtype).double() for a in (q, k, v, x, src)]
             ref = (dispatch.attention(*ts[:3], q_mask=masks["x"], kv_mask=masks["kv"]),
                    ref_layer(ts[3], ts[4], masks["x"], masks["kv"]))
-        kernels.reset_launches()
+        tracing.reset_counters("kernel.")
         got = run(dtype, device, layer)
         if device != "cpu":
             torch.cuda.synchronize()
@@ -3521,7 +2807,7 @@ def masked_calls(device="cuda", scale: int = 4):
             raise AssertionError(f"masked calls in {dtype} launched {launches}")
         unmasked = None
         if device != "cpu":
-            kernels.reset_launches()
+            tracing.reset_counters("kernel.")
             run(dtype, device, layer, masked=False)
             torch.cuda.synchronize()
             unmasked = launch_counts()
@@ -3565,37 +2851,35 @@ def demo_check(device="cuda"):
                 max=float(got.max()), mean=float(got.mean()))
 
 
-def configs_phase(card: str):
+def configs_phase():
     """Phase 19: (a) the DELTAR baseline (``configs/train_deltar_baseline.txt``:
     no combine1, so no dwconv and no cross-zone attention): the f32 bs=1
     forward eager and replayed against ``torch_port_baseline_forward.npz``,
     0 / 0 / 18 launches, the bf16 forward within ``BF16_DRIFT`` of that
-    golden (0 / 0 / 18 on bf16), replay ms of both dtypes through
-    ``evaluate_time``, ``evaluate`` on 2 synthetic images, and the bs-16
-    train step; (b) the production configuration with the fusion layer names
-    ``FUSION_NAMES``: the f32 forward eager and replayed against
-    ``torch_port_fusion_names_forward.npz``, 9 / 12 / 9 launches, replay ms;
-    (c) ``masked_calls``; (d) ``demo_check``. ``card`` (the nvidia-smi line)
-    goes beside every number."""
+    golden (0 / 0 / 18 on bf16), ``evaluate_time`` in both dtypes,
+    ``evaluate`` on 2 synthetic images, and the bs-16 train step; (b) the
+    production configuration with the fusion layer names ``FUSION_NAMES``:
+    the f32 forward eager and replayed against
+    ``torch_port_fusion_names_forward.npz``, 9 / 12 / 9 launches,
+    ``evaluate_time`` in f32; (c) ``masked_calls``; (d) ``demo_check``."""
     from cfpnet_torch import evaluate
     from cfpnet_torch.models.deltar import cast_to_compute_dtype, model_geometries
 
-    t0 = time.perf_counter()
     base, model, config, args = config_forward("baseline")
     cast_to_compute_dtype(model, torch.bfloat16)
     img, hist, mask = args
     (_, pred16, _, _), launches16 = eager_launches(
         model, (img.to(torch.bfloat16), hist.to(torch.bfloat16), mask),
         model_geometries(config, "online_eval"))
-    by_dtype = launches_by_dtype()
+    by_dtype = dtype_launches()
     if launches16 != CONFIG_LAUNCHES["baseline"] or any(
             set(d) - {"bfloat16"} for d in by_dtype.values()):
         raise AssertionError(f"the baseline's bf16 forward launched {by_dtype}")
     base.update(launches_bf16=launches16,
                 bf16_drift=bf16_drift(pred16, CONFIG_GOLDENS["baseline"][0]))
     del model
-    base["replay_ms"] = {dt: replay_ms(config_argv("baseline"), dt)
-                         for dt in ("float32", "bfloat16")}
+    base["evaluate_time_ms_bs1"] = {dt: evaluate_time_run(config_argv("baseline"), dt)
+                                    for dt in ("float32", "bfloat16")}
     entry = evaluate.main(config_argv("baseline") + [
         "--test_dataset", "synthetic", "--synthetic_length", "2", "--time_iters", "0"])
     if len(entry["metrics"]) != 9 or not all(math.isfinite(v)
@@ -3606,10 +2890,11 @@ def configs_phase(card: str):
 
     names, model, _, _ = config_forward("fusion_names")
     del model
-    names["replay_ms"] = {"float32": replay_ms(config_argv("fusion_names"), "float32")}
-    return dict(phase="configs", card=card, baseline=base,
+    names["evaluate_time_ms_bs1"] = {
+        "float32": evaluate_time_run(config_argv("fusion_names"), "float32")}
+    return dict(phase="configs", baseline=base,
                 fusion_names=dict(names, attention_layer=list(FUSION_NAMES)),
-                masked=masked_calls(), demo=demo_check(), seconds=time.perf_counter() - t0)
+                masked=masked_calls(), demo=demo_check())
 
 
 def main() -> int:
@@ -3652,19 +2937,15 @@ def main() -> int:
     geoms = model_geometries(config, "online_eval")
     tconfig = train_config(config)
     tgeoms = model_geometries(tconfig, "train")
-    per_shape = check_kernels(config, geoms)
-    per_shape_bs8 = check_kernels(config, geoms, 8, full=False)
-    per_shape_train = check_kernels(tconfig, tgeoms, tconfig.bs, full=False, mode="train")
+    check_kernels(config, geoms)
+    check_kernels(config, geoms, 8)
+    check_kernels(tconfig, tgeoms, tconfig.bs, mode="train")
 
-    # 4. the kernels' gradients at the train step's shapes
-    gradients = check_gradients(tconfig, tgeoms, tconfig.bs)
-    rows = kernel_rows(per_shape, per_shape_bs8, per_shape_train, gradients)
-    # and the bf16 variants at the bf16 train step's shapes, forward and
-    # backward
-    per_shape_train16 = check_kernels_bf16(tconfig, tgeoms, tconfig.bs, mode="train")
-    gradients16 = check_gradients(tconfig, tgeoms, tconfig.bs, torch.bfloat16)
-    for r in rows:
-        r.update(bf16_train_fields(r["name"], per_shape_train16, gradients16))
+    # 4. the kernels' gradients at the train step's shapes, and the bf16
+    # variants at the bf16 train step's shapes, forward and backward
+    check_gradients(tconfig, tgeoms, tconfig.bs)
+    check_kernels(tconfig, tgeoms, tconfig.bs, mode="train", dtype=torch.bfloat16)
+    check_gradients(tconfig, tgeoms, tconfig.bs, torch.bfloat16)
 
     # 5. slice: the full-width forward through the kernels, against the golden
     model = make_model(config, device="cuda")
@@ -3675,8 +2956,6 @@ def main() -> int:
     args = (img, hist, mask)
     (bin_edges, pred, prob, _), launches = eager_launches(model, args, geoms)
     check_launches(launches, 1)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
     if tuple(pred.shape) != (1, 240, 320, 1) or tuple(prob.shape) != (1, 240, 320, 256):
         raise AssertionError(f"pred {tuple(pred.shape)}, prob {tuple(prob.shape)}")
     if not (torch.isfinite(pred).all() and torch.isfinite(prob).all()):
@@ -3702,14 +2981,12 @@ def main() -> int:
               latency_ms_bs1_eager=entry["bs1"]["latency_ms_bs1_eager"],
               metrics_bs1=entry["bs1"]["metrics"], metrics_bs2=entry["bs2"]["metrics"]))
 
-    # 8. profile: where the bs=1 forward's time goes, eager and replayed
-    profile = profile_phase(model, config, geoms, args, entry["bs1"])
-    emit(profile)
-    check_host_waits(profile)
+    # 8. no host copy and no stream sync in a warmed eager forward
+    emit(host_waits_phase(model, geoms, args))
     del model
 
     # 9. the train step: one step at bs 2 against the JAX package's golden,
-    # then the production step at bs 16, timed and profiled
+    # then the production step at bs 16
     errs, golden_launches, golden_loss = train_golden_errors()
     emit(dict(phase="train_golden", golden=os.path.relpath(GOLDEN_TRAIN, ROOT),
               loss=golden_loss, launches=golden_launches, errors=errs,
@@ -3720,16 +2997,13 @@ def main() -> int:
             v <= TRAIN_GOLDEN_TOL[k] for k, v in errs.items()):
         raise AssertionError(f"train step against the golden: {errs}, tolerance "
                              f"{TRAIN_GOLDEN_TOL}")
-    train = train_step_phase(tconfig)
-    emit(train)
-    for r in rows:
-        r["launches_train_step"] = train["launches_a_step"][r["name"]]
+    emit(train_step_phase(tconfig))
     # the bf16 step: at bs 2 against the same float64 golden, all its kernels
-    # on bf16 tensors; then at bs 16 beside the f32 step
+    # on bf16 tensors; then at bs 16
     errs16, golden_launches16, golden_loss16 = train_golden_errors(compute_dtype="bfloat16")
-    by_dtype16 = launches_by_dtype()
+    by_dtype16 = dtype_launches()
     emit(dict(phase="train_golden_bf16", golden=os.path.relpath(GOLDEN_TRAIN, ROOT),
-              loss=golden_loss16, launches=golden_launches16, launches_by_dtype=by_dtype16,
+              loss=golden_loss16, launches=golden_launches16, dtype_launches=by_dtype16,
               errors=errs16, tolerance=TRAIN_GOLDEN_TOL_BF16))
     if golden_launches16 != TRAIN_LAUNCHES or any(
             d != {"bfloat16": golden_launches16[k]} for k, d in by_dtype16.items()):
@@ -3738,59 +3012,36 @@ def main() -> int:
             v <= TRAIN_GOLDEN_TOL_BF16[k] for k, v in errs16.items()):
         raise AssertionError(f"bf16 train step against the golden: {errs16}, tolerance "
                              f"{TRAIN_GOLDEN_TOL_BF16}")
-    train16 = train_step_phase(tconfig.replace(compute_dtype="bfloat16"))
-    train16["f32_ms_a_step"] = train["ms_a_step"]
-    emit(train16)
-    for r in rows:
-        r["launches_train_step_bf16"] = train16["launches_a_step"][r["name"]]
+    emit(train_step_phase(tconfig.replace(compute_dtype="bfloat16")))
 
     # 10. the training loop: two epochs with validation and checkpoints,
-    # a profiled step, and a resume from the epoch-0 checkpoint
+    # a step's host waits, and a resume from the epoch-0 checkpoint
     import tempfile
 
     sweep_dir = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
-    loop = loop_phase(tconfig, train["images_a_s"], keep_weights=sweep_dir)
-    emit(loop)
-    for r in rows:
-        r["launches_loop"] = loop["launches_run"][r["name"]]
+    emit(loop_phase(tconfig, keep_weights=sweep_dir))
     emit(loop_bf16_phase(tconfig))
 
     # 14. the train options: --device_pipeline (the device transform, a
     # bf16 loop and its resume), --grad_accum, --remat, --debug_nans
-    options = train_options_phase(tconfig, loop)
-    emit(options)
-    for r in rows:
-        r["launches_device_pipeline_loop"] = options["loop_device_pipeline"]["launches_run"][
-            r["name"]]
+    emit(train_options_phase(tconfig))
 
     # 11. bf16: the bf16 kernels, the bf16 forward's launches, drift and
-    # graphs, evaluate_time --compute_dtype bfloat16, device time by kind
-    bf16, lines16, lines16_bs8 = bf16_phase(config, geoms, args, entry["bs1"]["latency_ms_bs1"])
-    emit(bf16)
-    for r in rows:
-        r.update(bf16_row_fields(r["name"], lines16, lines16_bs8),
-                 launches_bf16=bf16["launches_by_dtype"][r["name"]].get("bfloat16", 0))
+    # graphs, evaluate_time --compute_dtype bfloat16
+    emit(bf16_phase(config, geoms, args))
 
     # 12. the epoch sweep over the loop's weights
     emit(sweep_phase(sweep_dir))
 
     # 15. serving: the production model exported (bf16 bs 1 and 8, f32 bs 1),
     # reloaded, its custom ops, launches, replayed kernels, agreement with the
-    # live eval step, golden, padding, times and one HTTP run
+    # live eval step, golden, padding and one HTTP run
     kept = tempfile.mkdtemp(prefix="chip_smoke_artifact_")
-    serving = serving_phase(config, geoms, args, keep=os.path.join(kept, "bf16"))
-    emit(serving)
-    for r in rows:
-        r["launches_serving"] = {
-            dt: a["per_batch_size"]["1"]["eager_launches"][r["name"]].get(dt, 0)
-            for dt, a in serving["artifacts"].items()}
+    emit(serving_phase(config, geoms, args, keep=os.path.join(kept, "bf16")))
 
     # 16. the self-supervised variant: the golden step, the bs-16 step on
     # synthetic pairs, a short run_selfsup_training
-    selfsup = selfsup_phase(tconfig)
-    emit(selfsup)
-    for r in rows:
-        r["launches_selfsup_step"] = selfsup["step"]["launches_a_step"][r["name"]]
+    emit(selfsup_phase(tconfig))
 
     # 17. data parallelism: a group of one over NCCL, two processes on the
     # card over gloo (the golden step, bs 16, sharded evaluation), and
@@ -3802,27 +3053,14 @@ def main() -> int:
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     emit(dp)
-    for r in rows:
-        r["launches_two_rank_step"] = dp["two_processes"]["step16"][0]["launches_a_step"][
-            r["name"]]
 
     # 18. spatial partitioning: the forward, the golden step and the bs-16
     # step with each image's rows split over a 1 x 2 grid of the one card
-    grid18 = spatial_phase(tconfig, train["ms_a_step"], smi[0])
-    emit(grid18)
-    for r in rows:
-        r["launches_spatial_forward"] = grid18["launches_forward"][r["name"]]
-        r["launches_spatial_step"] = grid18["step16"]["launches_a_step"][r["name"]]
+    emit(spatial_phase(tconfig))
 
     # 19. the DELTAR baseline and the fusion layer names against their
     # goldens, masked calls on the plain route, the demo's forward
-    configs = configs_phase(smi[0])
-    emit(configs)
-    for r in rows:
-        r["launches_configs"] = dict(
-            baseline_forward=configs["baseline"]["launches"][r["name"]],
-            baseline_step=configs["baseline"]["step16"]["launches_a_step"][r["name"]],
-            fusion_names_forward=configs["fusion_names"]["launches"][r["name"]])
+    emit(configs_phase())
 
     # 13. the headline benchmark at reduced iterations (its own JSON line),
     # with the root bench's train keys: the bf16 step's, the f32 step's
@@ -3840,8 +3078,6 @@ def main() -> int:
         raise AssertionError(f"cfpnet_torch.bench: rc {rc}, train_dtype "
                              f"{line.get('train_dtype')}, missing {sorted(missing)}")
     emit(dict(phase="done", seconds_total=time.perf_counter() - t_start))
-
-    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": gpu,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from chip_smoke import bn_calls
-from cfpnet_torch import kernels
+from cfpnet_torch import tracing
 from cfpnet_torch.kernels import bn_act
 from cfpnet_torch.models.layers import BatchNorm, frozen_running_stats
 from cfpnet_torch.ops import dispatch
@@ -94,13 +94,13 @@ def test_cpu_eval_is_the_parent_formula(dtype, act, residual, channel_dim, shape
     bn = _module(C, channel_dim, dtype, gen).eval()
     x = torch.randn(shape, generator=gen).to(dtype)
     r = torch.randn(shape, generator=gen).to(dtype) if residual else None
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     with torch.no_grad():
         got = bn(x, act, r)
     want = parent_formula(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, act,
                           channel_dim, r)
     assert got.dtype == want.dtype and torch.equal(got, want)
-    assert bn_act.launches == 0
+    assert tracing.counters("kernel.bn_act.") == {}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -153,12 +153,12 @@ def test_wrapper_on_the_cpu_is_the_plain_twin(dtype):
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(2, 16, 5, 6, generator=gen).to(dtype)
     cl = x.contiguous(memory_format=torch.channels_last)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     for args in (_call_args(x, gen), _call_args(cl, gen, "silu", 1, cl * 0.5)):
         got = bn_act.bn_act(*args)
         assert torch.equal(got, bn_act.bn_act_plain(*args))
         assert got.stride() == args[0].stride()
-    assert bn_act.launches == 0
+    assert tracing.counters("kernel.bn_act.") == {}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -521,10 +521,10 @@ def _errors(x, r, params, channel_dim, act, eps=1e-3):
     """(kernel, plain twin) outputs and their worst errors against the f32
     formula on the same inputs."""
     args = (x, *params, eps, act, channel_dim, r)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = bn_act.bn_act(*args)
     torch.cuda.synchronize()
-    assert bn_act.launches == 1
+    assert sum(tracing.counters("kernel.bn_act.").values()) == 1
     plain = bn_act.bn_act_plain(*args)
     f32 = bn_act.bn_act_plain(*(a.float() if isinstance(a, torch.Tensor) else a for a in args))
     assert got.dtype == x.dtype and got.stride() == plain.stride()
@@ -606,11 +606,11 @@ def test_captured_forward_launches_one_kernel_a_batchnorm(card, name, dtype):
     model, inputs, geoms, config = production_model(name, "cuda", dtype)
     captured = CapturedForward(model, geoms, 1, config)
     assert captured.launches[f"kernel.bn_act.launches.{dtype_name(dtype)}"] == BN_CALLS[name]
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     for _ in range(3):
         captured.replay()
     torch.cuda.synchronize()
-    assert bn_act.launches == 3 * BN_CALLS[name]
+    assert sum(tracing.counters("kernel.bn_act.").values()) == 3 * BN_CALLS[name]
     got = [t.clone() for t in captured(*inputs)[:3]]
     with torch.no_grad():
         want = model(*inputs, geoms)[:3]
@@ -632,8 +632,9 @@ def test_train_step_launches_no_bn_act(card):
     model = make_model(config, device="cuda")
     state = steps.create_train_state(model, config, 100)
     step = steps.make_train_step(model, config, model_geometries(config, "train"))
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     loss = step(state, make_train_batch(config, 2, "cuda"), 7)
     torch.cuda.synchronize()
     assert math.isfinite(float(loss))
-    assert bn_act.launches == 0 and kernels.fused_loftr.launches > 0
+    assert tracing.counters("kernel.bn_act.") == {}
+    assert sum(tracing.counters("kernel.fused_loftr.").values()) > 0

@@ -13,8 +13,8 @@ import gc
 import pytest
 import torch
 
-from chip_smoke import main_path_shapes, production_config
-from cfpnet_torch import kernels
+from chip_smoke import dtype_launches, launch_counts, main_path_shapes, production_config
+from cfpnet_torch import tracing
 from cfpnet_torch.kernels import dwconv, fused_loftr, linear_attention
 from cfpnet_torch.models.deltar import model_geometries
 from cfpnet_torch.ops.attention import linear_attention as attention_plain
@@ -56,10 +56,10 @@ ATTENTION_CALLED = [(1, 1200, 784, 4, 32), (1, 4800, 3136, 4, 16), (1, 19200, 12
     (1, 1, 1, 4, 8), (2, 1, 7, 4, 32), (3, 9, 1, 8, 16)])
 def test_linear_attention_kernel(gen, N, L, S, H, D):
     q, k, v = _randn(gen, N, L, H, D), _randn(gen, N, S, H, D), _randn(gen, N, S, H, D)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = linear_attention.linear_attention(q, k, v)
     torch.cuda.synchronize()
-    assert linear_attention.launches == 1
+    assert launch_counts()["linear_attention"] == 1
     _assert_close(got, attention_plain(q, k, v))
 
 
@@ -100,7 +100,7 @@ def test_linear_attention_back_to_back(gen):
 @pytest.mark.parametrize("N,L,S,H,D", ATTENTION_CALLED + [(140, 144, 144, 8, 4)])
 def test_linear_attention_two_device_kernels_a_call(gen, N, L, S, H, D):
     """At most two device kernels a call, by name (torch.profiler)."""
-    from chip_smoke import kernel_split
+    from bench_dwconv import kernel_split
 
     q, k, v = _randn(gen, N, L, H, D), _randn(gen, N, S, H, D), _randn(gen, N, S, H, D)
     split = kernel_split(lambda: linear_attention.linear_attention(q, k, v))
@@ -118,10 +118,10 @@ def test_linear_attention_two_device_kernels_a_call(gen, N, L, S, H, D):
     (2, 120, 160, 32, 31)])
 def test_dwconv_kernel(gen, B, H, W, C, k):
     x, w, b = _randn(gen, B, H, W, C), 0.05 * _randn(gen, C, 1, k, k), _randn(gen, C)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = dwconv.depthwise_conv2d(x, w, b)
     torch.cuda.synchronize()
-    assert dwconv.launches == 1
+    assert launch_counts()["dwconv"] == 1
     _assert_close(got, dwconv_plain(x, w, b))
     _assert_close(dwconv.depthwise_conv2d(x, w), dwconv_plain(x, w))
 
@@ -156,9 +156,9 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         linear_attention.linear_attention(_randn(gen, 1, 8, 4, 6), _randn(gen, 1, 8, 4, 6),
                                           _randn(gen, 1, 8, 4, 6))
     qg = q.clone().requires_grad_()  # a gradient is no refusal: the kernel forward runs
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     linear_attention.linear_attention(qg, q, q).sum().backward()
-    assert linear_attention.launches == 1 and qg.grad is not None
+    assert launch_counts()["linear_attention"] == 1 and qg.grad is not None
     x = _randn(gen, 1, 8, 8, 4)
     with pytest.raises(ValueError):
         dwconv.depthwise_conv2d(x, _randn(gen, 4, 1, 9, 9))
@@ -174,9 +174,9 @@ def test_linear_attention_backward(gen, N, L, S, H, D):
     ins = [_randn(gen, N, L, H, D).requires_grad_(), _randn(gen, N, S, H, D).requires_grad_(),
            _randn(gen, N, S, H, D).requires_grad_()]
     g = _randn(gen, N, L, H, D)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = torch.autograd.grad(linear_attention.linear_attention(*ins), ins, g)
-    assert linear_attention.launches == 1
+    assert launch_counts()["linear_attention"] == 1
     for a, b in zip(got, torch.autograd.grad(attention_plain(*ins), ins, g)):
         _assert_close(a, b)
 
@@ -190,10 +190,10 @@ def test_dwconv_backward(gen, B, H, W, C, k):
     ins = [_randn(gen, B, H, W, C).requires_grad_(),
            (0.05 * _randn(gen, C, 1, k, k)).requires_grad_(), _randn(gen, C).requires_grad_()]
     g = _randn(gen, B, H, W, C)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = torch.autograd.grad(dwconv.depthwise_conv2d(*ins), ins, g)
     torch.cuda.synchronize()
-    assert dwconv.launches == 2
+    assert launch_counts()["dwconv"] == 2
     for a, b in zip(got, torch.autograd.grad(dwconv_plain(*ins), ins, g)):
         _assert_close(a, b)
 
@@ -232,10 +232,11 @@ def test_train_step_small_geometry(gen):
         step = steps.make_train_step(model, config, geoms)
         batch = make_train_batch(config, 2, device)
         before = model.decoder.conv0.weight.detach().clone()
-        kernels.reset_launches()
+        tracing.reset_counters("kernel.")
         losses[device] = [float(step(state, batch, 7))]
         if device == "cuda":
-            assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 6, 9)
+            want = dict(linear_attention=3, dwconv=6, fused_loftr=9)
+            assert launch_counts().items() >= want.items()
         losses[device].append(float(step(state, batch, 8)))
         assert not torch.equal(model.decoder.conv0.weight.detach(), before)
     assert all(torch.isfinite(torch.tensor(v)).all() for v in losses.values())
@@ -271,10 +272,10 @@ MAIN_PATH_LOFTR = sorted(main_path_shapes(production_config(),
 def test_fused_loftr_kernel(gen, N, L, S, C, H):
     x, src = _randn(gen, N, L, C), _randn(gen, N, S, C)
     _, p = _loftr_params(gen, C)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = fused_loftr.fused_loftr(x, src, p, H)
     torch.cuda.synchronize()
-    assert fused_loftr.launches == 1
+    assert launch_counts()["fused_loftr"] == 1
     _assert_close(got, loftr_apply(x, src, p, H))
 
 
@@ -391,10 +392,10 @@ def test_captured_forward_counts_its_replays(gen):
     from cfpnet_torch.graphs import WARMUP, CapturedForward
 
     config, model, geoms, inputs = _captured_model()
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
 
     def counts():
-        return linear_attention.launches, dwconv.launches, fused_loftr.launches
+        return tuple(launch_counts()[k] for k in ("linear_attention", "dwconv", "fused_loftr"))
 
     captured = CapturedForward(model, geoms, 1, config)
     assert counts() == tuple((WARMUP + 1) * n for n in (3, 3, 9))
@@ -413,9 +414,9 @@ def test_captured_forward_rows_match_bs1(gen):
     from cfpnet_torch.graphs import CapturedForward
 
     config, model, geoms, inputs = _captured_model()
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     _eager(model, inputs, geoms)
-    assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 3, 9)
+    assert launch_counts().items() >= dict(linear_attention=3, dwconv=3, fused_loftr=9).items()
     captured = CapturedForward(model, geoms, 8, config)
     got = captured(*inputs)[:3]
     for i in range(8):
@@ -459,10 +460,10 @@ def test_serving_artifact_on_the_card(gen, dtype, tmp_path):
         assert custom_op_calls(m.exported(bs)) == {
             "cfpnet::linear_attention": 3, "cfpnet::dwconv2d": 3, "cfpnet::fused_loftr": 9,
             "cfpnet::bn_act": 113}
-        kernels.reset_launches()
+        tracing.reset_counters("kernel.")
         with torch.no_grad():
             m.module(bs)(image[:bs], hist[:bs], mask[:bs])
-        assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 3, 9)
+        assert launch_counts().items() >= dict(linear_attention=3, dwconv=3, fused_loftr=9).items()
     got = m.predict(image.cpu().numpy(), hist.cpu().numpy(), mask.cpu().numpy())
     cast_to_compute_dtype(model, getattr(torch, dtype))
     step = make_eval_step(model, config, geoms, protocol="validate",
@@ -490,10 +491,10 @@ def _assert_close_bf16(got, ref):
 @pytest.mark.parametrize("N,L,S,H,D", ATTENTION_CALLED + [(3, 37, 5, 4, 4), (140, 144, 144, 8, 4)])
 def test_linear_attention_kernel_bf16(gen, N, L, S, H, D):
     q, k, v = (_randn(gen, N, n, H, D).bfloat16() for n in (L, S, S))
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = linear_attention.linear_attention(q, k, v)
     torch.cuda.synchronize()
-    assert linear_attention.launches == 1
+    assert launch_counts()["linear_attention"] == 1
     _assert_close_bf16(got, attention_plain(q, k, v))
 
 
@@ -501,10 +502,10 @@ def test_linear_attention_kernel_bf16(gen, N, L, S, H, D):
 def test_dwconv_kernel_bf16(gen, B, H, W, C, k):
     x, w, b = _randn(gen, B, H, W, C), 0.05 * _randn(gen, C, 1, k, k), _randn(gen, C)
     x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = dwconv.depthwise_conv2d(x, w, b)
     torch.cuda.synchronize()
-    assert dwconv.launches == 1
+    assert launch_counts()["dwconv"] == 1
     _assert_close_bf16(got, dwconv_plain(x, w, b))
 
 
@@ -518,10 +519,10 @@ def _loftr_params_bf16(gen, C):
 def test_fused_loftr_kernel_bf16(gen, N, L, S, C, H):
     x, src = _randn(gen, N, L, C).bfloat16(), _randn(gen, N, S, C).bfloat16()
     p = _loftr_params_bf16(gen, C)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = fused_loftr.fused_loftr(x, src, p, H)
     torch.cuda.synchronize()
-    assert fused_loftr.launches == 1
+    assert launch_counts()["fused_loftr"] == 1
     _assert_close_bf16(got, loftr_apply(x, src, p, H))
 
 
@@ -533,10 +534,10 @@ def test_fused_loftr_bf16_cases(gen, N, L, S, C, H):
     inputs equal bit for bit."""
     x, src = _randn(gen, N, L, C).bfloat16(), _randn(gen, N, S, C).bfloat16()
     p = _loftr_params_bf16(gen, C)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = fused_loftr.fused_loftr(x, src, p, H)
     torch.cuda.synchronize()
-    assert fused_loftr.launches == 1
+    assert launch_counts()["fused_loftr"] == 1
     _assert_close_bf16(got, loftr_apply(x, src, p, H))
     assert torch.equal(fused_loftr.fused_loftr(x, src, p, H), got)
 
@@ -595,7 +596,7 @@ def test_bf16_backward_at_a_train_shape(gen, kernel, shape):
         fn = lambda x, s, *_: fused_loftr.fused_loftr(x, s, p, H)  # noqa: E731
         plain = lambda x, s, *_: loftr_apply(x, s, p, H)  # noqa: E731
         want, g = 1, _randn(gen, N, L, C).to(bf16)
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     got = torch.autograd.grad(fn(*ins), ins, g)
     torch.cuda.synchronize()
     assert launches_of(kernel) == {"bfloat16": want}
@@ -604,8 +605,7 @@ def test_bf16_backward_at_a_train_shape(gen, kernel, shape):
 
 
 def launches_of(kernel):
-    return dict({"linear_attention": linear_attention, "dwconv": dwconv,
-                 "fused_loftr": fused_loftr}[kernel].launches_by_dtype)
+    return dtype_launches().get(kernel, {})
 
 
 def _small_train_config(compute_dtype="bfloat16", **options):
@@ -642,7 +642,7 @@ def test_bf16_train_step_launches_only_bf16_kernels(gen):
     finite loss; the parameters move and stay float32."""
     model, state, step, batch = _small_train()
     before = model.decoder.conv0.weight.detach().clone()
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     loss = step(state, batch, 7)
     torch.cuda.synchronize()
     assert {k: launches_of(k) for k in ("linear_attention", "dwconv", "fused_loftr")} == {
@@ -682,7 +682,6 @@ def _train_run(monkeypatch, graphed, compute_dtype, **options):
     ``loss``, the losses as returned, the optimizer's count, the kernel
     counters' increments of the last step and the ``train.`` counters."""
     from chip_smoke import flat_state
-    from cfpnet_torch import tracing
     from cfpnet_torch.train import steps
 
     with monkeypatch.context() as m:
@@ -814,9 +813,9 @@ def test_captured_forward_bf16(gen):
     config, model, geoms, inputs = _captured_model()
     cast_to_compute_dtype(model, torch.bfloat16)
     one = [inputs[0][:1].bfloat16(), inputs[1][:1].bfloat16(), inputs[2][:1]]
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     want = _eager(model, one, geoms)
-    assert (linear_attention.launches, dwconv.launches, fused_loftr.launches) == (3, 3, 9)
+    assert launch_counts().items() >= dict(linear_attention=3, dwconv=3, fused_loftr=9).items()
     captured = CapturedForward(model, geoms, 1, config)
     _assert_equal(captured(*one)[:3], want)
     with pytest.raises(ValueError):
@@ -852,9 +851,8 @@ def test_config_forward_launches(gen, name):
     config = smoke_config().replace(tiny_model=False, attention_layer=layers)
     model = load_model(config)
     _, _, geoms, inputs = _captured_model()
-    kernels.reset_launches()
+    tracing.reset_counters("kernel.")
     out = _eager(model, [a[:1] for a in inputs], geoms)
     torch.cuda.synchronize()
     assert torch.isfinite(out[1]).all()
-    assert {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels.KERNELS} == \
-        CONFIG_LAUNCHES[name]
+    assert launch_counts() == CONFIG_LAUNCHES[name]

@@ -3,8 +3,8 @@ nesting, parents, roots and self time while it is on; spans that record
 while a torch.profiler session runs and add no event to it; the shared clock
 with the profiler's events; the loader's two threads; a tiny training run's
 epoch line; a tiny train step bit for bit the same with tracing on and off;
-the counters under many threads; and the kernels' launch counts as views of
-the counters."""
+the counters under many threads; and the kernels' launch counts read and
+reset through the counters."""
 
 import json
 import os
@@ -302,19 +302,21 @@ def test_counters_and_spans_under_many_threads():
         assert s.root == o.id and o.start_ns <= s.start_ns <= s.end_ns <= o.end_ns
 
 
-def test_kernel_launch_counts_are_views_of_the_counters():
-    kernels.reset_launches()
-    assert (dwconv.launches, dwconv.launches_by_dtype) == (0, {})
+def test_kernel_launches_are_read_and_reset_through_the_counters():
+    """A wrapper counts its launches in ``kernel.<name>.launches.<dtype>``:
+    ``tracing.counters`` reads them by prefix and ``reset_counters`` clears
+    them, one kernel's or all; no wrapper module keeps a view of its own."""
+    tracing.reset_counters("kernel.")
+    assert tracing.counters("kernel.") == {}
     dtypes.count_launch("dwconv", torch.bfloat16)
     dtypes.count_launch("dwconv", torch.float32)
     dtypes.count_launch("dwconv", torch.float32)
     dtypes.count_launch("fused_loftr", torch.float32)
-    assert dwconv.launches == 3 and dwconv.launches_by_dtype == {"bfloat16": 1, "float32": 2}
-    assert tracing.counters("kernel.dwconv.") == {"kernel.dwconv.launches.bfloat16": 1,
-                                                  "kernel.dwconv.launches.float32": 2}
-    dwconv.reset_launches()
-    assert dwconv.launches == 0 and fused_loftr.launches == 1
-    kernels.reset_launches()
-    assert fused_loftr.launches == 0 and tracing.counters() == {}
-    with pytest.raises(AttributeError):
-        dwconv.no_such_counter
+    assert tracing.counters("kernel.dwconv.launches.") == {"kernel.dwconv.launches.bfloat16": 1,
+                                                           "kernel.dwconv.launches.float32": 2}
+    tracing.reset_counters("kernel.dwconv.")
+    assert tracing.counters("kernel.") == {"kernel.fused_loftr.launches.float32": 1}
+    tracing.reset_counters("kernel.")
+    assert tracing.counters() == {}
+    for module in (kernels.bn_act, dwconv, fused_loftr, kernels.linear_attention):
+        assert not hasattr(module, "launches")
